@@ -1,0 +1,109 @@
+"""Build the CUDA sources under ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled at first use into its own shared
+library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/torch_kernels/lib<name>_<hash>.so <name>.cu
+
+The file name carries a hash of the source, so an edited kernel is rebuilt
+and a stale library is never loaded.  No PyTorch headers are compiled, which
+keeps a build to seconds.  Every C entry point returns ``cudaGetLastError()``
+after its launch; :func:`check` raises when that is not ``cudaSuccess``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, 'csrc')
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), 'build', 'torch_kernels')
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC']
+
+_LIBS = {}
+#: seconds each library took to compile in this process (0.0 when the
+#: library was already on disk)
+BUILD_SECONDS = {}
+
+VOIDP = ctypes.c_void_p
+INT = ctypes.c_int
+FLOAT = ctypes.c_float
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    path = os.path.join(home, 'bin', 'nvcc')
+    if os.path.isfile(path):
+        return path
+    raise RuntimeError('nvcc not found: the CUDA kernels build only where '
+                       'the CUDA toolkit is installed')
+
+
+def load(name, signatures):
+    """Compile (once) and load ``csrc/<name>.cu``.
+
+    :param signatures: {C function name: list of ctypes argument types};
+        every function returns an int (``cudaError_t``)
+    :returns: the ``ctypes.CDLL``
+    """
+    lib = _LIBS.get(name)
+    if lib is not None:
+        return lib
+    src = os.path.join(CSRC, name + '.cu')
+    with open(src, 'rb') as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, digest))
+    seconds = 0.0
+    if not os.path.isfile(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = '%s.%d.tmp' % (out, os.getpid())
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError('nvcc failed on %s:\n%s%s'
+                               % (src, proc.stdout, proc.stderr))
+        os.replace(tmp, out)
+        seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(out)
+    for fn_name, argtypes in signatures.items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _LIBS[name] = lib
+    BUILD_SECONDS[name] = seconds
+    return lib
+
+
+def check(err, what):
+    """Raise when a launch returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError('%s: CUDA launch failed with error %d' % (what, err))
+
+
+def stream_ptr(tensor):
+    """The current CUDA stream of the tensor's device, as a C pointer."""
+    import torch
+    return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+def require(tensor, name, dtype, shape=None):
+    """Validate a kernel operand: on CUDA, dtype, shape, contiguous."""
+    if not tensor.is_cuda:
+        raise ValueError('%s must be a CUDA tensor' % name)
+    if tensor.dtype != dtype:
+        raise ValueError('%s must be %s, got %s' % (name, dtype, tensor.dtype))
+    if shape is not None and tuple(tensor.shape) != tuple(shape):
+        raise ValueError('%s must have shape %s, got %s'
+                         % (name, tuple(shape), tuple(tensor.shape)))
+    if not tensor.is_contiguous():
+        raise ValueError('%s must be contiguous' % name)
+    return tensor

@@ -1,0 +1,236 @@
+"""PyTorch grid ops and MRF vs the JAX package on the CPU.
+
+``grid_lookup`` and ``grid_adjacency`` are held exactly against the JAX XLA
+path and against the Pallas kernels they replace, run in interpret mode.
+Labels come from the JAX SLIC of synthetic images made from numpy seeds.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from pyimsegm_tpu.ops import graphcut as jgc
+from pyimsegm_tpu.ops import grid as jgrid
+from pyimsegm_tpu.ops import grid_pallas
+from pyimsegm_tpu.ops import slic as jslic
+from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+from pyimsegm_tpu_torch.ops import graphcut as tgc
+from pyimsegm_tpu_torch.ops import grid as tgrid
+from pyimsegm_tpu_torch.ops import grid_cuda
+from pyimsegm_tpu_torch.ops import slic as tslic
+
+torch.set_num_threads(1)
+
+SP = 16
+SHAPES = [(96, 140), (101, 133)]
+
+
+@pytest.fixture(scope='module', params=SHAPES, ids=['even', 'padded'])
+def scene(request):
+    """(labels (H, W) int32 numpy from the JAX SLIC, JAX cfg, torch cfg)."""
+    shape = request.param
+    img = sample_color_image_rand_segment(shape, 3, rand_seed=3)[0]
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    labels = np.asarray(jslic._slic_segment_xla(jnp.asarray(img), cfg, m))
+    return labels, cfg, tslic.slic_config(*shape, SP)
+
+
+def _pallas_interpret(fn, *args):
+    orig = pl.pallas_call
+    calls = []
+
+    def call(*a, **k):
+        k['interpret'] = True
+        calls.append(1)
+        return orig(*a, **k)
+
+    jax.clear_caches()
+    with mock.patch.object(grid_pallas.pl, 'pallas_call', call):
+        out = np.asarray(fn(*args))
+    assert calls
+    return out
+
+
+def _damaged(labels, cfg, seed=0):
+    """Labels with a sprinkle of -2, out-of-range and out-of-window ids."""
+    rng = np.random.default_rng(seed)
+    out = labels.copy()
+    idx = rng.choice(out.size, size=out.size // 50, replace=False)
+    vals = rng.choice([-2, -1, cfg.n_segments + 3, 0, cfg.n_segments - 1],
+                      size=idx.size)
+    out.ravel()[idx] = vals
+    return out
+
+
+def test_grid_lookup_matches_jax_and_pallas(scene):
+    labels, cfg, tcfg = scene
+    table = np.random.default_rng(1).random((cfg.n_segments, 3), np.float32)
+    ref = np.asarray(jgrid.grid_lookup(jnp.asarray(table), jnp.asarray(labels),
+                                       cfg))
+    out = tgrid.grid_lookup(torch.as_tensor(table), torch.as_tensor(labels),
+                            tcfg).numpy()
+    np.testing.assert_array_equal(out, ref)
+    pal = _pallas_interpret(grid_pallas.grid_lookup_pallas,
+                            jnp.asarray(table), jnp.asarray(labels), cfg)
+    np.testing.assert_array_equal(
+        grid_cuda.grid_lookup(torch.as_tensor(table), torch.as_tensor(labels),
+                              tcfg).numpy(), pal)
+
+
+def test_grid_lookup_int_table_and_invalid_labels(scene):
+    labels, cfg, tcfg = scene
+    bad = _damaged(labels, cfg)
+    table = np.arange(cfg.n_segments, dtype=np.int32) % 3
+    ref = np.asarray(jgrid.grid_lookup(jnp.asarray(table), jnp.asarray(bad),
+                                       cfg))
+    out = tgrid.grid_lookup(torch.as_tensor(table), torch.as_tensor(bad), tcfg)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    ftab = np.random.default_rng(2).random((cfg.n_segments, 2), np.float32)
+    pal = _pallas_interpret(grid_pallas.grid_lookup_pallas,
+                            jnp.asarray(ftab), jnp.asarray(bad), cfg)
+    np.testing.assert_array_equal(
+        grid_cuda.grid_lookup(torch.as_tensor(ftab), torch.as_tensor(bad),
+                              tcfg).numpy(), pal)
+
+
+@pytest.mark.parametrize('damage', [False, True], ids=['slic', 'damaged'])
+def test_grid_adjacency_matches_jax_and_pallas(scene, damage):
+    labels, cfg, tcfg = scene
+    if damage:
+        labels = _damaged(labels, cfg, seed=4)
+    ref = np.asarray(jgrid.grid_adjacency(jnp.asarray(labels), cfg))
+    out = tgrid.grid_adjacency(torch.as_tensor(labels), tcfg).numpy()
+    np.testing.assert_array_equal(out, ref)
+    pal = _pallas_interpret(grid_pallas.grid_adjacency_presence_pallas,
+                            jnp.asarray(labels), cfg)           # (gh,gw,9,25)
+    words = grid_cuda.grid_adjacency_presence(torch.as_tensor(labels), tcfg)
+    bits = (words[..., None] >> torch.arange(25, dtype=torch.int32)) & 1
+    np.testing.assert_array_equal(bits.numpy().astype(np.float32), pal)
+
+
+def test_grid_segment_sum_matches_jax(scene):
+    labels, cfg, tcfg = scene
+    data = np.random.default_rng(5).normal(
+        size=labels.shape + (4,)).astype(np.float32)
+    ref = np.asarray(jgrid.grid_segment_sum(jnp.asarray(data),
+                                            jnp.asarray(labels), cfg))
+    out = tgrid.grid_segment_sum(torch.as_tensor(data),
+                                 torch.as_tensor(labels), tcfg).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-4)
+
+
+def _proba_centers(cfg, seed):
+    rng = np.random.default_rng(seed)
+    logits = rng.normal(scale=2.0, size=(cfg.n_segments, 3))
+    proba = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    gy, gx = np.meshgrid(np.arange(cfg.grid_h), np.arange(cfg.grid_w),
+                         indexing='ij')
+    centers = np.stack([gy, gx], -1).reshape(-1, 2) * cfg.step \
+        + rng.uniform(0, cfg.step, size=(cfg.n_segments, 2))
+    return proba.astype(np.float32), centers.astype(np.float32)
+
+
+@pytest.mark.parametrize('edge_type', ['model', 'model_l1', 'model_l2',
+                                       'spatial', 'features', 'color', ''])
+def test_grid_edge_weights_match_jax(scene, edge_type):
+    labels, cfg, tcfg = scene
+    proba, centers = _proba_centers(cfg, 6)
+    rng = np.random.default_rng(8)
+    features = rng.normal(size=(cfg.n_segments, 5)).astype(np.float32)
+    mean_color = rng.random((cfg.n_segments, 3)).astype(np.float32)
+    ref = np.asarray(jgrid.grid_edge_weights(
+        jnp.asarray(labels), cfg, proba=jnp.asarray(proba),
+        features=jnp.asarray(features), mean_color=jnp.asarray(mean_color),
+        edge_type=edge_type, centers=jnp.asarray(centers)))
+    out = tgrid.grid_edge_weights(
+        torch.as_tensor(labels), tcfg, proba=torch.as_tensor(proba),
+        features=torch.as_tensor(features),
+        mean_color=torch.as_tensor(mean_color), edge_type=edge_type,
+        centers=torch.as_tensor(centers)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_grid_edge_weights_centres_from_labels(scene):
+    """Without given centres the weights reduce them from the labels."""
+    labels, cfg, tcfg = scene
+    proba, _ = _proba_centers(cfg, 7)
+    ref = np.asarray(jgrid.grid_edge_weights(jnp.asarray(labels), cfg,
+                                             proba=jnp.asarray(proba)))
+    out = tgrid.grid_edge_weights(torch.as_tensor(labels), tcfg,
+                                  proba=torch.as_tensor(proba)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_solve_mrf_grid_matches_jax(scene, seed):
+    labels, cfg, tcfg = scene
+    proba, centers = _proba_centers(cfg, 10 + seed)
+    unary = np.asarray(jgc.compute_unary_cost(jnp.asarray(proba)))
+    wgrid = np.asarray(jgrid.grid_edge_weights(
+        jnp.asarray(labels), cfg, proba=jnp.asarray(proba),
+        centers=jnp.asarray(centers)))
+    pairwise = jgc.compute_pairwise_cost(2.0, 3).astype(np.float32)
+    ref = np.asarray(jgrid.solve_mrf_grid(jnp.asarray(unary),
+                                          jnp.asarray(wgrid),
+                                          jnp.asarray(pairwise), cfg))
+    out = tgrid.solve_mrf_grid(torch.as_tensor(unary), torch.as_tensor(wgrid),
+                               torch.as_tensor(pairwise), tcfg)
+    assert out.dtype == torch.int32
+    np.testing.assert_array_equal(out.numpy(), ref)
+    lab_grid = ref.reshape(cfg.grid_h, cfg.grid_w)
+    e_ref = float(jgrid.grid_mrf_energy(
+        jnp.asarray(lab_grid), jnp.asarray(unary).reshape(
+            cfg.grid_h, cfg.grid_w, 3), jnp.asarray(wgrid),
+        jnp.asarray(pairwise)))
+    e_out = float(tgrid.grid_mrf_energy(
+        torch.as_tensor(lab_grid), torch.as_tensor(unary).reshape(
+            cfg.grid_h, cfg.grid_w, 3), torch.as_tensor(wgrid),
+        torch.as_tensor(pairwise)))
+    assert e_out == pytest.approx(e_ref, rel=1e-5)
+
+
+def test_graph_cut_costs_and_argmin_shortcut(scene):
+    labels, cfg, tcfg = scene
+    proba, _ = _proba_centers(cfg, 20)
+    np.testing.assert_allclose(
+        tgc.compute_unary_cost(torch.as_tensor(proba)).numpy(),
+        np.asarray(jgc.compute_unary_cost(jnp.asarray(proba))), rtol=1e-6)
+    for regul in (2.0, np.array([[0., 1., 3.], [1., 0., 2.], [3., 2., 0.]]),
+                  [((0, 1), 5.0)]):
+        np.testing.assert_array_equal(tgc.compute_pairwise_cost(regul, 3),
+                                      jgc.compute_pairwise_cost(regul, 3))
+    ref = np.asarray(jgc.segment_graph_cut_general(
+        jnp.asarray(labels), jnp.asarray(proba), cfg.n_segments, gc_regul=0))
+    out = tgc.segment_graph_cut_general(
+        torch.as_tensor(labels), torch.as_tensor(proba), cfg.n_segments,
+        gc_regul=0)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    with pytest.raises(NotImplementedError):
+        tgc.segment_graph_cut_general(torch.as_tensor(labels),
+                                      torch.as_tensor(proba), cfg.n_segments,
+                                      gc_regul=1.0)
+
+
+@pytest.mark.parametrize('edge_type', ['model', 'color'])
+def test_segment_graph_cut_grid_matches_jax(scene, edge_type):
+    labels, cfg, tcfg = scene
+    proba, centers = _proba_centers(cfg, 21)
+    image = sample_color_image_rand_segment(labels.shape, 3,
+                                            rand_seed=3)[0] * 255.0
+    ref = np.asarray(jgc.segment_graph_cut_general(
+        jnp.asarray(labels), jnp.asarray(proba), cfg.n_segments,
+        image=jnp.asarray(image), gc_regul=2.0, edge_type=edge_type,
+        grid_ctx=(jnp.asarray(labels), cfg), centers=jnp.asarray(centers)))
+    out = tgc.segment_graph_cut_general(
+        torch.as_tensor(labels), torch.as_tensor(proba), cfg.n_segments,
+        image=torch.as_tensor(image), gc_regul=2.0, edge_type=edge_type,
+        grid_ctx=(torch.as_tensor(labels), tcfg),
+        centers=torch.as_tensor(centers))
+    np.testing.assert_array_equal(out.numpy(), ref)

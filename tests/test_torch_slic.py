@@ -1,0 +1,208 @@
+"""PyTorch SLIC port vs the JAX package on the CPU.
+
+The port's plain path (what a CPU tensor runs) is held against the JAX
+functions as the JAX suite runs them here: the XLA formulation, and the
+Pallas kernels in interpret mode for the kernel contracts.  Inputs are
+synthetic images made from numpy seeds.
+"""
+
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from pyimsegm_tpu.ops import slic as jslic
+from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+from pyimsegm_tpu_torch.ops import prep_cuda, slic_cuda
+from pyimsegm_tpu_torch.ops import slic as tslic
+
+torch.set_num_threads(1)
+
+SP = 16
+#: one shape whose tiles fit, one whose last tile row and column pad
+SHAPES = [(96, 140), (101, 133)]
+
+
+def _image(shape, seed=3):
+    return sample_color_image_rand_segment(shape, 3, rand_seed=seed)[0]
+
+
+def _interpret(module):
+    """Run ``module``'s pallas_call in interpret mode and count the calls."""
+    orig = pl.pallas_call
+    calls = []
+
+    def call(*args, **kwargs):
+        kwargs['interpret'] = True
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    jax.clear_caches()
+    return mock.patch.object(module.pl, 'pallas_call', call), calls
+
+
+def test_slic_config_matches_jax():
+    for shape in SHAPES + [(7, 5), (884, 1200)]:
+        for sp in (2, 16, 35):
+            assert tuple(tslic.slic_config(*shape, sp)) == \
+                tuple(jslic.slic_config(*shape, sp))
+    assert tslic.compactness_from_regul(35, 0.2) == \
+        jslic.compactness_from_regul(35, 0.2)
+    assert tslic.DEFAULT_SLIC_ITERS == jslic.DEFAULT_SLIC_ITERS
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_prepare_chw_matches_jax(shape):
+    img = _image(shape)
+    cfg = jslic.slic_config(*shape, SP)
+    lab_j, cen_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    lab_t, cen_t = tslic._prepare_chw(torch.as_tensor(img),
+                                      tslic.slic_config(*shape, SP))
+    assert lab_t.dtype == torch.bfloat16
+    assert tuple(lab_t.shape) == (3, cfg.pad_h, cfg.pad_w)
+    lab_j = np.asarray(lab_j.astype(jnp.float32))
+    assert (lab_j == lab_t.float().numpy()).mean() >= 0.999
+    np.testing.assert_allclose(cen_t.numpy(), np.asarray(cen_j), atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_gaussian_blur_and_lab_match_jax(shape):
+    img = _image(shape, seed=5)
+    blur_j = np.asarray(jslic.gaussian_blur(jnp.asarray(img), 1.0))
+    blur_t = tslic.gaussian_blur(torch.as_tensor(img), 1.0).numpy()
+    np.testing.assert_allclose(blur_t, blur_j, rtol=1e-5, atol=1e-6)
+    lab_j = np.asarray(jslic._prepare_image(jnp.asarray(img)))
+    lab_t = tslic._prepare_image(torch.as_tensor(img)).numpy()
+    np.testing.assert_allclose(lab_t, lab_j, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_blur_lab_plain_matches_pallas_interpret(shape):
+    from pyimsegm_tpu.ops import prep_pallas
+    img = _image(shape, seed=7)
+    patch, calls = _interpret(prep_pallas)
+    with patch:
+        ref = np.asarray(prep_pallas.blur_lab_pallas(jnp.asarray(img))
+                         .astype(jnp.float32))
+    assert calls
+    out = prep_cuda.blur_lab(torch.as_tensor(img)).float().numpy()
+    assert out.shape == ref.shape
+    assert (out == ref).mean() >= 0.999
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_segment_xla_matches_jax(shape):
+    img = _image(shape)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    lj = np.asarray(jslic._slic_segment_xla(jnp.asarray(img), cfg, m))
+    lt = tslic._slic_segment_xla(torch.as_tensor(img),
+                                 tslic.slic_config(*shape, SP), m)
+    assert lt.dtype == torch.int32 and tuple(lt.shape) == shape
+    assert (lt.numpy() == lj).mean() >= 0.999
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_segment_with_features_matches_jax(shape):
+    img = _image(shape, seed=11)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    ref = jslic.slic_segment_with_features(jnp.asarray(img), jnp.asarray(img),
+                                           cfg, m)
+    out = tslic.slic_segment_with_features(
+        torch.as_tensor(img), torch.as_tensor(img),
+        tslic.slic_config(*shape, SP), m)
+    lt, lj = out[0].numpy(), np.asarray(ref[0])
+    assert (lt == lj).mean() >= 0.999
+    same = same_superpixels(lt, lj, cfg.n_segments)
+    assert same.mean() >= 0.9
+    for got, want in zip(out[1:], ref[1:]):
+        np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
+                                   rtol=1e-5, atol=1e-4)
+
+
+def same_superpixels(labels_a, labels_b, k):
+    """(K,) bool: superpixels that hold the same pixels in both maps (no
+    pixel where the maps differ carries their label in either)."""
+    diff = labels_a != labels_b
+    touched = np.zeros(k, bool)
+    touched[labels_a[diff]] = True
+    touched[labels_b[diff]] = True
+    return ~touched
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_kernel_twins_match_pallas_interpret(shape):
+    """The plain twins of the two SLIC kernels against the Pallas kernels
+    they replace.  From the same centres the final pass agrees exactly.  The
+    Pallas kernels score candidates in dot-product form, which rounds
+    differently from the explicit differences: over 9 update rounds a few
+    pixels flip, each moving its centres by well under 0.1, so the chained
+    result is held to the repo's Pallas-vs-XLA label bar (0.995)."""
+    from pyimsegm_tpu.ops import slic_pallas
+    img = _image(shape, seed=13)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    lab_j, cen0_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    sw2 = (jnp.float32(m) / cfg.step) ** 2
+    feat = np.zeros((3, cfg.pad_h, cfg.pad_w), np.float32)
+    feat[:, :shape[0], :shape[1]] = img.transpose(2, 0, 1)
+    patch, calls = _interpret(slic_pallas)
+    with patch:
+        cen_j = slic_pallas.slic_multi_update_pallas(lab_j, cen0_j, sw2, cfg,
+                                                     n_upd=9)
+        lb_j, part_j = slic_pallas.slic_update_labels_pallas(
+            lab_j, cen_j, sw2, cfg, feat_chw=jnp.asarray(feat))
+    assert len(calls) == 2
+
+    tcfg = tslic.slic_config(*shape, SP)
+    lab_t = torch.as_tensor(np.array(lab_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    cen_t = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=9)
+    np.testing.assert_allclose(cen_t.numpy(), np.asarray(cen_j), atol=0.1)
+    lb_chain, _ = slic_cuda.slic_update_labels(lab_t, cen_t, m, tcfg)
+    assert (lb_chain.numpy() == np.asarray(lb_j)).mean() >= 0.995
+
+    lb_t, part_t = slic_cuda.slic_update_labels(
+        lab_t, torch.as_tensor(np.array(cen_j)), m, tcfg,
+        feat_chw=torch.as_tensor(feat))
+    assert lb_t.dtype == torch.int32
+    assert (lb_t.numpy() == np.asarray(lb_j)).mean() >= 0.999
+    assert part_t.shape == part_j.shape
+    np.testing.assert_allclose(part_t.numpy(), np.asarray(part_j), rtol=1e-5,
+                               atol=1e-3)
+
+
+def test_combine_sums_matches_jax():
+    from pyimsegm_tpu.ops import slic_pallas
+    parts = np.random.default_rng(0).normal(size=(5, 7, 9, 12)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        slic_cuda.combine_sums(torch.as_tensor(parts)).numpy(),
+        np.asarray(slic_pallas.combine_sums(jnp.asarray(parts))))
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_update_labels_twin_pools_its_own_assignment(shape):
+    """The final-pass partials are the per-(tile, offset) sums over exactly
+    the labels the same pass writes, pad pixels excluded."""
+    img = _image(shape, seed=17)
+    cfg = tslic.slic_config(*shape, SP)
+    m = tslic.compactness_from_regul(SP, 0.2)
+    lab, cen0 = tslic._prepare_chw(torch.as_tensor(img), cfg)
+    feat = torch.zeros((3, cfg.pad_h, cfg.pad_w))
+    feat[:, :shape[0], :shape[1]] = torch.as_tensor(img).permute(2, 0, 1)
+    labels, part = slic_cuda.slic_update_labels(lab, cen0, m, cfg, feat)
+    sums = slic_cuda.combine_sums(part).reshape(cfg.n_segments, 12)
+    lab_c = labels[:shape[0], :shape[1]].long().reshape(-1)
+    counts = torch.bincount(lab_c, minlength=cfg.n_segments).float()
+    np.testing.assert_array_equal(sums[:, 5].numpy(), counts.numpy())
+    v0 = torch.zeros(cfg.n_segments).index_add_(
+        0, lab_c, torch.as_tensor(img[..., 0]).reshape(-1))
+    np.testing.assert_allclose(sums[:, 6].numpy(), v0.numpy(), rtol=1e-5,
+                               atol=1e-4)

@@ -1,0 +1,63 @@
+"""Write the JAX-CPU reference fixture that the PyTorch port is checked against.
+
+Fits the group class model with the JAX package over two synthetic colour
+images at the bench geometry (884x1200, sp_size 35, regul 0.2, 3 classes),
+then segments image 0 with ``connectivity=False`` and stores:
+
+* the fitted ``ClassModel`` arrays (the weight carrier
+  ``pyimsegm_tpu_torch.models.class_model.class_model_from_numpy`` reads);
+* the JAX segmentation ``segm`` (uint8) and SLIC labels ``slic`` (int16).
+
+``chip_smoke.py`` reads the file on the GPU machine, which has no JAX.
+
+Run on the CPU (about half a minute)::
+
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
+"""
+
+import os
+import sys
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
+CROP = (884, 1200)
+SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
+FEATURES = {'color': ['mean', 'std', 'energy']}
+
+
+def main():
+    os.environ.setdefault('JAX_PLATFORMS', 'cpu')
+    sys.path.insert(0, ROOT)
+    import jax
+    jax.config.update('jax_platforms', 'cpu')
+    from pyimsegm_tpu import pipelines
+    from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+
+    imgs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)[0]
+            for s in (0, 1)]
+    model, _ = pipelines.estim_model_classes_group(
+        imgs, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL)
+    dv = {}
+    segm, _soft = pipelines.segment_color2d_slic_features_model_graphcut(
+        imgs[0], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+        gc_regul=GC_REGUL, debug_visual=dv, connectivity=False)
+
+    arrays = {'weights': model.gmm.weights, 'means': model.gmm.means,
+              'covs': model.gmm.covs}
+    for name in ('scaler_mean', 'scaler_scale', 'pca_components',
+                 'pca_mean', 'pca_mask'):
+        val = getattr(model, name)
+        if val is not None:
+            arrays[name] = val
+    arrays = {k: np.asarray(v, np.float32) for k, v in arrays.items()}
+    os.makedirs(os.path.dirname(OUT), exist_ok=True)
+    np.savez_compressed(OUT, segm=np.asarray(segm).astype(np.uint8),
+                        slic=np.asarray(dv['slic']).astype(np.int16),
+                        **arrays)
+    print('wrote %s (%d bytes)' % (OUT, os.path.getsize(OUT)))
+
+
+if __name__ == '__main__':
+    main()
