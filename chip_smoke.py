@@ -8,20 +8,31 @@ Run from the root of a checkout on a machine with one CUDA card::
 Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
-2. build the CUDA kernels from ``pyimsegm_tpu_torch/csrc`` (nvcc, at first
-   use, into ``build/torch_kernels/``) and print the build seconds;
-3. for each of the five kernels, at the bench geometry (884x1200,
-   sp_size 35, regul 0.2): kernel and plain PyTorch twin on the same inputs
-   on the card, agreement within the stated tolerance, and both times;
-4. end to end: three synthetic 884x1200 images through
+2. build the CUDA kernels from ``pyimsegm_tpu_torch/csrc`` (one nvcc per
+   source, all started together, into ``build/torch_kernels/``) and print
+   the build seconds;
+3. for each kernel, at the bench geometry (884x1200, sp_size 35, regul 0.2)
+   on the labels the SLIC kernels produce: kernel and plain PyTorch twin on
+   the same inputs on the card, agreement within the stated tolerance, and
+   both times;
+4. the ``connectivity=False`` path: three synthetic 884x1200 images through
    ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
-   with the GMM class model of ``tests/data/torch_port_fixture.npz``; every
-   kernel must have launched during that run, and image 0 must agree with
-   the stored JAX-CPU result (segmentation ARS >= 0.98, SLIC labels
-   >= 0.999); then warm ms per image.
+   with the GMM class model of ``tests/data/torch_port_fixture.npz``; each
+   of its kernels must have launched, and image 0 must agree with the
+   stored JAX-CPU result (segmentation ARS >= 0.98, SLIC labels >= 0.999);
+5. the bench path: image 0 through the same call at its default
+   ``connectivity=True`` against ``tests/data/torch_port_fixture_conn.npz``
+   (ARS >= 0.98, enforced labels >= 0.999 equal), then eight images through
+   ``parallel.batch.segment_images_batch``, image i equal to the
+   single-image call on image i; all eight kernels of the path must have
+   launched; warm ms per image and MPix/s;
+6. the enforcement op with centroids reduced from the labels
+   (``ops.grid.enforce_grid_connectivity(..., centers=None)``), which runs
+   the donor-less moments kernel.
 
-The second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.
+Every path is driven with the launch counts set to 0 just before it and
+read just after.  The second-to-last line is the kernels' JSON record, the
+last line ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -34,11 +45,15 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
+FIXTURE_CONN = os.path.join(ROOT, 'tests', 'data',
+                            'torch_port_fixture_conn.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
 REPS = 20
 DEVICE = 'cuda'
+BATCH = 8
+LIBRARIES = ('prep', 'slic', 'grid', 'enforce')
 
 
 def _time_ms(fn, reps=REPS):
@@ -175,78 +190,285 @@ def kernel_phases(torch, img):
         _time_ms(lambda: grid_cuda._grid_adjacency_presence_plain(labels,
                                                                   cfg)),
         'exact'))
+    sums = slic_cuda.combine_sums(part_k)
+    centers = (sums[..., 3:5] / torch.clamp_min(sums[..., 5:6], 1.0)) \
+        .reshape(cfg.n_segments, 2)
+    records += enforce_phases(torch, img, labels, centers, cfg)
+    return records
+
+
+def _sums_agree(got, want):
+    """rtol 1e-5 plus 1e-5 of the channel's largest sum: the sums are added
+    in another order than the plain twin's.  Returns (ok, max abs diff)."""
+    diff = (got - want).abs()
+    scale = want.abs().amax(dim=0, keepdim=True)
+    return (bool((diff <= 1e-5 * want.abs() + 1e-5 * scale).all()),
+            float(diff.max()))
+
+
+def _window_donor(torch, cfg, device):
+    """A donor table of random seeds within +-1 grid cell: most pixels merge,
+    those whose tile lies further from the donor keep their label."""
+    rng = np.random.default_rng(1)
+    gy, gx = np.divmod(np.arange(cfg.n_segments), cfg.grid_w)
+    ny = np.clip(gy + rng.integers(-1, 2, gy.size), 0, cfg.grid_h - 1)
+    nx = np.clip(gx + rng.integers(-1, 2, gx.size), 0, cfg.grid_w - 1)
+    return torch.as_tensor((ny * cfg.grid_w + nx).astype(np.int32),
+                           device=device)
+
+
+def enforce_phases(torch, img, labels, centers, cfg):
+    """The three kernels of the enforcement and min-size merge (and the
+    donor-less moments mode) against their twins at the bench geometry, on
+    the SLIC kernels' labels and centroids of image 0 and, for the
+    enforcement, also of the bench's noise fallback image, whose fragmented
+    superpixels make the absorb do real work."""
+    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    records = []
+
+    noise = torch.as_tensor(np.random.default_rng(0).random(
+        CROP + (3,), dtype=np.float32), device=img.device)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    noise_labels, _, noise_centers, _ = slic_ops.slic_segment_with_features(
+        noise, noise, cfg, m)
+    notes, times = [], []
+    for lab, cen in ((labels, centers), (noise_labels, noise_centers)):
+        enf = enforce_cuda.enforce_fused(lab, cen, cfg)
+        enf_p = enforce_cuda._enforce_fused_plain(lab, cen, cfg)
+        torch.cuda.synchronize()
+        n_diff = int((enf != enf_p).sum())
+        if n_diff:
+            raise AssertionError('enforce_fused: %d pixels differ' % n_diff)
+        notes.append(float((enf != lab).float().mean()))
+        times.append((
+            _time_ms(lambda: enforce_cuda.enforce_fused(lab, cen, cfg)),
+            _time_ms(lambda: enforce_cuda._enforce_fused_plain(lab, cen, cfg),
+                     reps=5)))
+    print('enforce_fused on the noise image: kernel %.4f ms, plain %.4f ms'
+          % times[1], flush=True)
+    enf = enforce_cuda.enforce_fused(labels, centers, cfg)
+    records.append(_record(
+        'enforce_fused', 'pyimsegm_tpu_torch/csrc/enforce.cu',
+        'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0, times[0][0],
+        times[0][1], 'exact (%.6f / %.6f of pixels relabelled: image 0 / '
+        'noise)' % tuple(notes)))
+
+    cnt_k, c9_k = grid_cuda.grid_pair_count(enf, cfg)
+    cnt_p, c9_p = grid_cuda._grid_pair_count_plain(enf, cfg)
+    torch.cuda.synchronize()
+    if not (torch.equal(cnt_k, cnt_p) and torch.equal(c9_k, c9_p)):
+        raise AssertionError('grid_pair_count differs')
+    records.append(_record(
+        'grid_pair_count', 'pyimsegm_tpu_torch/csrc/grid.cu',
+        'pyimsegm_tpu/ops/grid_pallas.py:478', 0.0,
+        _time_ms(lambda: grid_cuda.grid_pair_count(enf, cfg)),
+        _time_ms(lambda: grid_cuda._grid_pair_count_plain(enf, cfg)),
+        'exact'))
+
+    min_size = int(0.5 * cfg.step * cfg.step)
+    counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
+    donor = grid_ops.donor_chain_table(counts, sym25, cfg.grid_h, cfg.grid_w,
+                                       min_size, counts9=counts9)
+    merges = []
+    err = 0.0
+    for table in (donor, _window_donor(torch, cfg, img.device)):
+        lab_k, sums_k = grid_cuda.grid_moments_apply(img, enf, table, cfg)
+        lab_p, sums_p = grid_cuda._grid_moments_apply_plain(img, enf, table,
+                                                            cfg)
+        torch.cuda.synchronize()
+        ok, diff = _sums_agree(sums_k, sums_p)
+        if not torch.equal(lab_k, lab_p) or not ok:
+            raise AssertionError('grid_moments_apply: %d labels differ, sums '
+                                 'max diff %g' % (int((lab_k != lab_p).sum()),
+                                                  diff))
+        merges.append(int((lab_k != enf).sum()))
+        err = max(err, diff)
+    records.append(_record(
+        'grid_moments_apply', 'pyimsegm_tpu_torch/csrc/grid.cu',
+        'pyimsegm_tpu/ops/grid_pallas.py:302', err,
+        _time_ms(lambda: grid_cuda.grid_moments_apply(img, enf, donor, cfg)),
+        _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, donor,
+                                                             cfg)),
+        'labels exact (%d / %d px merged: chain / window donors), sums '
+        'within rtol 1e-5' % tuple(merges)))
+
+    sums_k = grid_cuda.grid_moments_apply(img, enf, None, cfg)[1]
+    sums_p = grid_cuda._grid_moments_apply_plain(img, enf, None, cfg)[1]
+    torch.cuda.synchronize()
+    ok, err = _sums_agree(sums_k, sums_p)
+    if not ok:
+        raise AssertionError('grid_moments: sums max diff %g' % err)
+    records.append(_record(
+        'grid_moments', 'pyimsegm_tpu_torch/csrc/grid.cu',
+        'pyimsegm_tpu/ops/grid_pallas.py:195', err,
+        _time_ms(lambda: grid_cuda.grid_moments_apply(img, enf, None, cfg)),
+        _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, None,
+                                                             cfg)),
+        'sums within rtol 1e-5'))
     return records
 
 
 def _counters():
-    from pyimsegm_tpu_torch.ops import grid_cuda, prep_cuda, slic_cuda
-    return {'blur_lab': prep_cuda.LAUNCHES,
-            'slic_multi_update': slic_cuda.LAUNCHES['slic_multi_update'],
-            'slic_update_labels': slic_cuda.LAUNCHES['slic_update_labels'],
-            'grid_lookup': grid_cuda.LAUNCHES['grid_lookup'],
-            'grid_adjacency_presence':
-                grid_cuda.LAUNCHES['grid_adjacency_presence']}
+    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
+                                        slic_cuda)
+    counts = {'blur_lab': prep_cuda.LAUNCHES}
+    for table in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
+                  enforce_cuda.LAUNCHES):
+        counts.update(table)
+    return counts
 
 
 def _reset_counters():
-    from pyimsegm_tpu_torch.ops import grid_cuda, prep_cuda, slic_cuda
+    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
+                                        slic_cuda)
     prep_cuda.LAUNCHES = 0
-    for counts in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES):
+    for counts in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
+                   enforce_cuda.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
 
-def end_to_end(torch, fixture):
-    """The port's main path on three 884x1200 images; returns the launch
-    counts of the first pass and the warm ms per image."""
-    from pyimsegm_tpu_torch import pipelines
-    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
-    from pyimsegm_tpu_torch.utils.data_samples import (
-        sample_color_image_rand_segment)
-    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+#: kernels each driven path must launch
+PATH_FALSE = ('blur_lab', 'slic_multi_update', 'slic_update_labels',
+              'grid_lookup', 'grid_adjacency_presence')
+PATH_BENCH = PATH_FALSE + ('grid_pair_count', 'grid_moments_apply',
+                           'enforce_fused')
+PATH_OP = ('enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_lookup')
 
-    model = class_model_from_numpy(fixture).to(DEVICE)
-    images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
-              for s in range(3)]
+
+def _drive(name, kernels, fn):
+    """Run ``fn`` with every launch count set to 0 just before it; fail
+    unless each of ``kernels`` launched.  Returns (fn's result, counts)."""
+    import torch
+    torch.cuda.synchronize()
+    _reset_counters()
+    out = fn()
+    launches = _counters()
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError('%s: kernels not launched: %s' % (name, missing))
+    print('%s launches: %s' % (name, json.dumps(
+        {k: launches[k] for k in kernels})), flush=True)
+    return out, launches
+
+
+def _check_outputs(segm, soft):
+    if segm.shape != CROP or soft.shape != CROP + (3,):
+        raise AssertionError('bad output shapes %s %s'
+                             % (segm.shape, soft.shape))
+    if not np.isfinite(soft).all() or segm.min() < 0 or segm.max() > 2:
+        raise AssertionError('non-finite or out-of-range output')
+
+
+def _warm_ms(torch, fn, n_images):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n_images
+
+
+def _agreement(name, segm, slic, fixture):
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    ars = adjusted_rand_score(segm, fixture['segm'])
+    slic_eq = float((slic == fixture['slic']).mean())
+    print('%s image 0 vs JAX-CPU: segm ARS %.6f (>= 0.98), labels equal %.6f '
+          '(>= 0.999)' % (name, ars, slic_eq), flush=True)
+    if ars < 0.98 or slic_eq < 0.999:
+        raise AssertionError('%s disagrees with the JAX reference' % name)
+
+
+def path_connectivity_false(torch, model, images, fixture):
+    """The connectivity=False path on three images; image 0 against the
+    stored result."""
+    from pyimsegm_tpu_torch import pipelines
 
     def segment(img, debug=None):
         return pipelines.segment_color2d_slic_features_model_graphcut(
             img, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
             gc_regul=GC_REGUL, debug_visual=debug, connectivity=False)
 
-    _reset_counters()
-    outputs = []
-    for i, img in enumerate(images):
-        debug = {} if i == 0 else None
-        outputs.append(segment(img, debug) + (debug,))
-    launches = _counters()
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError('kernels not launched on the main path: %s'
-                             % missing)
+    def run():
+        debug = {}
+        outs = [segment(images[0], debug)]
+        return outs + [segment(img) for img in images[1:3]], debug
 
-    for segm, soft, _ in outputs:
-        if segm.shape != CROP or soft.shape != CROP + (3,):
-            raise AssertionError('bad output shapes %s %s'
-                                 % (segm.shape, soft.shape))
-        if not np.isfinite(soft).all() or segm.min() < 0 or segm.max() > 2:
-            raise AssertionError('non-finite or out-of-range output')
-    segm0, _soft0, debug0 = outputs[0]
-    ars = adjusted_rand_score(segm0, fixture['segm'])
-    slic_eq = float((debug0['slic'] == fixture['slic']).mean())
-    print('e2e image 0 vs JAX-CPU: segm ARS %.6f (>= 0.98), SLIC labels '
-          'equal %.6f (>= 0.999)' % (ars, slic_eq), flush=True)
-    if ars < 0.98 or slic_eq < 0.999:
-        raise AssertionError('end-to-end disagrees with the JAX reference')
+    (outs, debug), _ = _drive('connectivity=False path', PATH_FALSE, run)
+    for segm, soft in outs:
+        _check_outputs(segm, soft)
+    _agreement('connectivity=False', outs[0][0], debug['slic'], fixture)
+    ms = _warm_ms(torch, lambda: [segment(img) for img in images[:3]], 3)
+    print('connectivity=False warm ms per 884x1200 image: %.3f' % ms,
+          flush=True)
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for img in images:
-        segment(img)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3 / len(images)
-    print('e2e warm ms per 884x1200 image: %.3f' % ms, flush=True)
-    print('e2e launches: %s' % json.dumps(launches), flush=True)
+
+def path_bench(torch, model, images, fixture_conn):
+    """The bench path: the single-image call at connectivity=True, then the
+    batch of eight; returns the launch counts."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.parallel import batch
+
+    def segment(img, debug=None):
+        return pipelines.segment_color2d_slic_features_model_graphcut(
+            img, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL, debug_visual=debug)
+
+    def run_batch():
+        return batch.segment_images_batch(
+            stack, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL)
+
+    stack = np.stack(images)
+
+    def run():
+        debug = {}
+        singles = [segment(images[0], debug)]
+        singles += [segment(img) for img in images[1:]]
+        return singles, debug, run_batch()
+
+    (singles, debug, (segms, probs)), launches = _drive(
+        'bench path', PATH_BENCH, run)
+    for segm, soft in singles:
+        _check_outputs(segm, soft)
+    _agreement('connectivity=True', singles[0][0], debug['slic'],
+               fixture_conn)
+    for i, (segm, soft) in enumerate(singles):
+        if not (np.array_equal(segms[i], segm)
+                and np.array_equal(probs[i], soft)):
+            raise AssertionError('batch image %d differs from the single-'
+                                 'image call' % i)
+    print('batch of %d equals the single-image calls image for image'
+          % len(images), flush=True)
+    mpix = CROP[0] * CROP[1] / 1e6
+    ms_one = _warm_ms(torch, lambda: [segment(img) for img in images],
+                      len(images))
+    ms_batch = _warm_ms(torch, run_batch, len(images))
+    print('bench path warm ms per 884x1200 image: single-image call %.3f '
+          '(%.3f MPix/s), batch of %d %.3f (%.3f MPix/s)'
+          % (ms_one, mpix / ms_one * 1e3, len(images), ms_batch,
+             mpix / ms_batch * 1e3), flush=True)
+    return launches
+
+
+def path_enforce_op(torch, img):
+    """``enforce_grid_connectivity`` with centroids reduced from the labels
+    (the donor-less moments kernel) and the min-size merge."""
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
+
+    def run():
+        return grid_ops.enforce_grid_connectivity(
+            labels, cfg, min_size=int(0.5 * cfg.step * cfg.step))
+
+    out, launches = _drive('enforcement op', PATH_OP, run)
+    if out.shape != labels.shape or int(out.min()) < 0 \
+            or int(out.max()) >= cfg.n_segments:
+        raise AssertionError('enforcement op: bad labels')
     return launches
 
 
@@ -261,24 +483,32 @@ def main():
     print(gpu, flush=True)
     sys.path.insert(0, ROOT)
     from pyimsegm_tpu_torch import _build
-    from pyimsegm_tpu_torch.ops import grid_cuda, prep_cuda, slic_cuda
+    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
+    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
+                                        slic_cuda)
     from pyimsegm_tpu_torch.utils.data_samples import (
         sample_color_image_rand_segment)
 
     t0 = time.perf_counter()
-    for mod in (prep_cuda, slic_cuda, grid_cuda):
+    _build.build(LIBRARIES)
+    for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda):
         mod._lib()
     print('build: %.2f s total, per library %s'
           % (time.perf_counter() - t0, json.dumps(_build.BUILD_SECONDS)),
           flush=True)
 
-    with np.load(FIXTURE) as npz:
-        fixture = {k: npz[k] for k in npz.files}
-    img = torch.as_tensor(
-        sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
-        device=DEVICE)
+    fixtures = []
+    for path in (FIXTURE, FIXTURE_CONN):
+        with np.load(path) as npz:
+            fixtures.append({k: npz[k] for k in npz.files})
+    images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
+              for s in range(BATCH)]
+    img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
-    launches = end_to_end(torch, fixture)
+    model = class_model_from_numpy(fixtures[0]).to(DEVICE)
+    path_connectivity_false(torch, model, images, fixtures[0])
+    launches = path_bench(torch, model, images, fixtures[1])
+    launches['grid_moments'] = path_enforce_op(torch, img)['grid_moments']
     for rec in records:
         rec['launches'] = launches[rec['name']]
     print(json.dumps({'kernels': records}), flush=True)

@@ -8,7 +8,7 @@ library with a plain C interface::
 
 The file name carries a hash of the source, so an edited kernel is rebuilt
 and a stale library is never loaded.  No PyTorch headers are compiled, which
-keeps a build to seconds.  Every C entry point returns ``cudaGetLastError()``
+keeps a build to seconds; :func:`build` compiles several sources at once.  Every C entry point returns ``cudaGetLastError()``
 after its launch; :func:`check` raises when that is not ``cudaSuccess``.
 """
 
@@ -27,7 +27,7 @@ NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 
 _LIBS = {}
 #: seconds each library took to compile in this process (0.0 when the
-#: library was already on disk)
+#: library was already on disk); libraries built together overlap
 BUILD_SECONDS = {}
 
 VOIDP = ctypes.c_void_p
@@ -47,6 +47,41 @@ def _nvcc():
                        'the CUDA toolkit is installed')
 
 
+def _paths(name):
+    """(source, library path named by the source's hash)."""
+    src = os.path.join(CSRC, name + '.cu')
+    with open(src, 'rb') as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
+    return src, os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, digest))
+
+
+def build(names):
+    """Compile the libraries of ``names`` that are not on disk yet, one
+    ``nvcc`` process each, all started together; record their seconds."""
+    procs = {}
+    for name in names:
+        src, out = _paths(name)
+        if name in BUILD_SECONDS or os.path.isfile(out):
+            BUILD_SECONDS.setdefault(name, 0.0)
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = '%s.%d.tmp' % (out, os.getpid())
+        procs[name] = (subprocess.Popen(
+            [_nvcc()] + NVCC_FLAGS + ['-o', tmp, src], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), tmp, out, src,
+            time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, src, t0) in procs.items():
+        log = proc.communicate()[0]
+        BUILD_SECONDS[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append('nvcc failed on %s:\n%s' % (src, log))
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+
+
 def load(name, signatures):
     """Compile (once) and load ``csrc/<name>.cu``.
 
@@ -57,29 +92,13 @@ def load(name, signatures):
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    src = os.path.join(CSRC, name + '.cu')
-    with open(src, 'rb') as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, digest))
-    seconds = 0.0
-    if not os.path.isfile(out):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = '%s.%d.tmp' % (out, os.getpid())
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc()] + NVCC_FLAGS + ['-o', tmp, src],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError('nvcc failed on %s:\n%s%s'
-                               % (src, proc.stdout, proc.stderr))
-        os.replace(tmp, out)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(out)
+    build([name])
+    lib = ctypes.CDLL(_paths(name)[1])
     for fn_name, argtypes in signatures.items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     _LIBS[name] = lib
-    BUILD_SECONDS[name] = seconds
     return lib
 
 

@@ -1,23 +1,39 @@
-// Grid-structured superpixel lookup and conn4 adjacency presence.
+// Grid-structured superpixel lookup, conn4 adjacency presence, conn4 pair
+// counts, and the geometry + moments reduce with the min-size donor apply.
 //
-// Replaces two TPU kernels of pyimsegm_tpu/ops/grid_pallas.py:
+// Replaces four TPU kernels of pyimsegm_tpu/ops/grid_pallas.py:
 //   grid_lookup_pallas (_lookup_kernel): per-pixel table[label] for labels
 //     that lie in the 3x3 seed window of their pixel's tile, 0 elsewhere;
 //   grid_adjacency_presence_pallas (_adjacency_kernel): for each tile and
 //     each routing offset of the first endpoint, a 25-bit word of which
-//     relative seed offsets its conn4 right/down neighbour pairs reach.
+//     relative seed offsets its conn4 right/down neighbour pairs reach;
+//   grid_pair_count_pallas (_pair_count_kernel): the same pairs counted per
+//     (tile, offset, channel), and the tile's pixel count per offset;
+//   grid_moments_apply_pallas (_moments_apply_kernel): donor[label] applied
+//     where the donor seed lies in the pixel's 3x3 window, then per-(tile,
+//     offset) sums of [f, f^2, 1, y, x] over the merged labels; without a
+//     donor table the same kernel is grid_moments_pallas (_moments_kernel).
 // The plain twins are in pyimsegm_tpu_torch/ops/grid_cuda.py.
 //
 // Bound: device memory.  The lookup reads 4 B of label and writes 4*C B per
-// pixel (the (K, C) table stays in L1/L2); the adjacency reads 4 B of label
-// per pixel (its down neighbour is the next row's read) and writes 36 B per
-// tile.
+// pixel (the (K, C) table stays in L1/L2); the adjacency and the pair count
+// read 4 B of label per pixel (the down neighbour is the next row's read)
+// and write 36 B / 936 B per tile; the moments read 4 + 12 B per pixel (and
+// write 4 B of merged label) and write 324 B per tile.
 // Design: the lookup is one thread per pixel, a plain gather guarded by the
-// window test.  The adjacency is one block per tile: each pixel ORs its two
-// pair bits into one of 9 shared-memory words picked by its own offset code
-// (OR is order-free, so shared atomics keep the result deterministic), and
-// the block writes its 9 words.  The TPU kernel's selector matmuls and the
-// OR tree over sublanes exist only for the TPU and are not carried over.
+// window test.  The other three are one block per tile.  The adjacency ORs
+// each pixel's two pair bits into one of 9 shared words picked by its own
+// offset code; the pair count adds 1 into one of 9 x 25 shared counters per
+// boundary pair, and keeps its pixel counts per thread in registers, reduced
+// by warp shuffles before one shared add per warp (OR and integer adds are
+// order-free, so shared atomics keep both exact and deterministic; the f32
+// outputs are exact integers).  The moments keep 9 x 9 running sums per
+// thread in registers (the offset index is unrolled), reduced with warp
+// shuffles and then across warps in a fixed order, as csrc/slic.cu does: no
+// float atomics, so a run is deterministic.  The 9 grid shifts that route
+// the partials to their seeds run in torch.  The TPU kernels' selector
+// matmuls, lo/hi field packing and OR trees exist only for the TPU and are
+// not carried over.
 // Labels below 0 (the -2 of the image edge and the pad) are tested before any
 // division: C's '/' truncates where JAX's '//' floors.
 
@@ -25,6 +41,10 @@
 
 #define NOFF 9
 #define ADJ_THREADS 256
+#define NCH 25
+#define MOM_THREADS 256
+#define MOM_CH 9
+#define FULL 0xffffffffu
 
 __global__ void grid_lookup_kernel(const float* __restrict__ table,  // (K, C)
                                    const int* __restrict__ labels,   // (H, W)
@@ -76,6 +96,135 @@ grid_adjacency_kernel(const int* __restrict__ labels,  // (H, W)
         words[((size_t)ty * gw + tx) * NOFF + threadIdx.x] = acc[threadIdx.x];
 }
 
+__device__ __forceinline__ int pair_channel(int a, int b, int gw) {
+    if (b < 0 || a < 0 || a == b) return -1;
+    int dy = b / gw - a / gw, dx = b % gw - a % gw;
+    if (dy < -2 || dy > 2 || dx < -2 || dx > 2) return -1;
+    return (dy + 2) * 5 + (dx + 2);
+}
+
+__device__ __forceinline__ int offset_code(int l, int y, int x, int gw,
+                                           int step) {
+    if (l < 0) return -1;
+    const int oy = l / gw - y / step + 1, ox = l % gw - x / step + 1;
+    return (oy >= 0 && oy < 3 && ox >= 0 && ox < 3) ? oy * 3 + ox : -1;
+}
+
+__global__ void __launch_bounds__(ADJ_THREADS)
+grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
+                       float* __restrict__ cnt9,        // (gh, gw, 9, 25)
+                       float* __restrict__ counts9,     // (gh, gw, 9)
+                       int height, int width, int gw, int step) {
+    __shared__ int acc[NOFF * NCH];
+    __shared__ int cnt[NOFF];
+    const int tx = blockIdx.x, ty = blockIdx.y;
+    for (int k = threadIdx.x; k < NOFF * NCH; k += ADJ_THREADS) acc[k] = 0;
+    if (threadIdx.x < NOFF) cnt[threadIdx.x] = 0;
+    __syncthreads();
+    int local[NOFF];
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) local[o] = 0;
+    for (int p = threadIdx.x; p < step * step; p += ADJ_THREADS) {
+        const int y = ty * step + p / step, x = tx * step + p % step;
+        if (y >= height || x >= width) continue;   // pad pixels are -2
+        const int a = labels[(size_t)y * width + x];
+        const int o = offset_code(a, y, x, gw, step);
+        if (o < 0) continue;
+#pragma unroll
+        for (int oi = 0; oi < NOFF; ++oi) local[oi] += (oi == o);
+        const int right = x + 1 < width ? labels[(size_t)y * width + x + 1] : -2;
+        const int down = y + 1 < height ? labels[(size_t)(y + 1) * width + x] : -2;
+        const int cr = pair_channel(a, right, gw), cd = pair_channel(a, down, gw);
+        if (cr >= 0) atomicAdd(&acc[o * NCH + cr], 1);
+        if (cd >= 0) atomicAdd(&acc[o * NCH + cd], 1);
+    }
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) {
+        int v = local[o];
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
+        if ((threadIdx.x & 31) == 0 && v) atomicAdd(&cnt[o], v);
+    }
+    __syncthreads();
+    const size_t tile = (size_t)ty * gw + tx;
+    for (int k = threadIdx.x; k < NOFF * NCH; k += ADJ_THREADS)
+        cnt9[tile * NOFF * NCH + k] = (float)acc[k];
+    if (threadIdx.x < NOFF)
+        counts9[tile * NOFF + threadIdx.x] = (float)cnt[threadIdx.x];
+}
+
+// donor == nullptr: the reduce alone over labels (merged is not written).
+__global__ void __launch_bounds__(MOM_THREADS)
+grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
+                    const int* __restrict__ labels,    // (H, W)
+                    const int* __restrict__ donor,     // (K,) or null
+                    int* __restrict__ merged,          // (H, W) or null
+                    float* __restrict__ partials,      // (gh, gw, 9, 9)
+                    int height, int width, int gh, int gw, int step) {
+    __shared__ float red[MOM_THREADS / 32][NOFF * MOM_CH];
+    const int tx = blockIdx.x, ty = blockIdx.y;
+    const int tid = threadIdx.x;
+    const int k = gh * gw;
+    float acc[NOFF][MOM_CH];
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o)
+#pragma unroll
+        for (int c = 0; c < MOM_CH; ++c) acc[o][c] = 0.0f;
+
+    for (int p = tid; p < step * step; p += MOM_THREADS) {
+        const int y = ty * step + p / step, x = tx * step + p % step;
+        if (y >= height || x >= width) continue;
+        const size_t idx = (size_t)y * width + x;
+        int l = labels[idx];
+        if (donor != nullptr) {
+            const int o = offset_code(l, y, x, gw, step);
+            const int nl = (o >= 0 && l < k) ? donor[l] : -1;
+            if (nl >= 0 && abs(nl / gw - ty) <= 1 && abs(nl % gw - tx) <= 1)
+                l = nl;
+            merged[idx] = l;
+        }
+        const int o = offset_code(l, y, x, gw, step);
+        if (o < 0) continue;
+        float v[MOM_CH];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            const float f = feat[idx * 3 + c];
+            v[c] = f;
+            v[3 + c] = __fmul_rn(f, f);
+        }
+        v[6] = 1.0f;
+        v[7] = (float)y;
+        v[8] = (float)x;
+#pragma unroll
+        for (int oi = 0; oi < NOFF; ++oi) {
+            if (oi == o) {
+#pragma unroll
+                for (int c = 0; c < MOM_CH; ++c)
+                    acc[oi][c] = __fadd_rn(acc[oi][c], v[c]);
+            }
+        }
+    }
+
+    const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) {
+#pragma unroll
+        for (int c = 0; c < MOM_CH; ++c) {
+            float s = acc[o][c];
+#pragma unroll
+            for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(FULL, s, m);
+            if (lane == 0) red[warp][o * MOM_CH + c] = s;
+        }
+    }
+    __syncthreads();
+    float* out = partials + ((size_t)ty * gw + tx) * NOFF * MOM_CH;
+    for (int j = tid; j < NOFF * MOM_CH; j += MOM_THREADS) {
+        float s = red[0][j];
+        for (int wi = 1; wi < MOM_THREADS / 32; ++wi) s += red[wi][j];
+        out[j] = s;
+    }
+}
+
 extern "C" int grid_lookup(const void* table, const void* labels, void* out,
                            int height, int width, int c, int gh, int gw,
                            int step, void* stream) {
@@ -94,5 +243,26 @@ extern "C" int grid_adjacency_presence(const void* labels, void* words,
     dim3 grid(gw, gh);
     grid_adjacency_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)labels, (int*)words, height, width, gw, step);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int grid_pair_count(const void* labels, void* cnt9, void* counts9,
+                               int height, int width, int gh, int gw,
+                               int step, void* stream) {
+    dim3 grid(gw, gh);
+    grid_pair_count_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int*)labels, (float*)cnt9, (float*)counts9, height, width, gw,
+        step);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int grid_moments_apply(const void* feat, const void* labels,
+                                  const void* donor, void* merged,
+                                  void* partials, int height, int width,
+                                  int gh, int gw, int step, void* stream) {
+    dim3 grid(gw, gh);
+    grid_moments_kernel<<<grid, MOM_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)feat, (const int*)labels, (const int*)donor,
+        (int*)merged, (float*)partials, height, width, gh, gw, step);
     return (int)cudaGetLastError();
 }

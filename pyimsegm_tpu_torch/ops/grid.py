@@ -1,12 +1,16 @@
-"""Segment reductions, lookup and the dense MRF on the SLIC seed grid.
+"""Segment reductions, lookup, connectivity enforcement, the min-size merge
+and the dense MRF on the SLIC seed grid.
 
 Port of the main-path part of ``pyimsegm_tpu.ops.grid``.  Every SLIC
 label is one of the 3x3 seeds around its pixel's tile, so per-superpixel
 sums are masked tile sums routed by 9 grid shifts, and superpixel adjacency
 fits a dense (gh, gw, 25) tensor of relative seed offsets in [-2, 2]^2.
 
-The pixel-scale lookup and adjacency run through ``ops/grid_cuda.py``
-(CUDA kernel for a CUDA tensor, plain twin for a CPU tensor).
+The pixel-scale passes run through ``ops/grid_cuda.py`` (lookup, adjacency,
+pair counts, moments with the donor apply) and ``ops/enforce_cuda.py``
+(anchor seed + reach + absorb): a CUDA kernel for a CUDA tensor, the plain
+twin for a CPU tensor.  The (K,)-sized donor tables are plain PyTorch on
+the tensor's device, with no host synchronisation.
 :func:`grid_segment_sum` is plain PyTorch and serves the CPU path; its
 kernel (``grid_reduce``) is not ported yet, so it refuses CUDA tensors.
 """
@@ -18,6 +22,7 @@ from pyimsegm_tpu_torch.ops import grid_cuda
 from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 _OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
+_BIG = 2 ** 20
 
 
 def _pad_to_grid(arr, cfg: SlicConfig, fill=0):
@@ -32,11 +37,11 @@ def _pad_to_grid(arr, cfg: SlicConfig, fill=0):
     return out
 
 
-def _shift2d(grid2d, di, dj):
-    """Shift a (gh, gw, ...) grid so cell (y, x) moves to (y+di, x+dj),
-    zero-filling."""
+def _shift2d(grid2d, di, dj, fill=0):
+    """Shift a (gh, gw, ...) grid (or an (H, W, ...) image) so cell (y, x)
+    moves to (y+di, x+dj), filling vacated cells with ``fill``."""
     gh, gw = grid2d.shape[:2]
-    out = torch.zeros_like(grid2d)
+    out = torch.full_like(grid2d, fill)
     if abs(di) >= gh or abs(dj) >= gw:
         return out
     out[max(di, 0):gh + min(di, 0), max(dj, 0):gw + min(dj, 0)] = \
@@ -66,6 +71,16 @@ def grid_segment_sum(data, labels, cfg: SlicConfig):
     return out.reshape(gh * gw, f)
 
 
+def grid_geometry_moments(feat, labels, cfg: SlicConfig):
+    """Per-superpixel geometry + colour moments in one measurement.
+
+    :param feat: (H, W, F) float feature image
+    :param labels: (H, W) int32 grid-structured labels
+    :returns: (K, 2F+3) f32 ``[sum feat, sum feat^2, count, sum y, sum x]``
+    """
+    return grid_cuda.grid_moments_apply(feat, labels, None, cfg)[1]
+
+
 def grid_lookup(table, labels, cfg: SlicConfig):
     """Per-pixel ``table[labels]`` for grid-structured labels.
 
@@ -83,6 +98,21 @@ def grid_lookup(table, labels, cfg: SlicConfig):
     out = grid_cuda.grid_lookup(table.to(torch.float32), labels, cfg)
     out = out.to(table.dtype)
     return out[..., 0] if squeeze else out
+
+
+def grid_segment_min(value, labels, cfg: SlicConfig):
+    """(K,) per-superpixel minimum of an (H, W) float map: nine masked tile
+    min-reductions + nine grid shifts; empty superpixels get +inf."""
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    value_p = _pad_to_grid(value.to(torch.float32), cfg, fill=float('inf'))
+    code = grid_cuda._window_code(_pad_to_grid(labels, cfg, fill=-2), cfg)
+    out = torch.full((gh, gw), float('inf'), dtype=torch.float32,
+                     device=value.device)
+    for idx, (di, dj) in enumerate(_OFFSETS):
+        part = torch.where(code == idx, value_p, float('inf')) \
+            .reshape(gh, step, gw, step).amin(dim=(1, 3))
+        out = torch.minimum(out, _shift2d(part, di, dj, float('inf')))
+    return out.reshape(gh * gw)
 
 
 # ------------------------------------------------------ dense grid graph ---
@@ -256,3 +286,218 @@ def solve_mrf_grid(unary, wgrid, pairwise, cfg: SlicConfig, n_mf_iters=30,
         best_labels = torch.where(improved, labels, best_labels)
         best_e = torch.where(improved, e, best_e)
     return best_labels.reshape(-1).to(torch.int32)
+
+
+# --------------------------- connectivity enforcement + min-size merge ---
+
+def enforce_grid_connectivity(labels, cfg: SlicConfig, min_size=None,
+                              centers=None):
+    """Make every superpixel a single 4-connected region.
+
+    Anchor each superpixel at its pixels nearest its centroid, reach from
+    the anchors through same-label runs, let unreached pixels take the label
+    of their nearest reached neighbour inside their 3x3 seed window
+    (:func:`pyimsegm_tpu_torch.ops.enforce_cuda.enforce_fused`), then
+    optionally merge superpixels below ``min_size`` (:func:`min_size_merge`).
+
+    :param labels: (H, W) int32 grid-structured SLIC labels
+    :param min_size: merge superpixels with fewer pixels into a neighbour
+    :param centers: optional (K, 2) centroids in (y, x); reduced from the
+        labels when not given
+    :returns: (H, W) int32 labels, connected per superpixel
+    """
+    from pyimsegm_tpu_torch.ops import enforce_cuda
+    labels = labels.to(torch.int32).contiguous()
+    if centers is None:
+        h, w = labels.shape
+        zeros = torch.zeros((h, w, 3), dtype=torch.float32,
+                            device=labels.device)
+        sums = grid_geometry_moments(zeros, labels, cfg)
+        cyx = sums[:, 7:9] / torch.clamp_min(sums[:, 6:7], 1.0)
+    else:
+        cyx = centers.to(torch.float32)
+    labels = enforce_cuda.enforce_fused(labels, cyx, cfg)
+    if min_size:
+        labels = min_size_merge(labels, cfg, min_size)
+    return labels
+
+
+def enforce_minsize_with_moments(labels, cfg: SlicConfig, min_size, centers,
+                                 feat):
+    """Connectivity enforcement + min-size merge + geometry/moments reduce:
+    the donor apply and the re-reduce are one pass
+    (:func:`grid_cuda.grid_moments_apply`).
+
+    :param feat: (H, W, F) float feature image reduced over the final labels
+    :returns: (labels (H, W) i32, sums (K, 2F+3) f32)
+    """
+    labels = enforce_grid_connectivity(labels, cfg, min_size=None,
+                                       centers=centers)
+    if not min_size:
+        return labels, grid_geometry_moments(feat, labels, cfg)
+    counts, sym25, counts9 = counts_and_contacts(labels, cfg)
+    donor = donor_chain_table(counts, sym25, cfg.grid_h, cfg.grid_w,
+                              min_size, counts9=counts9)
+    return grid_cuda.grid_moments_apply(feat, labels, donor, cfg)
+
+
+def sym_contact_counts(cnt25_directed, gh, gw):
+    """Symmetrise directed (gh, gw, 25) boundary-pair counts: contact(A, B)
+    = directed(A -> B) + directed(B -> A) routed back through the flipped
+    channel."""
+    perm = _flip_channel_perm()
+    partner = torch.stack(
+        [_shift2d(cnt25_directed[..., perm[ci]], -dy, -dx)
+         for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)], dim=-1)
+    return cnt25_directed + partner
+
+
+def grid_pair_count_channels(labels, cfg: SlicConfig):
+    """Raw directed (gh, gw, 25) conn4 boundary-contact counts."""
+    from pyimsegm_tpu_torch.ops.slic_cuda import combine_sums
+    return combine_sums(grid_cuda.grid_pair_count(labels, cfg)[0])
+
+
+def counts_and_contacts(labels, cfg: SlicConfig):
+    """Per-superpixel pixel counts, symmetric boundary-contact counts and
+    the per-(tile, offset) pixel counts: the measurement behind the
+    min-size merge, one pass over the pixels (``grid_pair_count``).
+
+    :returns: (counts (K,) f32, sym25 (gh, gw, 25) f32, counts9 (gh, gw, 9)
+        f32)
+    """
+    from pyimsegm_tpu_torch.ops.slic_cuda import combine_sums
+    gh, gw = cfg.grid_h, cfg.grid_w
+    cnt9, counts9 = grid_cuda.grid_pair_count(labels, cfg)
+    counts = combine_sums(counts9[..., None])[..., 0]
+    return (counts.reshape(gh * gw),
+            sym_contact_counts(combine_sums(cnt9), gh, gw), counts9)
+
+
+def _neighbor_index(gh, gw, device):
+    """(gh, gw, 25) flat index of the seed at each GRAPH_OFFSETS channel
+    (clipped to the grid) and whether it lies on the grid."""
+    oy = torch.arange(gh, device=device)[:, None, None]
+    ox = torch.arange(gw, device=device)[None, :, None]
+    dy = torch.tensor([d[0] for d in GRAPH_OFFSETS], device=device)
+    dx = torch.tensor([d[1] for d in GRAPH_OFFSETS], device=device)
+    ny, nx = oy + dy, ox + dx
+    valid = (ny >= 0) & (ny < gh) & (nx >= 0) & (nx < gw)
+    return ny.clamp(0, gh - 1) * gw + nx.clamp(0, gw - 1), valid
+
+
+def _best_channel(score, nidx, self_idx):
+    """Per cell, the neighbour of the first channel with the largest score
+    (the sequential strict ``>`` scan over channels of the reference), and
+    that score; -1 and the cell itself where no score beats -1."""
+    best = score.amax(dim=-1)
+    pick = torch.take_along_dim(nidx, score.argmax(dim=-1, keepdim=True),
+                                dim=-1)[..., 0]
+    return best, torch.where(best > -1.0, pick, self_idx)
+
+
+def donor_table_from_counts(counts, sym25, gh, gw, min_size):
+    """Per-label merge targets for the min-size phase: the kept (not small)
+    grid neighbour with maximum boundary contact.
+
+    :returns: (donor (K,) int64 -- target label, or the label itself; small
+        (K,) bool)
+    """
+    k = gh * gw
+    small = counts < float(min_size)
+    idx = torch.arange(k, device=counts.device)
+    nidx, valid = _neighbor_index(gh, gw, counts.device)
+    kept = ~small[nidx] & valid
+    score = torch.where(kept, sym25, -1.0)
+    best, pick = _best_channel(score, nidx, idx.reshape(gh, gw))
+    donor = torch.where(small.reshape(gh, gw) & (best > 0.0), pick,
+                        idx.reshape(gh, gw))
+    return donor.reshape(k), small
+
+
+def label_tile_extents(counts9, gh, gw):
+    """Per-label extent of the tiles its pixels occupy.
+
+    :param counts9: (gh, gw, 9) pixel counts per tile and routing offset
+    :returns: (ty_min, ty_max, tx_min, tx_max), each (K,) int64; empty
+        labels get their own grid cell
+    """
+    dev = counts9.device
+    oy = torch.arange(gh, device=dev)[:, None, None]
+    ox = torch.arange(gw, device=dev)[None, :, None]
+    di = torch.tensor([o[0] for o in _OFFSETS], device=dev)
+    dj = torch.tensor([o[1] for o in _OFFSETS], device=dev)
+    # tile (y - di, x - dj) holds pixels of label (y, x) under offset idx
+    m = torch.stack([_shift2d(counts9[:, :, idx], di_, dj_)
+                     for idx, (di_, dj_) in enumerate(_OFFSETS)], dim=-1) > 0
+    ty_min = torch.where(m, oy - di, _BIG).amin(dim=-1)
+    ty_max = torch.where(m, oy - di, -_BIG).amax(dim=-1)
+    tx_min = torch.where(m, ox - dj, _BIG).amin(dim=-1)
+    tx_max = torch.where(m, ox - dj, -_BIG).amax(dim=-1)
+    empty = ty_min == _BIG
+    oy, ox = oy[..., 0].expand(gh, gw), ox[..., 0].expand(gh, gw)
+    return tuple(torch.where(empty, fill, t).reshape(-1) for t, fill in
+                 ((ty_min, oy), (ty_max, oy), (tx_min, ox), (tx_max, ox)))
+
+
+def donor_chain_table(counts, sym25, gh, gw, min_size, n_hops=3,
+                      counts9=None):
+    """Fully-resolved merge targets from a single measurement.
+
+    A small label with no kept neighbour points at its max-contact small
+    neighbour that is strictly greater in ``(count, -index)`` order (so the
+    pointer graph is acyclic), and the table is squared ``n_hops`` times.
+    With ``counts9``, a merge fires only when its terminal lies in the 3x3
+    seed window of every tile the source occupies, and every link of its
+    chain fires too.  A chain that never reaches a kept label leaves its
+    members unchanged.
+
+    :returns: (K,) int64 -- final kept target per label, or the label itself
+    """
+    k = gh * gw
+    donor, small = donor_table_from_counts(counts, sym25, gh, gw, min_size)
+    idx = torch.arange(k, device=counts.device)
+
+    # fallback pointers for small labels whose whole neighbourhood is small
+    nidx, valid = _neighbor_index(gh, gw, counts.device)
+    cnt = counts.to(torch.float32)
+    cnt_g = cnt.reshape(gh, gw)[..., None]
+    self_g = idx.reshape(gh, gw)
+    ncnt = cnt[nidx]
+    greater = (ncnt > cnt_g) | ((ncnt == cnt_g) & (nidx < self_g[..., None]))
+    score = torch.where(small[nidx] & valid & greater, sym25, -1.0)
+    best, pick = _best_channel(score, nidx, self_g)
+    fb = torch.where(best.reshape(k) > 0.0, pick.reshape(k), idx)
+
+    d1 = torch.where(small & (donor == idx), fb, donor)
+    d = d1
+    for _ in range(max(int(n_hops), 1)):
+        d = d[d]
+    fire = small & ~small[d]
+    if counts9 is not None:
+        ty_min, ty_max, tx_min, tx_max = label_tile_extents(counts9, gh, gw)
+        dy, dx = d // gw, d % gw
+        ok = ((dy - ty_min).abs() <= 1) & ((dy - ty_max).abs() <= 1) \
+            & ((dx - tx_min).abs() <= 1) & ((dx - tx_max).abs() <= 1) | ~small
+        dd = d1
+        for _ in range(max(int(n_hops), 1)):
+            ok = ok & ok[dd]
+            dd = dd[dd]
+        fire = fire & ok
+    return torch.where(fire, d, idx)
+
+
+def min_size_merge(labels, cfg: SlicConfig, min_size, n_rounds=3):
+    """Merge whole superpixels below ``min_size`` into their max-contact
+    kept neighbour (:func:`donor_chain_table`); a pixel whose donor seed
+    falls outside its own 3x3 tile window keeps its label."""
+    h, w = labels.shape
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    ty = torch.arange(h, device=labels.device)[:, None] // step
+    tx = torch.arange(w, device=labels.device)[None, :] // step
+    counts, sym25, counts9 = counts_and_contacts(labels, cfg)
+    donor = donor_chain_table(counts, sym25, gh, gw, min_size,
+                              n_hops=n_rounds, counts9=counts9)
+    new = grid_lookup(donor.to(torch.int32), labels, cfg).to(torch.int64)
+    ok = ((new // gw - ty).abs() <= 1) & ((new % gw - tx).abs() <= 1)
+    return torch.where(ok, new, labels.to(torch.int64)).to(torch.int32)

@@ -1,9 +1,12 @@
-"""Grid lookup and conn4 adjacency presence: CUDA kernels and twins.
+"""Grid lookup, conn4 adjacency presence, conn4 pair counts and the
+moments reduce with the min-size donor apply: CUDA kernels and twins.
 
-Replaces ``pyimsegm_tpu.ops.grid_pallas.grid_lookup_pallas`` and
-``grid_adjacency_presence_pallas`` with the kernels of ``csrc/grid.cu``.
-Each wrapper launches its kernel for CUDA tensors and runs its plain twin
-for CPU tensors.
+Replaces four kernels of ``pyimsegm_tpu.ops.grid_pallas`` with the kernels
+of ``csrc/grid.cu``: ``grid_lookup_pallas``,
+``grid_adjacency_presence_pallas``, ``grid_pair_count_pallas`` and
+``grid_moments_apply_pallas``, whose donor-less mode also replaces
+``grid_moments_pallas``.  Each wrapper launches its kernel for CUDA tensors
+and runs its plain twin for CPU tensors.
 """
 
 import torch
@@ -12,7 +15,8 @@ from pyimsegm_tpu_torch import _build
 from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 #: kernel launches in this process, per wrapper
-LAUNCHES = {'grid_lookup': 0, 'grid_adjacency_presence': 0}
+LAUNCHES = {'grid_lookup': 0, 'grid_adjacency_presence': 0,
+            'grid_pair_count': 0, 'grid_moments_apply': 0, 'grid_moments': 0}
 
 
 def _lib():
@@ -20,6 +24,8 @@ def _lib():
     return _build.load('grid', {
         'grid_lookup': [v, v, v] + [i] * 6 + [v],
         'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
+        'grid_pair_count': [v, v, v] + [i] * 5 + [v],
+        'grid_moments_apply': [v] * 5 + [i] * 5 + [v],
     })
 
 
@@ -135,3 +141,153 @@ def grid_adjacency_presence(labels, cfg: SlicConfig):
     _build.check(err, 'grid_adjacency_presence')
     LAUNCHES['grid_adjacency_presence'] += 1
     return words
+
+
+def _pair_channel(a, b, gw):
+    """Relative seed channel (dy + 2) * 5 + dx + 2 of a conn4 pair (a, b) of
+    distinct labels within +-2 grid cells, else -1."""
+    ok = (a >= 0) & (b >= 0) & (a != b)
+    sa, sb = torch.where(ok, a, 0), torch.where(ok, b, 0)
+    dy = sb // gw - sa // gw
+    dx = sb % gw - sa % gw
+    ok = ok & (dy.abs() <= 2) & (dx.abs() <= 2)
+    return torch.where(ok, (dy + 2) * 5 + (dx + 2), -1)
+
+
+def _grid_pair_count_plain(labels, cfg: SlicConfig):
+    """(cnt9 (gh, gw, 9, 25) f32, counts9 (gh, gw, 9) f32): directed conn4
+    boundary-pair counts of each tile's pixels grouped by the routing offset
+    of the first endpoint's label, and the tile's pixel counts per offset."""
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    h, w = labels.shape
+    a = labels.to(torch.int64)
+    minus2 = torch.full_like(a, -2)
+    right = torch.cat([a[:, 1:], minus2[:, :1]], dim=1)
+    down = torch.cat([a[1:], minus2[:1]], dim=0)
+    code = _window_code(labels, cfg)
+    ty, tx = _tile_index(h, w, step, labels.device)
+    slot = (ty * gw + tx) * 9 + code                            # (H, W)
+    valid = code >= 0
+    counts9 = torch.bincount(slot[valid], minlength=gh * gw * 9)
+    cnt9 = torch.zeros(gh * gw * 9 * 25, dtype=torch.int64,
+                       device=labels.device)
+    for b in (right, down):
+        ch = _pair_channel(a, b, gw)
+        keep = valid & (ch >= 0)
+        cnt9 += torch.bincount((slot * 25 + ch)[keep],
+                               minlength=gh * gw * 9 * 25)
+    return (cnt9.reshape(gh, gw, 9, 25).to(torch.float32),
+            counts9.reshape(gh, gw, 9).to(torch.float32))
+
+
+def grid_pair_count(labels, cfg: SlicConfig):
+    """Conn4 boundary-pair counts and pixel counts in one pass.
+
+    :param labels: (H, W) int32 grid-structured labels
+    :returns: (cnt9 (gh, gw, 9, 25) f32 directed pair counts grouped by the
+        first endpoint's routing offset, channel ``(dy+2)*5 + dx+2`` of the
+        second endpoint; counts9 (gh, gw, 9) f32 pixel counts per tile and
+        offset) -- exact integers
+    """
+    if not labels.is_cuda:
+        return _grid_pair_count_plain(labels, cfg)
+    h, w = labels.shape
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    dev = labels.device
+    cnt9 = torch.empty((cfg.grid_h, cfg.grid_w, 9, 25), dtype=torch.float32,
+                       device=dev)
+    counts9 = torch.empty((cfg.grid_h, cfg.grid_w, 9), dtype=torch.float32,
+                          device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().grid_pair_count(
+            labels.data_ptr(), cnt9.data_ptr(), counts9.data_ptr(), h, w,
+            cfg.grid_h, cfg.grid_w, cfg.step, _build.stream_ptr(labels))
+    _build.check(err, 'grid_pair_count')
+    LAUNCHES['grid_pair_count'] += 1
+    return cnt9, counts9
+
+
+def _route_moments(partials):
+    """(gh, gw, 9, CH) per-(tile, offset) partials -> (K, CH) per-seed sums,
+    offsets added in order."""
+    from pyimsegm_tpu_torch.ops.slic_cuda import combine_sums
+    gh, gw, _, ch = partials.shape
+    return combine_sums(partials).reshape(gh * gw, ch)
+
+
+def _apply_donor(labels, donor, cfg: SlicConfig):
+    """Merged labels: ``donor[label]`` where the label lies in its pixel's
+    3x3 seed window and on the grid and the donor seed lies in that window
+    too; every other pixel keeps its label."""
+    h, w = labels.shape
+    gw = cfg.grid_w
+    lab = labels.to(torch.int64)
+    ok = (_window_code(labels, cfg) >= 0) & (lab < cfg.n_segments)
+    new = torch.where(ok, donor.to(torch.int64)[torch.where(ok, lab, 0)], -1)
+    ty, tx = _tile_index(h, w, cfg.step, labels.device)
+    ok = (new >= 0) & ((new // gw - ty).abs() <= 1) \
+        & ((new % gw - tx).abs() <= 1)
+    return torch.where(ok, new, lab).to(torch.int32)
+
+
+def _grid_moments_apply_plain(feat, labels, donor, cfg: SlicConfig):
+    """Donor apply (when ``donor`` is given), then per-(tile, offset) masked
+    sums of [f, f^2, 1, y, x] over the merged labels routed to their seeds."""
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    h, w = labels.shape
+    merged = labels if donor is None else _apply_donor(labels, donor, cfg)
+    feat = feat.to(torch.float32)
+    py, px = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=feat.device),
+        torch.arange(w, dtype=torch.float32, device=feat.device),
+        indexing='ij')
+    data = torch.cat([feat, feat * feat, torch.ones_like(py)[..., None],
+                      py[..., None], px[..., None]], dim=-1)
+    nch = data.shape[-1]
+    from pyimsegm_tpu_torch.ops.grid import _pad_to_grid
+    data_p = _pad_to_grid(data, cfg)
+    code = _window_code(_pad_to_grid(merged, cfg, fill=-2), cfg)
+    parts = [(data_p * (code == oi).to(torch.float32)[..., None])
+             .reshape(gh, step, gw, step, nch).sum(dim=(1, 3))
+             for oi in range(9)]
+    return merged, _route_moments(torch.stack(parts, dim=2))
+
+
+def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
+    """Apply a min-size donor table and reduce geometry + moments over the
+    merged labels in one pass; with ``donor=None`` only the reduce (the
+    replacement of ``grid_moments_pallas``).
+
+    :param feat: (H, W, F) float feature image (F = 3 on CUDA)
+    :param labels: (H, W) int32 enforced (pre-merge) labels
+    :param donor: (K,) integer merge targets, or None
+    :returns: (merged labels (H, W) int32, sums (K, 2F+3) f32 =
+        [sum f, sum f^2, count, sum y, sum x])
+    """
+    if not labels.is_cuda:
+        return _grid_moments_apply_plain(feat, labels, donor, cfg)
+    h, w = labels.shape
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    feat = _build.require(feat.to(torch.float32).contiguous(), 'feat',
+                          torch.float32, (h, w, 3))
+    dev = labels.device
+    partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, 9),
+                           dtype=torch.float32, device=dev)
+    merged = labels
+    donor_ptr = None
+    if donor is not None:
+        donor = _build.require(donor.to(torch.int32).contiguous(), 'donor',
+                               torch.int32, (cfg.n_segments,))
+        merged = torch.empty_like(labels)
+        donor_ptr = donor.data_ptr()
+    with torch.cuda.device(dev):
+        err = _lib().grid_moments_apply(
+            feat.data_ptr(), labels.data_ptr(), donor_ptr,
+            merged.data_ptr() if donor is not None else None,
+            partials.data_ptr(), h, w, cfg.grid_h, cfg.grid_w, cfg.step,
+            _build.stream_ptr(labels))
+    _build.check(err, 'grid_moments_apply')
+    LAUNCHES['grid_moments' if donor is None else 'grid_moments_apply'] += 1
+    return merged, _route_moments(partials)

@@ -1,11 +1,12 @@
 """Public segmentation pipelines (port of ``pyimsegm_tpu.pipelines``).
 
 Ported so far: :func:`segment_color2d_slic_features_model_graphcut` with a
-fitted :class:`ClassModel`, ``connectivity=False`` and a single ``'color'``
-key of plain moments (mean / std / energy).  That path is SLIC -> colour
-moments from the final SLIC pass -> GMM ``predict_proba`` -> MRF on the
-25-neighbour superpixel grid -> upsampling.  The other options raise
-``NotImplementedError`` naming the slice of ROADMAP.md that brings them.
+fitted :class:`ClassModel` and a single ``'color'`` key of plain moments
+(mean / std / energy), with ``connectivity=True`` (the default) or False.
+That path is SLIC -> [connectivity enforcement + min-size merge + moments
+re-reduce] -> GMM ``predict_proba`` -> MRF on the 25-neighbour superpixel
+grid -> upsampling.  The other options raise ``NotImplementedError`` naming
+the slice of ROADMAP.md that brings them.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 from pyimsegm_tpu_torch.models.class_model import ClassModel
 from pyimsegm_tpu_torch.ops import graphcut
+from pyimsegm_tpu_torch.ops import grid as grid_ops
 from pyimsegm_tpu_torch.ops import slic as slic_ops
 from pyimsegm_tpu_torch.ops.grid import grid_lookup
 
@@ -37,19 +39,32 @@ def _fusable_color_spec(feats_spec):
     return key
 
 
+def _moment_features(msums, counts, flags):
+    """[mean, std, energy] blocks (in that order, as ``flags`` selects)
+    from (K, 6) colour moment sums [sum v, sum v^2] and (K,) counts."""
+    safe = torch.clamp_min(counts[:, None], 1.0)
+    mean = msums[:, :3] / safe
+    energy = msums[:, 3:6] / safe
+    blocks = {'mean': mean,
+              'std': torch.sqrt(torch.clamp_min(energy - mean * mean, 0.0)),
+              'energy': energy}
+    return torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags], dim=-1)
+
+
 def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
                         n_iter=slic_ops.DEFAULT_SLIC_ITERS,
                         connectivity=True):
     """SLIC + per-superpixel features.
 
+    With ``connectivity`` the SLIC labels are enforced (every superpixel one
+    4-connected region, superpixels below half a tile merged into a
+    neighbour), seeded by the centroids of the final SLIC pass, and the
+    geometry and colour moments are re-reduced over the final labels.
+
     :param image: (H, W, 3) float tensor
     :returns: (labels (H, W) i32, features (K, F), counts (K,),
         centres (K, 2))
     """
-    if connectivity:
-        raise NotImplementedError(
-            'connectivity=True needs the enforcement kernels of slice 2 '
-            '(ROADMAP.md)')
     if slico:
         raise NotImplementedError('SLICO comes with the fitting slice '
                                   '(ROADMAP.md)')
@@ -60,18 +75,16 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
             'feature specs come with the fitting slice (ROADMAP.md)')
     # the moments are of the raw RGB float image, not of Lab
     img_f = image.to(torch.float32)
+    flags = dict(feats_spec)[fuse_key]
     labels, counts, centers, msums = slic_ops.slic_segment_with_features(
         image, img_f, cfg, compactness, n_iter=n_iter)
-    flags = dict(feats_spec)[fuse_key]
-    safe = torch.clamp_min(counts[:, None], 1.0)
-    mean = msums[:, :3] / safe
-    energy = msums[:, 3:6] / safe
-    blocks = {'mean': mean,
-              'std': torch.sqrt(torch.clamp_min(energy - mean * mean, 0.0)),
-              'energy': energy}
-    features = torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags],
-                         dim=-1)
-    return labels, features, counts, centers
+    if connectivity:
+        labels, sums = grid_ops.enforce_minsize_with_moments(
+            labels, cfg, int(0.5 * cfg.step * cfg.step), centers, img_f)
+        counts = sums[:, 6]
+        centers = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
+        msums = sums[:, :6]
+    return labels, _moment_features(msums, counts, flags), counts, centers
 
 
 def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
@@ -93,6 +106,34 @@ def _model_device(model):
     return next(iter(model.buffers())).device
 
 
+def _fetch_reconstruct(labels, proba, graph_labels, cfg):
+    """(segm, segm_soft) numpy arrays gathered on the host from the (H, W)
+    labels (int16 when K allows) and the (K,) / (K, C) tables.
+
+    Equal to fetching the device ``grid_lookup`` outputs only for enforced
+    (``connectivity=True``) labels, which all lie in their pixel's 3x3 seed
+    window; raw labels must take the device lookup instead."""
+    small = labels.to(torch.int16) if cfg.n_segments <= 0x7fff else labels
+    labels_np = small.cpu().numpy().astype(np.int64)
+    return (graph_labels.cpu().numpy()[labels_np],
+            proba.cpu().numpy()[labels_np])
+
+
+def _to_model_device(image, model):
+    """The image as a tensor on the model's device (a numpy image is moved
+    there; a tensor image must already be there)."""
+    if not isinstance(model, ClassModel):
+        raise NotImplementedError('classifiers come with the supervised '
+                                  'slice (ROADMAP.md)')
+    device = _model_device(model)
+    if isinstance(image, torch.Tensor):
+        if image.device != device:
+            raise ValueError('image on %s, model on %s'
+                             % (image.device, device))
+        return image
+    return torch.as_tensor(np.asarray(image), device=device)
+
+
 def segment_color2d_slic_features_model_graphcut(
         image, model_pipeline, dict_features, sp_size=30,
         sp_regul=0.2, gc_regul=1.0, gc_edge_type='model', debug_visual=None,
@@ -108,23 +149,17 @@ def segment_color2d_slic_features_model_graphcut(
     if sp_compat:
         raise NotImplementedError('sp_compat comes with a later slice '
                                   '(ROADMAP.md)')
-    if not isinstance(model_pipeline, ClassModel):
-        raise NotImplementedError('classifiers come with the supervised '
-                                  'slice (ROADMAP.md)')
-    device = _model_device(model_pipeline)
-    if isinstance(image, torch.Tensor):
-        if image.device != device:
-            raise ValueError('image on %s, model on %s'
-                             % (image.device, device))
-    else:
-        image = torch.as_tensor(np.asarray(image), device=device)
+    image = _to_model_device(image, model_pipeline)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
-    segm, segm_soft, labels, proba, _graph_labels = _segment_with_model_core(
+    segm, segm_soft, labels, proba, graph_labels = _segment_with_model_core(
         image, model_pipeline, cfg=cfg,
         feats_spec=_features_spec(dict_features), gc_regul=float(gc_regul),
         gc_edge_type=gc_edge_type, compactness=m, connectivity=connectivity)
     if debug_visual is not None:
         debug_visual['slic'] = labels.cpu().numpy()
         debug_visual['proba'] = proba.cpu().numpy()
+    if connectivity:
+        return _fetch_reconstruct(labels, proba, graph_labels, cfg)
+    # raw labels may hold out-of-window pixels: the device lookup holds
     return segm.cpu().numpy(), segm_soft.cpu().numpy()

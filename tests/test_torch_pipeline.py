@@ -1,6 +1,7 @@
 """The ported slice end to end vs the JAX package on the CPU:
-``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
-with one fitted GMM class model handed to both packages."""
+``segment_color2d_slic_features_model_graphcut`` with ``connectivity=False``
+and at its default ``connectivity=True``, with one fitted GMM class model
+handed to both packages."""
 
 import os
 import subprocess
@@ -62,16 +63,15 @@ def models():
         {k: np.asarray(v) for k, v in arrays.items()})
 
 
-@pytest.mark.parametrize('shape', SHAPES)
-def test_slic_features_core_matches_jax(shape):
+def _check_slic_features_core(shape, connectivity):
     img = _image(shape, 2)
     cfg = jslic.slic_config(*shape, SP)
     m = jslic.compactness_from_regul(SP, REGUL)
     ref = jpipe._slic_features_core(jnp.asarray(img), cfg, SPEC, m,
-                                    connectivity=False)
+                                    connectivity=connectivity)
     out = tpipe._slic_features_core(torch.as_tensor(img),
                                     tslic.slic_config(*shape, SP), SPEC, m,
-                                    connectivity=False)
+                                    connectivity=connectivity)
     lt, lj = out[0].numpy(), np.asarray(ref[0])
     assert (lt == lj).mean() >= 0.999
     same = _same_superpixels(lt, lj, cfg.n_segments)
@@ -79,6 +79,17 @@ def test_slic_features_core_matches_jax(shape):
     for got, want in zip(out[1:], ref[1:]):
         np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_features_core_matches_jax(shape):
+    _check_slic_features_core(shape, connectivity=False)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_features_core_connectivity_matches_jax(shape):
+    """Enforced labels, min-size merge and the moments re-reduce."""
+    _check_slic_features_core(shape, connectivity=True)
 
 
 @pytest.mark.parametrize('shape', SHAPES)
@@ -106,6 +117,31 @@ def test_segment_slice_matches_jax(models, shape, seed):
                                atol=1e-5)
 
 
+@pytest.mark.parametrize('shape', SHAPES)
+@pytest.mark.parametrize('seed', [3, 4])
+def test_segment_default_connectivity_matches_jax(models, shape, seed):
+    """The default ``connectivity=True``: ARS >= 0.98 against the JAX call,
+    enforced labels >= 0.999 equal."""
+    jm, tm = models
+    img = _image(shape, seed)
+    dj, dt = {}, {}
+    segm_j, soft_j = jpipe.segment_color2d_slic_features_model_graphcut(
+        img, jm, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dj)
+    segm_t, soft_t = tpipe.segment_color2d_slic_features_model_graphcut(
+        img, tm, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dt)
+    assert segm_t.shape == shape and segm_t.dtype == np.int32
+    assert soft_t.shape == shape + (3,) and np.isfinite(soft_t).all()
+    assert (dt['slic'] == dj['slic']).mean() >= 0.999
+    assert adjusted_rand_score(segm_t, np.asarray(segm_j)) >= 0.98
+    k = jslic.slic_config(*shape, SP).n_segments
+    same = _same_superpixels(dt['slic'], dj['slic'], k)
+    px = (dt['slic'] == dj['slic']) & same[dj['slic']]
+    np.testing.assert_allclose(soft_t[px], np.asarray(soft_j)[px], rtol=1e-5,
+                               atol=1e-5)
+
+
 def test_bench_geometry_matches_committed_jax_output():
     """Image 0 at 884x1200 against the JAX-CPU segmentation stored in the
     fixture that chip_smoke.py checks the card against."""
@@ -121,8 +157,24 @@ def test_bench_geometry_matches_committed_jax_output():
     assert adjusted_rand_score(segm, fixture['segm']) >= 0.98
 
 
+def test_bench_geometry_connectivity_matches_committed_jax_output():
+    """Image 0 at 884x1200 at the default ``connectivity=True`` against the
+    JAX-CPU result that chip_smoke.py checks the card against."""
+    data = os.path.join(ROOT, 'tests', 'data')
+    with np.load(os.path.join(data, 'torch_port_fixture.npz')) as npz:
+        model = class_model_from_numpy({k: npz[k] for k in npz.files})
+    with np.load(os.path.join(data, 'torch_port_fixture_conn.npz')) as npz:
+        want = {k: npz[k] for k in npz.files}
+    debug = {}
+    segm, _ = tpipe.segment_color2d_slic_features_model_graphcut(
+        _image((884, 1200), 0), model, FEATURES, sp_size=35, sp_regul=0.2,
+        gc_regul=2.0, debug_visual=debug)
+    assert (debug['slic'] == want['slic']).mean() >= 0.999
+    assert adjusted_rand_score(segm, want['segm']) >= 0.98
+
+
 @pytest.mark.parametrize('kwargs', [
-    {'connectivity': True},
+    {'connectivity': True, 'dict_features': {'color': ['mean', 'median']}},
     {'connectivity': False, 'sp_compat': True},
     {'connectivity': False, 'dict_features': {'color': ['mean', 'median']}},
     {'connectivity': False, 'dict_features': {'color_hsv': ['mean']}},
@@ -149,8 +201,9 @@ sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
 from pyimsegm_tpu_torch import _build, pipelines
 from pyimsegm_tpu_torch.models import class_model, gmm
-from pyimsegm_tpu_torch.ops import (graphcut, grid, grid_cuda, prep_cuda,
-                                    slic, slic_cuda)
+from pyimsegm_tpu_torch.ops import (enforce_cuda, graphcut, grid, grid_cuda,
+                                    prep_cuda, slic, slic_cuda)
+from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import data_samples, metrics
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32

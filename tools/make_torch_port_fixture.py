@@ -2,13 +2,19 @@
 
 Fits the group class model with the JAX package over two synthetic colour
 images at the bench geometry (884x1200, sp_size 35, regul 0.2, 3 classes),
-then segments image 0 with ``connectivity=False`` and stores:
+then segments image 0 and stores two files:
 
-* the fitted ``ClassModel`` arrays (the weight carrier
-  ``pyimsegm_tpu_torch.models.class_model.class_model_from_numpy`` reads);
-* the JAX segmentation ``segm`` (uint8) and SLIC labels ``slic`` (int16).
+* ``torch_port_fixture.npz``: the fitted ``ClassModel`` arrays (the weight
+  carrier ``pyimsegm_tpu_torch.models.class_model.class_model_from_numpy``
+  reads) and the ``connectivity=False`` segmentation ``segm`` (uint8) and
+  SLIC labels ``slic`` (int16);
+* ``torch_port_fixture_conn.npz``: the ``connectivity=True`` (default)
+  segmentation ``segm`` and enforced SLIC labels ``slic`` under the same
+  model.
 
-``chip_smoke.py`` reads the file on the GPU machine, which has no JAX.
+A file whose arrays are unchanged is not rewritten, so its bytes stay as
+committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
+JAX.
 
 Run on the CPU (about half a minute)::
 
@@ -22,9 +28,24 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
+OUT_CONN = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_conn.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
+
+
+def _save(path, arrays):
+    """Write ``arrays`` to ``path`` unless it already holds exactly them."""
+    if os.path.isfile(path):
+        with np.load(path) as old:
+            if set(old.files) == set(arrays) and all(
+                    old[k].dtype == v.dtype and np.array_equal(old[k], v)
+                    for k, v in arrays.items()):
+                print('unchanged %s' % path)
+                return
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **arrays)
+    print('wrote %s (%d bytes)' % (path, os.path.getsize(path)))
 
 
 def main():
@@ -39,10 +60,14 @@ def main():
             for s in (0, 1)]
     model, _ = pipelines.estim_model_classes_group(
         imgs, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL)
-    dv = {}
-    segm, _soft = pipelines.segment_color2d_slic_features_model_graphcut(
-        imgs[0], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
-        gc_regul=GC_REGUL, debug_visual=dv, connectivity=False)
+    outputs = {}
+    for conn in (False, True):
+        dv = {}
+        segm, _soft = pipelines.segment_color2d_slic_features_model_graphcut(
+            imgs[0], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL, debug_visual=dv, connectivity=conn)
+        outputs[conn] = {'segm': np.asarray(segm).astype(np.uint8),
+                         'slic': np.asarray(dv['slic']).astype(np.int16)}
 
     arrays = {'weights': model.gmm.weights, 'means': model.gmm.means,
               'covs': model.gmm.covs}
@@ -52,11 +77,8 @@ def main():
         if val is not None:
             arrays[name] = val
     arrays = {k: np.asarray(v, np.float32) for k, v in arrays.items()}
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, segm=np.asarray(segm).astype(np.uint8),
-                        slic=np.asarray(dv['slic']).astype(np.int16),
-                        **arrays)
-    print('wrote %s (%d bytes)' % (OUT, os.path.getsize(OUT)))
+    _save(OUT, dict(outputs[False], **arrays))
+    _save(OUT_CONN, outputs[True])
 
 
 if __name__ == '__main__':

@@ -1,19 +1,25 @@
-"""Stage breakdown and device trace of the PyTorch port's main path on a GPU.
+"""Stage breakdown and device trace of the PyTorch port's bench path on a GPU.
 
-Drives ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
-stage by stage on synthetic 884x1200 images (sp_size 35, regul 0.2,
-gc_regul 2.0, the GMM of ``tests/data/torch_port_fixture.npz``) and prints:
+Drives the bench path (``parallel.batch.segment_images_batch``: SLIC,
+connectivity enforcement, min-size merge with the moments re-reduce, GMM
+predict, grid MRF, one fused lookup) stage by stage on 884x1200 images
+(sp_size 35, regul 0.2, gc_regul 2.0, the GMM of
+``tests/data/torch_port_fixture.npz``), on two kinds of image: the
+synthetic scenes of ``sample_color_image_rand_segment`` and the uniform
+noise of ``bench.py``'s fallback, whose fragmented superpixels make the
+enforcement do the most work.  Prints:
 
 * warm host-clock ms per stage (each stage ends in a synchronize);
-* from ``torch.profiler`` over one warm image: the device time summed over
-  kernels, the wall time, the device idle share, the launch count and the
-  top kernels by device time.
+* the batch call's warm ms per image, in turns with the stage runs;
+* from ``torch.profiler`` over one warm batch call of one image: the device
+  time summed over kernels and copies, the wall time, the device idle
+  share, the launch count and the top kernels by device time.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/profile_torch_port.py --out DIR [--images 5]
+    python3 tools/profile_torch_port.py --out DIR [--images 4]
 
-The chrome trace goes to ``<out>/torch_port_trace.json``.
+The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
 
 import argparse
@@ -32,15 +38,16 @@ FEATURES = {'color': ['mean', 'std', 'energy']}
 
 
 def _stages(torch, image, model):
-    """One image through the path, stage by stage; {stage: ms}."""
+    """One image through the bench path, stage by stage; {stage: ms}."""
     from pyimsegm_tpu_torch import pipelines
     from pyimsegm_tpu_torch.ops import graphcut
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import grid_cuda
     from pyimsegm_tpu_torch.ops import slic as slic_ops
-    from pyimsegm_tpu_torch.ops.grid import grid_lookup
 
     cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
     m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
-    spec = pipelines._features_spec(FEATURES)
+    flags = FEATURES['color']
     times = {}
 
     def stage(name, fn):
@@ -52,74 +59,41 @@ def _stages(torch, image, model):
         return out
 
     img = stage('upload', lambda: torch.as_tensor(image, device='cuda'))
-    labels, features, _, centers = stage(
-        'slic_features', lambda: pipelines._slic_features_core(
-            img, cfg, spec, m, connectivity=False))
-    proba = stage('predict_proba', lambda: model.predict_proba(features))
-    soft = stage('lookup_proba', lambda: grid_lookup(proba, labels, cfg))
+    labels, _, centers, _ = stage(
+        'slic', lambda: slic_ops.slic_segment_with_features(img, img, cfg, m))
+    enforced = stage('enforce', lambda: grid_ops.enforce_grid_connectivity(
+        labels, cfg, centers=centers))
+    counts, sym25, counts9 = stage(
+        'minsize_measure', lambda: grid_ops.counts_and_contacts(enforced,
+                                                                cfg))
+    donor = stage('donor_table', lambda: grid_ops.donor_chain_table(
+        counts, sym25, cfg.grid_h, cfg.grid_w, int(0.5 * cfg.step ** 2),
+        counts9=counts9))
+    labels, sums = stage('apply_moments', lambda: grid_cuda.grid_moments_apply(
+        img, enforced, donor, cfg))
+
+    def features():
+        counts = sums[:, 6]
+        cen = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
+        return pipelines._moment_features(sums[:, :6], counts, flags), cen
+    feats, centers = stage('features', features)
+    proba = stage('predict_proba', lambda: model.predict_proba(feats))
     graph = stage('mrf', lambda: graphcut.segment_graph_cut_general(
-        labels, proba, cfg.n_segments, image=img, features=features,
+        labels, proba, cfg.n_segments, image=img, features=feats,
         gc_regul=GC_REGUL, grid_ctx=(labels, cfg), centers=centers))
-    segm = stage('lookup_labels', lambda: grid_lookup(graph, labels, cfg))
-    stage('fetch', lambda: (segm.cpu().numpy(), soft.cpu().numpy()))
+    up = stage('lookup', lambda: grid_ops.grid_lookup(
+        torch.cat([graph[:, None].to(torch.float32), proba], -1), labels,
+        cfg))
+    stage('fetch', lambda: up.cpu().numpy())
     return times
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    parser.add_argument('--images', type=int, default=5)
-    parser.add_argument('--out', required=True,
-                        help='directory for the trace and the op table')
-    args = parser.parse_args()
-
-    import torch
-    if not torch.cuda.is_available():
-        raise SystemExit('profile_torch_port: no CUDA device')
-    sys.path.insert(0, ROOT)
-    from pyimsegm_tpu_torch import pipelines
-    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
-    from pyimsegm_tpu_torch.utils.data_samples import (
-        sample_color_image_rand_segment)
-
-    print(subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-        capture_output=True, text=True, check=True).stdout.strip())
-    with np.load(os.path.join(ROOT, 'tests', 'data',
-                              'torch_port_fixture.npz')) as npz:
-        model = class_model_from_numpy(
-            {k: npz[k] for k in npz.files}).to('cuda')
-    images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
-              for s in range(args.images)]
-
-    _stages(torch, images[0], model)                       # build + warm
-    rows = [_stages(torch, img, model) for img in images]
-    names = list(rows[0])
-    mean = {n: float(np.mean([r[n] for r in rows])) for n in names}
-    print('stage ms (mean of %d warm images): %s' % (len(rows),
-                                                     json.dumps(mean)))
-    print('stage sum ms: %.3f' % sum(mean.values()))
-
-    def segment():
-        return pipelines.segment_color2d_slic_features_model_graphcut(
-            images[0], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
-            gc_regul=GC_REGUL, connectivity=False)
-
-    segment()
-    torch.cuda.synchronize()
-    walls = []
-    for img in images:
-        t0 = time.perf_counter()
-        pipelines.segment_color2d_slic_features_model_graphcut(
-            img, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
-            gc_regul=GC_REGUL, connectivity=False)
-        walls.append((time.perf_counter() - t0) * 1e3)
-    print('public call ms per image (same images, same process): %s'
-          % json.dumps(walls))
+def _profile(torch, run, out_dir, kind):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        segment()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
@@ -127,18 +101,79 @@ def main():
               and str(e.device_type).endswith('CUDA')]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    print('profiled image: wall %.3f ms, device busy %.3f ms, idle share '
-          '%.4f, %d kernel launches' % (wall, device_ms,
-                                        1.0 - device_ms / wall, launches))
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:15]
-    for e in top:
+    print('%s profiled one-image batch call: wall %.3f ms, device busy '
+          '%.3f ms, idle share %.4f, %d kernel launches'
+          % (kind, wall, device_ms, 1.0 - device_ms / wall, launches))
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print('  %-60s %8.3f ms %5d calls' % (e.key[:60],
                                               e.self_device_time_total / 1e3,
                                               e.count))
-    os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, 'torch_port_trace.json'))
-    with open(os.path.join(args.out, 'torch_port_profile.txt'), 'w') as fh:
+    prof.export_chrome_trace(os.path.join(out_dir,
+                                          'torch_port_trace_%s.json' % kind))
+    with open(os.path.join(out_dir, 'torch_port_profile_%s.txt' % kind),
+              'w') as fh:
         fh.write(prof.key_averages().table(row_limit=40))
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    parser.add_argument('--images', type=int, default=4)
+    parser.add_argument('--out', required=True,
+                        help='directory for the traces and the op tables')
+    args = parser.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit('profile_torch_port: no CUDA device')
+    sys.path.insert(0, ROOT)
+    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
+    from pyimsegm_tpu_torch.parallel import batch
+    from pyimsegm_tpu_torch.utils.data_samples import (
+        sample_color_image_rand_segment)
+
+    print(subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+        capture_output=True, text=True, check=True).stdout.strip())
+    os.makedirs(args.out, exist_ok=True)
+    with np.load(os.path.join(ROOT, 'tests', 'data',
+                              'torch_port_fixture.npz')) as npz:
+        model = class_model_from_numpy(
+            {k: npz[k] for k in npz.files}).to('cuda')
+    rng = np.random.default_rng(0)
+    kinds = {
+        'synthetic': np.stack([sample_color_image_rand_segment(
+            CROP, 3, rand_seed=s)[0] for s in range(args.images)]),
+        'noise': np.stack([rng.random(CROP + (3,), dtype=np.float32)
+                           for _ in range(args.images)]),
+    }
+    for kind, images in kinds.items():
+        def run():
+            return batch.segment_images_batch(
+                images, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+                gc_regul=GC_REGUL)
+
+        _stages(torch, images[0], model)                   # build + warm
+        run()
+        rows, walls = [], []
+        for img in images:
+            rows.append(_stages(torch, img, model))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3 / len(images))
+        names = list(rows[0])
+        mean = {n: round(float(np.mean([r[n] for r in rows])), 3)
+                for n in names}
+        print('%s stage ms (mean of %d warm images): %s'
+              % (kind, len(rows), json.dumps(mean)))
+        print('%s stage sum ms: %.3f' % (kind, sum(mean.values())))
+        print('%s batch call ms per image (%d calls of %d, in turns with the '
+              'stage runs): %s' % (kind, len(walls), len(images),
+                                   json.dumps([round(w, 3) for w in walls])))
+        _profile(torch, lambda: batch.segment_images_batch(
+            images[:1], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL), args.out, kind)
 
 
 if __name__ == '__main__':
