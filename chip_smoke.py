@@ -28,7 +28,23 @@ Phases (any failure raises and exits non-zero):
    launched; warm ms per image and MPix/s;
 6. the enforcement op with centroids reduced from the labels
    (``ops.grid.enforce_grid_connectivity(..., centers=None)``), which runs
-   the donor-less moments kernel.
+   the donor-less moments kernel;
+7. the kernels of the fit path against their twins: the labels-only
+   assignment, plain and SLICO (labels exact), the partials-only pass
+   (rtol 1e-5), the SLICO multi-update (centres and colour normalisers),
+   and the grid reduce at F = 3, 7, 15, 40 on f32 and bf16 data (rtol 1e-5
+   plus 1e-5 of the channel's largest sum);
+8. the fit path: image 0 through
+   ``pipe_color2d_slic_features_model_graphcut`` with the full colour
+   feature set (mean, std, energy, median, meanGrad), a GMM fitted on the
+   card, against ``tests/data/torch_port_fixture_fit.npz`` (enforced labels
+   >= 0.999 equal, features, segmentation ARS >= 0.98, the fit's weighted
+   mean log-likelihood on the JAX features within 1e-3 relative of the JAX
+   fit's); the same image segmented with the JAX-fitted model (ARS >=
+   0.98); SLICO labels of ``segment_slic_img2d`` (>= 0.999); one
+   ``gc_edge_type='color'`` call; ``estim_model_classes_group`` on three
+   images, then ``segment_images_batch`` with that model; warm ms per image
+   with the fit, and the fit's own ms.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The second-to-last line is the kernels' JSON record, the
@@ -47,9 +63,12 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
 FIXTURE_CONN = os.path.join(ROOT, 'tests', 'data',
                             'torch_port_fixture_conn.npz')
+FIXTURE_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
+FEATURES_FIT = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
+NB_CLASSES = 3
 REPS = 20
 DEVICE = 'cuda'
 BATCH = 8
@@ -310,6 +329,107 @@ def enforce_phases(torch, img, labels, centers, cfg):
     return records
 
 
+def fit_kernel_phases(torch, img):
+    """The fit path's kernels against their twins at the bench geometry:
+    the labels-only and partials-only assignment passes, the SLICO mode of
+    the multi-update and assignment, and the grid reduce."""
+    from pyimsegm_tpu_torch.ops import grid_cuda, slic_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
+    lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
+    cen = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd)
+    records = []
+
+    for slico in (False, True):
+        name = 'slic_assign_slico' if slico else 'slic_assign'
+        c = cen
+        if slico:
+            c = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd,
+                                            slico=True)
+            c_p = slic_cuda._slic_multi_update_plain(lab_chw, centers0, m,
+                                                     cfg, n_upd, slico=True)
+            torch.cuda.synchronize()
+            err = float((c[..., :5] - c_p[..., :5]).abs().max())
+            m_rel = float(((c[..., 5] - c_p[..., 5]).abs()
+                           / c_p[..., 5]).max())
+            if not (err <= 1e-3 and m_rel <= 1e-3):
+                raise AssertionError('slic_multi_update SLICO: centres differ '
+                                     'by %g, M by %g relative' % (err, m_rel))
+            records.append(_record(
+                'slic_multi_update_slico', 'pyimsegm_tpu_torch/csrc/slic.cu',
+                'pyimsegm_tpu/ops/slic_pallas.py:477', err,
+                _time_ms(lambda: slic_cuda.slic_multi_update(
+                    lab_chw, centers0, m, cfg, n_upd, slico=True), reps=5),
+                _time_ms(lambda: slic_cuda._slic_multi_update_plain(
+                    lab_chw, centers0, m, cfg, n_upd, slico=True), reps=5),
+                'centres within %.3g, M within %.3g relative (tol 1e-3)'
+                % (err, m_rel)))
+        lb_k = slic_cuda.slic_assign(lab_chw, c, m, cfg, slico=slico)
+        lb_p = slic_cuda._slic_assign_plain(lab_chw, c, m, cfg, slico=slico)
+        torch.cuda.synchronize()
+        if not torch.equal(lb_k, lb_p):
+            raise AssertionError('%s: %d labels differ'
+                                 % (name, int((lb_k != lb_p).sum())))
+        records.append(_record(
+            name, 'pyimsegm_tpu_torch/csrc/slic.cu',
+            'pyimsegm_tpu/ops/slic_pallas.py:619', 0.0,
+            _time_ms(lambda: slic_cuda.slic_assign(lab_chw, c, m, cfg,
+                                                   slico=slico)),
+            _time_ms(lambda: slic_cuda._slic_assign_plain(lab_chw, c, m, cfg,
+                                                          slico=slico)),
+            'labels exact'))
+
+    part_k = slic_cuda.slic_update(lab_chw, cen, m, cfg)
+    part_p = slic_cuda._slic_update_plain(lab_chw, cen, m, cfg)
+    torch.cuda.synchronize()
+    diff = (part_k - part_p).abs()
+    scale = part_p.abs().amax(dim=(0, 1, 2), keepdim=True)
+    err = float(diff.max())
+    if not bool((diff <= 1e-5 * part_p.abs() + 1e-5 * scale).all()):
+        raise AssertionError('slic_update: partials max diff %g' % err)
+    records.append(_record(
+        'slic_update', 'pyimsegm_tpu_torch/csrc/slic.cu',
+        'pyimsegm_tpu/ops/slic_pallas.py:604', err,
+        _time_ms(lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg)),
+        _time_ms(lambda: slic_cuda._slic_update_plain(lab_chw, cen, m, cfg)),
+        'partials within rtol 1e-5'))
+
+    labels = slic_cuda.slic_assign(lab_chw, cen, m, cfg)[:cfg.height,
+                                                         :cfg.width]
+    labels = labels.contiguous()
+    rng = np.random.default_rng(2)
+    err, times = 0.0, {}
+    for f in (3, 7, 15, 40):
+        data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
+            np.float32), device=img.device)
+        for dtype in (torch.float32, torch.bfloat16):
+            d = data.to(dtype)
+            got = grid_cuda.grid_reduce(d, labels, cfg)
+            want = grid_cuda._grid_reduce_plain(d, labels, cfg)
+            torch.cuda.synchronize()
+            ok, diff = _sums_agree(got, want)
+            if not ok:
+                raise AssertionError('grid_reduce F=%d %s: max diff %g'
+                                     % (f, dtype, diff))
+            err = max(err, diff)
+            times[(f, dtype)] = (
+                _time_ms(lambda: grid_cuda.grid_reduce(d, labels, cfg)),
+                _time_ms(lambda: grid_cuda._grid_reduce_plain(d, labels,
+                                                              cfg)))
+    print('grid_reduce kernel / plain ms: %s' % ', '.join(
+        'F=%d %s %.4f / %.4f' % (f, str(dt).split('.')[-1], *times[(f, dt)])
+        for f, dt in times), flush=True)
+    records.append(_record(
+        'grid_reduce', 'pyimsegm_tpu_torch/csrc/grid.cu',
+        'pyimsegm_tpu/ops/grid_pallas.py:106', err,
+        *times[(7, torch.float32)],
+        'sums within rtol 1e-5 at F = 3, 7, 15, 40, f32 and bf16 (times: '
+        'F=7 f32)'))
+    return records
+
+
 def _counters():
     from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
                                         slic_cuda)
@@ -336,6 +456,10 @@ PATH_FALSE = ('blur_lab', 'slic_multi_update', 'slic_update_labels',
 PATH_BENCH = PATH_FALSE + ('grid_pair_count', 'grid_moments_apply',
                            'enforce_fused')
 PATH_OP = ('enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_lookup')
+PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_update', 'slic_assign',
+            'enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_reduce',
+            'grid_lookup', 'grid_adjacency_presence',
+            'slic_multi_update_slico', 'slic_assign_slico')
 
 
 def _drive(name, kernels, fn):
@@ -452,6 +576,92 @@ def path_bench(torch, model, images, fixture_conn):
     return launches
 
 
+def path_fit(torch, images, fixture):
+    """The unsupervised fit path at full width; returns the launch
+    counts."""
+    from pyimsegm_tpu_torch import pipelines, superpixels
+    from pyimsegm_tpu_torch.models import gmm
+    from pyimsegm_tpu_torch.models.class_model import (
+        class_model_from_numpy, estim_class_model)
+    from pyimsegm_tpu_torch.parallel import batch
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL, gc_regul=GC_REGUL)
+    jax_model = class_model_from_numpy(fixture).to(DEVICE)
+
+    def fit_one(img, debug=None):
+        return pipelines.pipe_color2d_slic_features_model_graphcut(
+            img, NB_CLASSES, FEATURES_FIT, debug_visual=debug, **kw)
+
+    def run():
+        debug = {}
+        fitted = fit_one(images[0], debug)
+        carried = pipelines.segment_color2d_slic_features_model_graphcut(
+            images[0], jax_model, FEATURES_FIT, **kw)
+        slico = superpixels.segment_slic_img2d(
+            images[0], sp_size=SP_SIZE, relative_compact=SP_REGUL, slico=True)
+        color = pipelines.segment_color2d_slic_features_model_graphcut(
+            images[1], jax_model, FEATURES_FIT, gc_edge_type='color', **kw)
+        group, _ = pipelines.estim_model_classes_group(
+            images[:3], NB_CLASSES, FEATURES_FIT, sp_size=SP_SIZE,
+            sp_regul=SP_REGUL)
+        batched = batch.segment_images_batch(np.stack(images[:3]), group,
+                                             FEATURES_FIT, **kw)
+        single = pipelines.segment_color2d_slic_features_model_graphcut(
+            images[2], group, FEATURES_FIT, **kw)
+        return debug, fitted, carried, slico, color, batched, single
+
+    (debug, fitted, carried, slico, color, batched, single), launches = \
+        _drive('fit path', PATH_FIT, run)
+    for segm, soft in (fitted, carried, color, single):
+        _check_outputs(segm, soft)
+    if not (np.array_equal(batched[0][2], single[0])
+            and np.array_equal(batched[1][2], single[1])):
+        raise AssertionError('fit path: batch image 2 differs from the '
+                             'single-image call')
+
+    slic_eq = float((debug['slic'] == fixture['slic']).mean())
+    diff = debug['slic'] != fixture['slic']
+    touched = np.zeros(fixture['features'].shape[0], bool)
+    touched[debug['slic'][diff]] = True
+    touched[fixture['slic'][diff]] = True
+    fd = np.abs(debug['features'] - fixture['features'])[~touched]
+    feat_ok = bool((fd <= 1e-5 * np.abs(fixture['features'][~touched])
+                    + 1e-4).all())
+    x = torch.as_tensor(fixture['features'], device=DEVICE)
+    w = torch.as_tensor(fixture['weight'], device=DEVICE)
+    model = debug['model']
+    ll_jax = float(gmm.gmm_score(jax_model.gmm, jax_model.transform(x), w))
+    ll_port = float(gmm.gmm_score(model.gmm, model.transform(x), w))
+    ll_rel = abs(ll_port - ll_jax) / abs(ll_jax)
+    ars_fit = adjusted_rand_score(fitted[0], fixture['segm'])
+    ars_carried = adjusted_rand_score(carried[0], fixture['segm'])
+    slico_eq = float((slico == fixture['slico']).mean())
+    print('fit path image 0 vs JAX-CPU: labels equal %.6f (>= 0.999), '
+          'features max diff %.3g on %d / %d unchanged superpixels (rtol '
+          '1e-5 + 1e-4), segm ARS %.6f with the card-fitted GMM and %.6f '
+          'with the JAX-fitted GMM (>= 0.98), weighted mean log-likelihood '
+          'on the JAX features %.6f vs JAX fit %.6f (rel %.3g, <= 1e-3), '
+          'SLICO labels equal %.6f (>= 0.999)'
+          % (slic_eq, float(fd.max()), int((~touched).sum()), touched.size,
+             ars_fit, ars_carried, ll_port, ll_jax, ll_rel, slico_eq),
+          flush=True)
+    if (slic_eq < 0.999 or not feat_ok or ars_fit < 0.98
+            or ars_carried < 0.98 or not ll_rel <= 1e-3 or slico_eq < 0.999):
+        raise AssertionError('fit path disagrees with the JAX reference')
+
+    ms_pipe = _warm_ms(torch, lambda: [fit_one(img) for img in images[:3]],
+                       3)
+    feats = torch.as_tensor(debug['features'], device=DEVICE)
+    weight = torch.as_tensor(fixture['weight'], device=DEVICE)
+    ms_fit = _warm_ms(torch, lambda: estim_class_model(
+        feats, NB_CLASSES, 'GMM', sample_weight=weight), 1)
+    print('fit path warm ms per 884x1200 image (SLIC + features + GMM fit + '
+          'MRF): %.3f; the GMM fit alone (910 x 15, 9 restarts x 99 EM '
+          'iterations): %.3f ms' % (ms_pipe, ms_fit), flush=True)
+    return launches
+
+
 def path_enforce_op(torch, img):
     """``enforce_grid_connectivity`` with centroids reduced from the labels
     (the donor-less moments kernel) and the min-size merge."""
@@ -498,19 +708,23 @@ def main():
           flush=True)
 
     fixtures = []
-    for path in (FIXTURE, FIXTURE_CONN):
+    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
               for s in range(BATCH)]
     img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
+    records += fit_kernel_phases(torch, img)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])
-    launches = path_bench(torch, model, images, fixtures[1])
-    launches['grid_moments'] = path_enforce_op(torch, img)['grid_moments']
+    bench = path_bench(torch, model, images, fixtures[1])
+    op = path_enforce_op(torch, img)
+    fit = path_fit(torch, images, fixtures[2])
     for rec in records:
-        rec['launches'] = launches[rec['name']]
+        name = rec['name']
+        rec['launches'] = (bench[name] if name in PATH_BENCH else
+                           op[name] if name in PATH_OP else fit[name])
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1,7 +1,11 @@
 // Grid-structured superpixel lookup, conn4 adjacency presence, conn4 pair
-// counts, and the geometry + moments reduce with the min-size donor apply.
+// counts, the geometry + moments reduce with the min-size donor apply, and
+// the generic per-superpixel sum of an (H, W, F) image.
 //
-// Replaces four TPU kernels of pyimsegm_tpu/ops/grid_pallas.py:
+// Replaces five TPU kernels of pyimsegm_tpu/ops/grid_pallas.py:
+//   grid_reduce_pallas (_reduce_kernel): per-superpixel sums of F channels
+//     of f32 or bf16 data (f32 accumulation), pixels routed by the offset
+//     code of their label in their tile's 3x3 window;
 //   grid_lookup_pallas (_lookup_kernel): per-pixel table[label] for labels
 //     that lie in the 3x3 seed window of their pixel's tile, 0 elsewhere;
 //   grid_adjacency_presence_pallas (_adjacency_kernel): for each tile and
@@ -31,15 +35,23 @@
 // thread in registers (the offset index is unrolled), reduced with warp
 // shuffles and then across warps in a fixed order, as csrc/slic.cu does: no
 // float atomics, so a run is deterministic.  The 9 grid shifts that route
-// the partials to their seeds run in torch.  The TPU kernels' selector
+// the partials to their seeds run in torch.  The reduce reads 4F (2F for
+// bf16) + 4 B per pixel once per chunk of 8 channels (the labels again per
+// chunk; F is 1-40 on the paths) and keeps 9 x 8 register sums per thread,
+// reduced in the same fixed order; a second tiny kernel, one thread per
+// (seed, channel), routes the 9 partials to their seeds in the order of
+// combine_sums, so the call is two launches and no torch routing.  The TPU kernels' selector
 // matmuls, lo/hi field packing and OR trees exist only for the TPU and are
 // not carried over.
 // Labels below 0 (the -2 of the image edge and the pad) are tested before any
 // division: C's '/' truncates where JAX's '//' floors.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 
 #define NOFF 9
+#define RED_THREADS 256
+#define RED_CHUNK 8
 #define ADJ_THREADS 256
 #define NCH 25
 #define MOM_THREADS 256
@@ -225,6 +237,88 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
     }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// Per-(tile, offset) sums of (H, W, F) data, F channels in chunks of
+// RED_CHUNK: 9 x RED_CHUNK register sums per thread, warp shuffles, then a
+// fixed-order sum across warps.  Pixels whose label is negative or outside
+// their 3x3 window add nothing.
+template <typename T>
+__global__ void __launch_bounds__(RED_THREADS)
+grid_reduce_kernel(const T* __restrict__ data,          // (H, W, F)
+                   const int* __restrict__ labels,      // (H, W)
+                   float* __restrict__ partials,        // (gh, gw, 9, F)
+                   int height, int width, int f, int gw, int step) {
+    __shared__ float red[RED_THREADS / 32][NOFF * RED_CHUNK];
+    const int tx = blockIdx.x, ty = blockIdx.y;
+    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+    const size_t tile = (size_t)ty * gw + tx;
+    for (int c0 = 0; c0 < f; c0 += RED_CHUNK) {
+        float acc[NOFF][RED_CHUNK];
+#pragma unroll
+        for (int o = 0; o < NOFF; ++o)
+#pragma unroll
+            for (int c = 0; c < RED_CHUNK; ++c) acc[o][c] = 0.0f;
+        for (int p = tid; p < step * step; p += RED_THREADS) {
+            const int y = ty * step + p / step, x = tx * step + p % step;
+            if (y >= height || x >= width) continue;
+            const size_t idx = (size_t)y * width + x;
+            const int o = offset_code(labels[idx], y, x, gw, step);
+            if (o < 0) continue;
+            float v[RED_CHUNK];
+#pragma unroll
+            for (int c = 0; c < RED_CHUNK; ++c)
+                v[c] = c0 + c < f ? to_f32(data[idx * f + c0 + c]) : 0.0f;
+#pragma unroll
+            for (int oi = 0; oi < NOFF; ++oi) {
+                if (oi == o) {
+#pragma unroll
+                    for (int c = 0; c < RED_CHUNK; ++c)
+                        acc[oi][c] = __fadd_rn(acc[oi][c], v[c]);
+                }
+            }
+        }
+#pragma unroll
+        for (int o = 0; o < NOFF; ++o) {
+#pragma unroll
+            for (int c = 0; c < RED_CHUNK; ++c) {
+                float s = acc[o][c];
+#pragma unroll
+                for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(FULL, s, m);
+                if (lane == 0) red[warp][o * RED_CHUNK + c] = s;
+            }
+        }
+        __syncthreads();
+        for (int k = tid; k < NOFF * RED_CHUNK; k += RED_THREADS) {
+            const int o = k / RED_CHUNK, c = c0 + k % RED_CHUNK;
+            if (c >= f) continue;
+            float s = red[0][k];
+            for (int wi = 1; wi < RED_THREADS / 32; ++wi) s += red[wi][k];
+            partials[(tile * NOFF + o) * f + c] = s;
+        }
+        __syncthreads();   // red is rewritten by the next chunk
+    }
+}
+
+// One thread per (seed, channel): add the 9 routed offset partials in the
+// order of slic_cuda.combine_sums.
+__global__ void grid_route_kernel(const float* __restrict__ partials,  // (gh, gw, 9, F)
+                                  float* __restrict__ out,             // (K, F)
+                                  int gh, int gw, int f) {
+    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= (size_t)gh * gw * f) return;
+    const int s = (int)(i / f), c = (int)(i % f);
+    const int y = s / gw, x = s % gw;
+    float sum = 0.0f;
+    for (int o = 0; o < NOFF; ++o) {
+        const int sy = y - (o / 3 - 1), sx = x - (o % 3 - 1);
+        if (sy < 0 || sy >= gh || sx < 0 || sx >= gw) continue;
+        sum = __fadd_rn(sum, partials[(((size_t)sy * gw + sx) * NOFF + o) * f + c]);
+    }
+    out[i] = sum;
+}
+
 extern "C" int grid_lookup(const void* table, const void* labels, void* out,
                            int height, int width, int c, int gh, int gw,
                            int step, void* stream) {
@@ -253,6 +347,28 @@ extern "C" int grid_pair_count(const void* labels, void* cnt9, void* counts9,
     grid_pair_count_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
         (const int*)labels, (float*)cnt9, (float*)counts9, height, width, gw,
         step);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int grid_reduce(const void* data, const void* labels,
+                           void* partials, void* out, int height, int width,
+                           int f, int gh, int gw, int step, int bf16,
+                           void* stream) {
+    dim3 grid(gw, gh);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (bf16)
+        grid_reduce_kernel<__nv_bfloat16><<<grid, RED_THREADS, 0, st>>>(
+            (const __nv_bfloat16*)data, (const int*)labels, (float*)partials,
+            height, width, f, gw, step);
+    else
+        grid_reduce_kernel<float><<<grid, RED_THREADS, 0, st>>>(
+            (const float*)data, (const int*)labels, (float*)partials, height,
+            width, f, gw, step);
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    size_t n = (size_t)gh * gw * f;
+    grid_route_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        (const float*)partials, (float*)out, gh, gw, f);
     return (int)cudaGetLastError();
 }
 

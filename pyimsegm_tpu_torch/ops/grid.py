@@ -6,13 +6,11 @@ label is one of the 3x3 seeds around its pixel's tile, so per-superpixel
 sums are masked tile sums routed by 9 grid shifts, and superpixel adjacency
 fits a dense (gh, gw, 25) tensor of relative seed offsets in [-2, 2]^2.
 
-The pixel-scale passes run through ``ops/grid_cuda.py`` (lookup, adjacency,
-pair counts, moments with the donor apply) and ``ops/enforce_cuda.py``
-(anchor seed + reach + absorb): a CUDA kernel for a CUDA tensor, the plain
-twin for a CPU tensor.  The (K,)-sized donor tables are plain PyTorch on
-the tensor's device, with no host synchronisation.
-:func:`grid_segment_sum` is plain PyTorch and serves the CPU path; its
-kernel (``grid_reduce``) is not ported yet, so it refuses CUDA tensors.
+The pixel-scale passes run through ``ops/grid_cuda.py`` (segment sums,
+lookup, adjacency, pair counts, moments with the donor apply) and
+``ops/enforce_cuda.py`` (anchor seed + reach + absorb): a CUDA kernel for a
+CUDA tensor, the plain twin for a CPU tensor.  The (K,)-sized donor tables
+are plain PyTorch on the tensor's device, with no host synchronisation.
 """
 
 import torch
@@ -50,25 +48,13 @@ def _shift2d(grid2d, di, dj, fill=0):
 
 
 def grid_segment_sum(data, labels, cfg: SlicConfig):
-    """Per-superpixel sums of (H, W, F) ``data`` over grid-structured labels:
-    per-offset masked tile sums routed to their seeds by 9 grid shifts.
+    """Per-superpixel sums of (H, W, F) ``data`` over grid-structured labels
+    (:func:`grid_cuda.grid_reduce`: the kernel for CUDA tensors, the plain
+    masked tile sums for CPU tensors).
 
     :returns: (K, F) f32 sums
     """
-    if data.is_cuda:
-        raise NotImplementedError(
-            'grid_segment_sum on CUDA needs the grid_reduce kernel, which '
-            'comes with the fitting slice of ROADMAP.md')
-    f = data.shape[-1]
-    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
-    data_p = _pad_to_grid(data.to(torch.float32), cfg)
-    code = grid_cuda._window_code(_pad_to_grid(labels, cfg, fill=-2), cfg)
-    out = torch.zeros((gh, gw, f), dtype=torch.float32, device=data.device)
-    for idx, (di, dj) in enumerate(_OFFSETS):
-        w = (code == idx).to(torch.float32)[..., None]
-        part = (data_p * w).reshape(gh, step, gw, step, f).sum(dim=(1, 3))
-        out = out + _shift2d(part, di, dj)
-    return out.reshape(gh * gw, f)
+    return grid_cuda.grid_reduce(data, labels, cfg)
 
 
 def grid_geometry_moments(feat, labels, cfg: SlicConfig):
@@ -98,6 +84,13 @@ def grid_lookup(table, labels, cfg: SlicConfig):
     out = grid_cuda.grid_lookup(table.to(torch.float32), labels, cfg)
     out = out.to(table.dtype)
     return out[..., 0] if squeeze else out
+
+
+def grid_segment_count(labels, cfg: SlicConfig):
+    """(K,) pixel counts per superpixel."""
+    ones = torch.ones(labels.shape + (1,), dtype=torch.float32,
+                      device=labels.device)
+    return grid_segment_sum(ones, labels, cfg)[:, 0]
 
 
 def grid_segment_min(value, labels, cfg: SlicConfig):

@@ -1,8 +1,9 @@
-"""Grid lookup, conn4 adjacency presence, conn4 pair counts and the
-moments reduce with the min-size donor apply: CUDA kernels and twins.
+"""Grid lookup, conn4 adjacency presence, conn4 pair counts, the moments
+reduce with the min-size donor apply and the generic per-superpixel sum:
+CUDA kernels and twins.
 
-Replaces four kernels of ``pyimsegm_tpu.ops.grid_pallas`` with the kernels
-of ``csrc/grid.cu``: ``grid_lookup_pallas``,
+Replaces five kernels of ``pyimsegm_tpu.ops.grid_pallas`` with the kernels
+of ``csrc/grid.cu``: ``grid_reduce_pallas``, ``grid_lookup_pallas``,
 ``grid_adjacency_presence_pallas``, ``grid_pair_count_pallas`` and
 ``grid_moments_apply_pallas``, whose donor-less mode also replaces
 ``grid_moments_pallas``.  Each wrapper launches its kernel for CUDA tensors
@@ -15,13 +16,14 @@ from pyimsegm_tpu_torch import _build
 from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 #: kernel launches in this process, per wrapper
-LAUNCHES = {'grid_lookup': 0, 'grid_adjacency_presence': 0,
+LAUNCHES = {'grid_reduce': 0, 'grid_lookup': 0, 'grid_adjacency_presence': 0,
             'grid_pair_count': 0, 'grid_moments_apply': 0, 'grid_moments': 0}
 
 
 def _lib():
     v, i = _build.VOIDP, _build.INT
     return _build.load('grid', {
+        'grid_reduce': [v] * 4 + [i] * 7 + [v],
         'grid_lookup': [v, v, v] + [i] * 6 + [v],
         'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
         'grid_pair_count': [v, v, v] + [i] * 5 + [v],
@@ -49,6 +51,54 @@ def _window_code(labels, cfg: SlicConfig):
     dx = safe % cfg.grid_w - tx + 1
     ok = ok & (dy >= 0) & (dy < 3) & (dx >= 0) & (dx < 3)
     return torch.where(ok, dy * 3 + dx, -1)
+
+
+def _grid_reduce_plain(data, labels, cfg: SlicConfig):
+    """(K, F) f32 per-superpixel sums of (H, W, F) data: per-offset masked
+    tile sums routed to their seeds by 9 grid shifts."""
+    from pyimsegm_tpu_torch.ops.grid import _OFFSETS, _pad_to_grid, _shift2d
+    f = data.shape[-1]
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    data_p = _pad_to_grid(data.to(torch.float32), cfg)
+    code = _window_code(_pad_to_grid(labels, cfg, fill=-2), cfg)
+    out = torch.zeros((gh, gw, f), dtype=torch.float32, device=data.device)
+    for idx, (di, dj) in enumerate(_OFFSETS):
+        w = (code == idx).to(torch.float32)[..., None]
+        part = (data_p * w).reshape(gh, step, gw, step, f).sum(dim=(1, 3))
+        out = out + _shift2d(part, di, dj)
+    return out.reshape(gh * gw, f)
+
+
+def grid_reduce(data, labels, cfg: SlicConfig):
+    """Per-superpixel sums of (H, W, F) data over grid-structured labels.
+
+    :param data: (H, W, F) float tensor; bf16 is read as bf16 (f32 sums),
+        every other dtype goes through f32
+    :param labels: (H, W) int32; a pixel whose label is negative or outside
+        its tile's 3x3 seed window adds nothing
+    :returns: (K, F) f32 sums
+    """
+    if not labels.is_cuda:
+        return _grid_reduce_plain(data, labels, cfg)
+    h, w, f = data.shape
+    if data.dtype != torch.bfloat16:
+        data = data.to(torch.float32)
+    data = _build.require(data.contiguous(), 'data', data.dtype,
+                          (cfg.height, cfg.width, f))
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    dev = labels.device
+    partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, f), dtype=torch.float32,
+                           device=dev)
+    out = torch.empty((cfg.n_segments, f), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().grid_reduce(
+            data.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+            out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
+            int(data.dtype == torch.bfloat16), _build.stream_ptr(labels))
+    _build.check(err, 'grid_reduce')
+    LAUNCHES['grid_reduce'] += 1
+    return out
 
 
 def _grid_lookup_plain(table, labels, cfg: SlicConfig):

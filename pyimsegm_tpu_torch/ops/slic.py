@@ -6,10 +6,11 @@ K = gh * gw is fixed by the image shape and every later stage works on the
 seed grid.
 
 Dispatch goes by the tensor's device.  For a CUDA tensor
-:func:`slic_segment_with_features` runs the hand-written kernels
-(:func:`_slic_segment_geom_cuda`: ``ops/prep_cuda.py`` and
-``ops/slic_cuda.py``); for a CPU tensor it runs the plain path
-(:func:`_slic_segment_xla`, named after the JAX function it mirrors).
+:func:`slic_segment`, :func:`slic_segment_with_geometry` and
+:func:`slic_segment_with_features` run the hand-written kernels
+(``ops/prep_cuda.py`` and ``ops/slic_cuda.py``); for a CPU tensor they run
+the plain path (:func:`_slic_segment_xla`, named after the JAX function it
+mirrors).  SLICO (adaptive per-cluster compactness) runs on both.
 
 The Lab pixels are rounded through bf16 on both paths, as the reference
 does on every backend, so both assign from the same pixel values.
@@ -20,6 +21,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from pyimsegm_tpu_torch.utils.device import as_tensor
 
 #: iterations of the reference SLIC (skimage ``max_num_iter=10``)
 DEFAULT_SLIC_ITERS = 10
@@ -201,9 +204,10 @@ def _labels_geometry(labels, cfg: SlicConfig):
 
 
 def _slic_segment_xla(image, cfg: SlicConfig, compactness,
-                      n_iter=DEFAULT_SLIC_ITERS):
-    """Plain SLIC (the non-SLICO branch of the JAX function of this name):
-    n_iter-1 assign + update rounds, then a final assignment.
+                      n_iter=DEFAULT_SLIC_ITERS, slico=False):
+    """Plain SLIC (the JAX function of this name): n_iter-1 assign + update
+    rounds, then a final assignment; with ``slico`` the distance is
+    ``dc2 / M + ds2 / step**2`` with a per-cluster colour normaliser M.
 
     :returns: (H, W) int32 labels
     """
@@ -213,10 +217,52 @@ def _slic_segment_xla(image, cfg: SlicConfig, compactness,
     lab_p = _edge_pad_chw(lab_chw, cfg)
     centers = slic_cuda._slic_multi_update_plain(
         lab_p, _seed_centers(lab_chw, cfg), compactness, cfg,
-        max(n_iter - 1, 0))
-    sw, m2 = slic_weights(compactness, cfg)
-    labels, _ = slic_cuda._assign_plain(lab_p, centers, sw, m2, cfg)
+        max(n_iter - 1, 0), slico)
+    labels = slic_cuda._slic_assign_plain(lab_p, centers, compactness, cfg,
+                                          slico)
     return labels[:cfg.height, :cfg.width].contiguous()
+
+
+def _slic_segment_cuda(image, cfg: SlicConfig, compactness,
+                       n_iter=DEFAULT_SLIC_ITERS, slico=False):
+    """SLIC labels through the kernels: blur_lab, n_iter-1 assign + update
+    rounds, then a labels-only final assignment."""
+    from pyimsegm_tpu_torch.ops.slic_cuda import slic_assign, slic_multi_update
+    lab_chw, centers0 = _prepare_chw(image, cfg)
+    centers = slic_multi_update(lab_chw, centers0, compactness, cfg,
+                                n_upd=max(n_iter - 1, 0), slico=slico)
+    labels = slic_assign(lab_chw, centers, compactness, cfg, slico=slico)
+    return labels[:cfg.height, :cfg.width].contiguous()
+
+
+def slic_segment(image, cfg: SlicConfig, compactness,
+                 n_iter=DEFAULT_SLIC_ITERS, slico=False):
+    """Run SLIC; int32 labels of shape (height, width) in [0, K).
+
+    :param image: (H, W, 3) or (H, W) float tensor (any scale); its device
+        picks the kernels (CUDA) or the plain path (CPU)
+    :param compactness: SLIC compactness m
+    :param slico: adaptive per-cluster compactness (SLIC-zero)
+    """
+    if image.is_cuda:
+        return _slic_segment_cuda(image, cfg, compactness, n_iter=n_iter,
+                                  slico=slico)
+    return _slic_segment_xla(image, cfg, compactness, n_iter=n_iter,
+                             slico=slico)
+
+
+def slic_segment_with_geometry(image, cfg: SlicConfig, compactness,
+                               n_iter=DEFAULT_SLIC_ITERS):
+    """SLIC labels plus per-superpixel pixel counts and (y, x) centres; on
+    the card they come out of the final assignment pass.
+
+    :returns: (labels (H, W) int32, counts (K,) f32, centres (K, 2) f32)
+    """
+    if image.is_cuda:
+        return _slic_segment_geom_cuda(image, cfg, compactness, n_iter=n_iter)
+    labels = _slic_segment_xla(image, cfg, compactness, n_iter=n_iter)
+    counts, centers = _labels_geometry(labels, cfg)
+    return labels, counts, centers
 
 
 def _slic_segment_geom_cuda(image, cfg: SlicConfig, compactness,
@@ -269,3 +315,30 @@ def slic_segment_with_features(image, feat_image, cfg: SlicConfig,
     feat = feat_image.to(torch.float32)
     sums = grid_segment_sum(torch.cat([feat, feat * feat], dim=-1), labels, cfg)
     return labels, counts, centers, sums
+
+
+def segment_slic_img2d(img, sp_size=50, relative_compact=0.1, slico=False,
+                       n_iter=DEFAULT_SLIC_ITERS, enforce_connectivity=True,
+                       compat=False, device='cuda'):
+    """SLIC label map of a 2D image, with the reference's parameters.
+
+    :param img: (H, W[, 3]) image; a tensor runs on its device, anything
+        else on ``device``
+    :param enforce_connectivity: make every superpixel one 4-connected
+        region and merge those below half a tile into a neighbour
+    :param compat: the skimage-faithful mode of the JAX package (5x5 window,
+        dynamic label count) is not ported
+    :returns: (H, W) int32 numpy labels
+    """
+    if compat:
+        raise NotImplementedError('the skimage-compat SLIC mode comes with '
+                                  'the RG2Sp slice (ROADMAP.md)')
+    img = as_tensor(img, device)
+    cfg = slic_config(img.shape[0], img.shape[1], sp_size)
+    m = compactness_from_regul(sp_size, relative_compact)
+    labels = slic_segment(img, cfg, m, n_iter=n_iter, slico=slico)
+    if enforce_connectivity:
+        from pyimsegm_tpu_torch.ops.grid import enforce_grid_connectivity
+        labels = enforce_grid_connectivity(
+            labels, cfg, min_size=int(0.5 * cfg.step * cfg.step))
+    return labels.cpu().numpy()

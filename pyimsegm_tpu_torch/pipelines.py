@@ -1,22 +1,35 @@
 """Public segmentation pipelines (port of ``pyimsegm_tpu.pipelines``).
 
-Ported so far: :func:`segment_color2d_slic_features_model_graphcut` with a
-fitted :class:`ClassModel` and a single ``'color'`` key of plain moments
-(mean / std / energy), with ``connectivity=True`` (the default) or False.
-That path is SLIC -> [connectivity enforcement + min-size merge + moments
-re-reduce] -> GMM ``predict_proba`` -> MRF on the 25-neighbour superpixel
-grid -> upsampling.  The other options raise ``NotImplementedError`` naming
-the slice of ROADMAP.md that brings them.
+* :func:`pipe_color2d_slic_features_model_graphcut` — unsupervised single
+  image: SLIC, features, a class model fitted on the image, MRF;
+* :func:`estim_model_classes_group` — fit one class model over a group of
+  images;
+* :func:`segment_color2d_slic_features_model_graphcut` — segment with a
+  fitted model;
+* :func:`compute_color2d_superpixels_features` — SLIC + features.
+
+A tensor image runs on its own device; a numpy image on the ``device``
+keyword (``'cuda'`` by default; with no card the call raises, and
+``device='cpu'`` runs the plain PyTorch path).  Features are any colour
+spec (``'color'`` or ``'color_<space>'`` keys, any of mean / std / energy /
+median / meanGrad); SLICO and ``connectivity`` on or off are ported.  The
+texture keys, classifiers, ``sp_compat`` and 3D volumes raise
+``NotImplementedError`` naming the slice of ROADMAP.md that brings them.
 """
 
 import numpy as np
 import torch
 
-from pyimsegm_tpu_torch.models.class_model import ClassModel
+from pyimsegm_tpu_torch import descriptors
+from pyimsegm_tpu_torch.models.class_model import (ClassModel,
+                                                   estim_class_model)
+from pyimsegm_tpu_torch.ops import color as color_ops
 from pyimsegm_tpu_torch.ops import graphcut
 from pyimsegm_tpu_torch.ops import grid as grid_ops
+from pyimsegm_tpu_torch.ops import segment_stats
 from pyimsegm_tpu_torch.ops import slic as slic_ops
 from pyimsegm_tpu_torch.ops.grid import grid_lookup
+from pyimsegm_tpu_torch.utils.device import as_tensor
 
 _MOMENT_FLAGS = ('mean', 'std', 'energy')
 
@@ -42,13 +55,14 @@ def _fusable_color_spec(feats_spec):
 def _moment_features(msums, counts, flags):
     """[mean, std, energy] blocks (in that order, as ``flags`` selects)
     from (K, 6) colour moment sums [sum v, sum v^2] and (K,) counts."""
-    safe = torch.clamp_min(counts[:, None], 1.0)
-    mean = msums[:, :3] / safe
-    energy = msums[:, 3:6] / safe
-    blocks = {'mean': mean,
-              'std': torch.sqrt(torch.clamp_min(energy - mean * mean, 0.0)),
-              'energy': energy}
+    blocks = segment_stats.moment_blocks(msums, counts)
     return torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags], dim=-1)
+
+
+def _grid_geometry(labels, cfg):
+    """(counts (K,), centres (K, 2)) of grid-structured labels, by one grid
+    reduce."""
+    return slic_ops._labels_geometry(labels, cfg)
 
 
 def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
@@ -56,35 +70,49 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
                         connectivity=True):
     """SLIC + per-superpixel features.
 
-    With ``connectivity`` the SLIC labels are enforced (every superpixel one
+    A single colour key of plain moments rides the final SLIC pass (the
+    fused branch; its moments are of the image converted to the key's
+    colour space).  Every other spec, SLICO and a gray image take the
+    labels-only SLIC and the descriptors over the grid reduce.  With
+    ``connectivity`` the labels are enforced (every superpixel one
     4-connected region, superpixels below half a tile merged into a
-    neighbour), seeded by the centroids of the final SLIC pass, and the
-    geometry and colour moments are re-reduced over the final labels.
+    neighbour) before anything is measured over them.
 
-    :param image: (H, W, 3) float tensor
+    :param image: (H, W, 3) or (H, W) tensor
     :returns: (labels (H, W) i32, features (K, F), counts (K,),
         centres (K, 2))
     """
-    if slico:
-        raise NotImplementedError('SLICO comes with the fitting slice '
-                                  '(ROADMAP.md)')
-    fuse_key = None if image.ndim != 3 else _fusable_color_spec(feats_spec)
-    if fuse_key != 'color':
-        raise NotImplementedError(
-            'only a single "color" key of mean/std/energy is ported; other '
-            'feature specs come with the fitting slice (ROADMAP.md)')
-    # the moments are of the raw RGB float image, not of Lab
-    img_f = image.to(torch.float32)
-    flags = dict(feats_spec)[fuse_key]
-    labels, counts, centers, msums = slic_ops.slic_segment_with_features(
-        image, img_f, cfg, compactness, n_iter=n_iter)
-    if connectivity:
-        labels, sums = grid_ops.enforce_minsize_with_moments(
-            labels, cfg, int(0.5 * cfg.step * cfg.step), centers, img_f)
-        counts = sums[:, 6]
-        centers = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
-        msums = sums[:, :6]
-    return labels, _moment_features(msums, counts, flags), counts, centers
+    fuse_key = None if (slico or image.ndim != 3) \
+        else _fusable_color_spec(feats_spec)
+    min_size = int(0.5 * cfg.step * cfg.step)
+    if fuse_key is not None:
+        img_f = image.to(torch.float32)
+        feat_img = (color_ops.convert_img_color_from_rgb(
+            img_f, fuse_key.split('_')[-1]) if '_' in fuse_key else img_f)
+        flags = dict(feats_spec)[fuse_key]
+        labels, counts, centers, msums = slic_ops.slic_segment_with_features(
+            image, feat_img, cfg, compactness, n_iter=n_iter)
+        if connectivity:
+            labels, sums = grid_ops.enforce_minsize_with_moments(
+                labels, cfg, min_size, centers, feat_img)
+            counts = sums[:, 6]
+            centers = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
+            msums = sums[:, :6]
+        return labels, _moment_features(msums, counts, flags), counts, centers
+    if connectivity or slico:
+        labels = slic_ops.slic_segment(image, cfg, compactness, n_iter=n_iter,
+                                       slico=slico)
+        if connectivity:
+            labels = grid_ops.enforce_grid_connectivity(labels, cfg,
+                                                        min_size=min_size)
+        counts, centers = _grid_geometry(labels, cfg)
+    else:
+        labels, counts, centers = slic_ops.slic_segment_with_geometry(
+            image, cfg, compactness, n_iter=n_iter)
+    features, _ = descriptors.compute_selected_features_img2d(
+        image.to(torch.float32), labels.reshape(-1), cfg.n_segments,
+        dict(feats_spec), grid_ctx=(labels, cfg))
+    return labels, features, counts, centers
 
 
 def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
@@ -100,6 +128,26 @@ def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
         grid_ctx=(labels, cfg), centers=centers)
     segm = grid_lookup(graph_labels, labels, cfg)
     return segm, segm_soft, labels, proba, graph_labels
+
+
+def _pipe_unsup_core(image, *, cfg, feats_spec, nb_classes, estim_model,
+                     pca_coef, use_scaler, gc_regul, gc_edge_type,
+                     compactness, seed=0):
+    """SLIC -> features -> class model fitted on this image -> proba ->
+    MRF -> upsampling, all on the image's device."""
+    labels, features, counts, centers = _slic_features_core(
+        image, cfg, feats_spec, compactness)
+    mask = (counts > 0).to(torch.float32)
+    model = estim_class_model(features, nb_classes, estim_model, pca_coef,
+                              use_scaler, sample_weight=mask, seed=seed)
+    proba = model.predict_proba(features)
+    segm_soft = grid_lookup(proba, labels, cfg)
+    graph_labels = graphcut.segment_graph_cut_general(
+        labels, proba, cfg.n_segments, image=image.to(torch.float32),
+        features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
+        grid_ctx=(labels, cfg), centers=centers)
+    segm = grid_lookup(graph_labels, labels, cfg)
+    return segm, segm_soft, labels, features, proba, model, graph_labels
 
 
 def _model_device(model):
@@ -126,12 +174,9 @@ def _to_model_device(image, model):
         raise NotImplementedError('classifiers come with the supervised '
                                   'slice (ROADMAP.md)')
     device = _model_device(model)
-    if isinstance(image, torch.Tensor):
-        if image.device != device:
-            raise ValueError('image on %s, model on %s'
-                             % (image.device, device))
-        return image
-    return torch.as_tensor(np.asarray(image), device=device)
+    if isinstance(image, torch.Tensor) and image.device != device:
+        raise ValueError('image on %s, model on %s' % (image.device, device))
+    return as_tensor(image, device)
 
 
 def segment_color2d_slic_features_model_graphcut(
@@ -147,8 +192,8 @@ def segment_color2d_slic_features_model_graphcut(
     :returns: (segm (H, W) int32 ndarray, segm_soft (H, W, C) ndarray)
     """
     if sp_compat:
-        raise NotImplementedError('sp_compat comes with a later slice '
-                                  '(ROADMAP.md)')
+        raise NotImplementedError('sp_compat (skimage-compat SLIC) comes '
+                                  'with the RG2Sp slice (ROADMAP.md)')
     image = _to_model_device(image, model_pipeline)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
@@ -163,3 +208,76 @@ def segment_color2d_slic_features_model_graphcut(
         return _fetch_reconstruct(labels, proba, graph_labels, cfg)
     # raw labels may hold out-of-window pixels: the device lookup holds
     return segm.cpu().numpy(), segm_soft.cpu().numpy()
+
+
+def compute_color2d_superpixels_features(image, dict_features, sp_size=30,
+                                         sp_regul=0.2, device='cuda'):
+    """SLIC + per-superpixel features.
+
+    :returns: (labels (H, W) int32 ndarray, features (K, F) ndarray) where K
+        is the static superpixel capacity; empty slots are zero rows
+    """
+    if sp_regul <= 0:
+        raise ValueError('slic. regularisation must be positive')
+    image = as_tensor(image, device)
+    cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    labels, features, _counts, _centers = _slic_features_core(
+        image, cfg, _features_spec(dict_features), m)
+    return labels.cpu().numpy(), torch.nan_to_num(features).cpu().numpy()
+
+
+def pipe_color2d_slic_features_model_graphcut(
+        image, nb_classes, dict_features, sp_size=30, sp_regul=0.2,
+        pca_coef=None, use_scaler=True, estim_model='GMM', gc_regul=1.0,
+        gc_edge_type='model', seed=0, debug_visual=None, device='cuda'):
+    """Unsupervised single-image pipeline: SLIC -> features -> class model
+    fitted on the image -> MRF regularisation.
+
+    :param image: (H, W, 3) image; a tensor runs on its device, anything
+        else on ``device``
+    :param seed: seed of the model fit's ``torch.Generator``
+    :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) float ndarray)
+    """
+    image = as_tensor(image, device)
+    cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    segm, segm_soft, labels, features, proba, model, graph_labels = \
+        _pipe_unsup_core(
+            image, cfg=cfg, feats_spec=_features_spec(dict_features),
+            nb_classes=nb_classes, estim_model=estim_model, pca_coef=pca_coef,
+            use_scaler=use_scaler, gc_regul=float(gc_regul),
+            gc_edge_type=gc_edge_type, compactness=m, seed=seed)
+    if debug_visual is not None:
+        debug_visual['slic'] = labels.cpu().numpy()
+        debug_visual['features'] = features.cpu().numpy()
+        debug_visual['proba'] = proba.cpu().numpy()
+        debug_visual['model'] = model
+        return segm.cpu().numpy(), segm_soft.cpu().numpy()
+    return _fetch_reconstruct(labels, proba, graph_labels, cfg)
+
+
+def estim_model_classes_group(list_images, nb_classes, dict_features,
+                              sp_size=30, sp_regul=0.2, use_scaler=True,
+                              pca_coef=None, model_type='GMM', seed=0,
+                              device='cuda'):
+    """Fit one class model over the superpixels of several images.
+
+    :returns: (ClassModel on the images' device, list of per-image (K, F)
+        feature ndarrays)
+    """
+    feats_spec = _features_spec(dict_features)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    all_features, all_masks, list_features = [], [], []
+    for image in list_images:
+        image = as_tensor(image, device)
+        cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+        _labels, features, counts, _centers = _slic_features_core(
+            image, cfg, feats_spec, m)
+        all_features.append(features)
+        all_masks.append((counts > 0).to(torch.float32))
+        list_features.append(torch.nan_to_num(features).cpu().numpy())
+    model = estim_class_model(
+        torch.nan_to_num(torch.cat(all_features)), nb_classes, model_type,
+        pca_coef, use_scaler, sample_weight=torch.cat(all_masks), seed=seed)
+    return model, list_features

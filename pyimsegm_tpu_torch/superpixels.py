@@ -1,0 +1,55 @@
+"""Superpixel API under the reference's names (port of
+``pyimsegm_tpu.superpixels``): :func:`segment_slic_img2d` from
+``ops/slic.py`` and the host-side numpy edge-list helpers.  The 3D SLIC,
+``superpixel_centers`` and ``get_neighboring_segments`` come with the 3D and
+RG2Sp slices (ROADMAP.md)."""
+
+import numpy as np
+
+from pyimsegm_tpu_torch.ops.slic import (  # noqa: F401  (public re-export)
+    segment_slic_img2d,
+)
+
+
+def get_segment_diffs_2d_conn4(grid):
+    """(a, b) label pairs of all horizontally and vertically adjacent
+    pixels of a 2D label map."""
+    grid = np.asarray(grid)
+    a = np.concatenate([grid[:, :-1].ravel(), grid[:-1, :].ravel()])
+    b = np.concatenate([grid[:, 1:].ravel(), grid[1:, :].ravel()])
+    return np.stack([a, b], axis=1)
+
+
+def get_segment_diffs_3d_conn6(grid):
+    """conn6 pairs of a 3D label volume."""
+    grid = np.asarray(grid)
+    a = np.concatenate([grid[:, :, :-1].ravel(), grid[:, :-1, :].ravel(),
+                        grid[:-1, :, :].ravel()])
+    b = np.concatenate([grid[:, :, 1:].ravel(), grid[:, 1:, :].ravel(),
+                        grid[1:, :, :].ravel()])
+    return np.stack([a, b], axis=1)
+
+
+def make_graph_segment_connect_edges(vertices, all_edges):
+    """Unique undirected edges from raw pairs."""
+    all_edges = np.asarray(all_edges)
+    all_edges = all_edges[all_edges[:, 0] != all_edges[:, 1]]
+    all_edges = np.sort(all_edges, axis=1)
+    edges = np.unique(all_edges, axis=0)
+    return vertices, edges
+
+
+def make_graph_segm_connect_grid2d_conn4(grid):
+    """(vertices, edges) superpixel adjacency of a 2D label map."""
+    grid = np.asarray(grid)
+    vertices = np.unique(grid)
+    return make_graph_segment_connect_edges(
+        vertices, get_segment_diffs_2d_conn4(grid))
+
+
+def make_graph_segm_connect_grid3d_conn6(grid):
+    """(vertices, edges) superpixel adjacency of a 3D label volume."""
+    grid = np.asarray(grid)
+    vertices = np.unique(grid)
+    return make_graph_segment_connect_edges(
+        vertices, get_segment_diffs_3d_conn6(grid))

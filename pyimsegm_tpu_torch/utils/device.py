@@ -1,0 +1,18 @@
+"""Where a call runs: a tensor input on its own device, a numpy input on
+the ``device`` the caller names (``'cuda'`` by default)."""
+
+import numpy as np
+import torch
+
+
+def as_tensor(x, device='cuda', dtype=None):
+    """``x`` as a tensor: a tensor stays on its device, anything else is
+    moved to ``device``.  Naming a CUDA device without a card raises; the
+    plain path is asked for with ``device='cpu'``, never taken on its own."""
+    if isinstance(x, torch.Tensor):
+        return x if dtype is None else x.to(dtype)
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError('no CUDA device for device=%r; pass device="cpu" '
+                           'to run the plain PyTorch path' % str(device))
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)

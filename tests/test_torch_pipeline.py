@@ -1,7 +1,11 @@
-"""The ported slice end to end vs the JAX package on the CPU:
+"""The ported slices end to end vs the JAX package on the CPU:
 ``segment_color2d_slic_features_model_graphcut`` with ``connectivity=False``
 and at its default ``connectivity=True``, with one fitted GMM class model
-handed to both packages."""
+handed to both packages; the unsupervised fit path
+(``pipe_color2d_slic_features_model_graphcut``,
+``estim_model_classes_group``, ``compute_color2d_superpixels_features``)
+with the full colour feature set; ``segment_slic_img2d`` with and without
+SLICO; and the 'color' edge weights."""
 
 import os
 import subprocess
@@ -13,10 +17,14 @@ import pytest
 import torch
 
 from pyimsegm_tpu import pipelines as jpipe
+from pyimsegm_tpu import superpixels as jsp
 from pyimsegm_tpu.models.class_model import estim_class_model
 from pyimsegm_tpu.ops import slic as jslic
 from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
 from pyimsegm_tpu_torch import pipelines as tpipe
+from pyimsegm_tpu_torch import superpixels as tsp
+from pyimsegm_tpu_torch.models import gmm as tgmm
+from pyimsegm_tpu_torch.parallel import batch as tbatch
 from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
 from pyimsegm_tpu_torch.ops import slic as tslic
 from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
@@ -26,6 +34,7 @@ torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SP, REGUL, GC = 16, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
+FEATURES_ALL = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
 SPEC = jpipe._features_spec(FEATURES)
 SHAPES = [(96, 140), (101, 133)]
 
@@ -174,11 +183,11 @@ def test_bench_geometry_connectivity_matches_committed_jax_output():
 
 
 @pytest.mark.parametrize('kwargs', [
-    {'connectivity': True, 'dict_features': {'color': ['mean', 'median']}},
+    {'dict_features': {'color': ['mean'], 'tLM': ['mean']}},
     {'connectivity': False, 'sp_compat': True},
-    {'connectivity': False, 'dict_features': {'color': ['mean', 'median']}},
-    {'connectivity': False, 'dict_features': {'color_hsv': ['mean']}},
-], ids=['connectivity', 'sp_compat', 'median', 'colour_space'])
+    {'connectivity': False, 'dict_features': {'tLM_short': ['mean']}},
+    {'dict_features': {'color_hsv': ['mean'], 'tGabor': ['mean']}},
+], ids=['texture', 'sp_compat', 'texture_short', 'gabor'])
 def test_unported_options_raise(models, kwargs):
     _, tm = models
     kwargs = dict(kwargs)
@@ -186,6 +195,197 @@ def test_unported_options_raise(models, kwargs):
     with pytest.raises(NotImplementedError):
         tpipe.segment_color2d_slic_features_model_graphcut(
             _image(SHAPES[0], 0), tm, feats, sp_size=SP, **kwargs)
+
+
+def test_numpy_input_needs_a_card_or_device_cpu():
+    """A numpy image runs on ``device``, 'cuda' by default: without a card
+    the call raises instead of running on the CPU."""
+    img = _image(SHAPES[0], 0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            tpipe.compute_color2d_superpixels_features(img, FEATURES_ALL,
+                                                       sp_size=SP)
+    labels, feats = tpipe.compute_color2d_superpixels_features(
+        img, FEATURES_ALL, sp_size=SP, device='cpu')
+    assert labels.shape == SHAPES[0] and feats.shape[1] == 15
+
+
+@pytest.mark.parametrize('spec', [FEATURES_ALL, {'color_hsv': ['mean', 'std']},
+                                  {'color_lab': ['median'],
+                                   'color': ['meanGrad']}],
+                         ids=['all_flags', 'fused_hsv', 'lab_and_rgb'])
+@pytest.mark.parametrize('connectivity', [True, False])
+def test_slic_features_core_any_spec_matches_jax(spec, connectivity):
+    """Every 2D branch of the core: the fused branch with a colour-space
+    key, and the labels-only SLIC + descriptors for the other specs."""
+    img = _image(SHAPES[1], 5)
+    cfg = jslic.slic_config(*SHAPES[1], SP)
+    m = jslic.compactness_from_regul(SP, REGUL)
+    fspec = jpipe._features_spec(spec)
+    ref = jpipe._slic_features_core(jnp.asarray(img), cfg, fspec, m,
+                                    connectivity=connectivity)
+    out = tpipe._slic_features_core(torch.as_tensor(img),
+                                    tslic.slic_config(*SHAPES[1], SP), fspec,
+                                    m, connectivity=connectivity)
+    lt, lj = out[0].numpy(), np.asarray(ref[0])
+    assert (lt == lj).mean() >= 0.999
+    same = _same_superpixels(lt, lj, cfg.n_segments)
+    for got, want in zip(out[1:], ref[1:]):
+        np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('connectivity', [True, False])
+def test_slico_features_core_matches_jax(connectivity):
+    img = _image(SHAPES[0], 6)
+    cfg = jslic.slic_config(*SHAPES[0], SP)
+    m = jslic.compactness_from_regul(SP, REGUL)
+    fspec = jpipe._features_spec(FEATURES)
+    ref = jpipe._slic_features_core(jnp.asarray(img), cfg, fspec, m,
+                                    slico=True, connectivity=connectivity)
+    out = tpipe._slic_features_core(torch.as_tensor(img),
+                                    tslic.slic_config(*SHAPES[0], SP), fspec,
+                                    m, slico=True, connectivity=connectivity)
+    assert (out[0].numpy() == np.asarray(ref[0])).mean() >= 0.999
+    same = _same_superpixels(out[0].numpy(), np.asarray(ref[0]),
+                             cfg.n_segments)
+    for got, want in zip(out[1:], ref[1:]):
+        np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('seed', [3, 4])
+def test_pipe_unsupervised_matches_jax(seed):
+    """The flagship unsupervised call: features + a GMM fitted on the image
+    + MRF.  The fits draw other random numbers, so they are held by the
+    weighted log-likelihood on the same features and by the segmentation's
+    ARS."""
+    img = _image(SHAPES[0], seed)
+    dj, dt = {}, {}
+    segm_j, _ = jpipe.pipe_color2d_slic_features_model_graphcut(
+        img, 3, FEATURES_ALL, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dj)
+    segm_t, soft_t = tpipe.pipe_color2d_slic_features_model_graphcut(
+        img, 3, FEATURES_ALL, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dt, device='cpu')
+    assert segm_t.shape == SHAPES[0] and np.isfinite(soft_t).all()
+    assert (dt['slic'] == dj['slic']).mean() >= 0.999
+    same = _same_superpixels(dt['slic'], dj['slic'], dj['features'].shape[0])
+    np.testing.assert_allclose(dt['features'][same],
+                               np.asarray(dj['features'])[same], rtol=1e-5,
+                               atol=1e-4)
+    assert adjusted_rand_score(segm_t, np.asarray(segm_j)) >= 0.98
+    x = torch.as_tensor(np.array(dj['features']))
+    w = torch.as_tensor(np.bincount(dj['slic'].ravel(),
+                                    minlength=x.shape[0]) > 0).float()
+    jm = class_model_from_numpy({
+        'weights': dj['model'].gmm.weights, 'means': dj['model'].gmm.means,
+        'covs': dj['model'].gmm.covs, 'scaler_mean': dj['model'].scaler_mean,
+        'scaler_scale': dj['model'].scaler_scale})
+    tm = dt['model']
+    sj = float(tgmm.gmm_score(jm.gmm, jm.transform(x), w))
+    st = float(tgmm.gmm_score(tm.gmm, tm.transform(x), w))
+    assert abs(st - sj) <= 1e-3 * abs(sj)
+
+
+def test_fit_group_then_segment_matches_jax():
+    """``estim_model_classes_group`` on two images, then the single-image
+    and the batch calls with the port-fitted model, against the JAX fit.
+    Six features: at 15 on ~100 superpixels the full-covariance fit has
+    several optima, and the two generators' restarts may settle in
+    different ones."""
+    imgs = [_image(SHAPES[0], s) for s in (7, 8)]
+    spec = {'color': ['mean', 'median']}
+    jm, fj = jpipe.estim_model_classes_group(imgs, 3, spec,
+                                             sp_size=SP, sp_regul=REGUL)
+    tm, ft = tpipe.estim_model_classes_group(imgs, 3, spec,
+                                             sp_size=SP, sp_regul=REGUL,
+                                             device='cpu')
+    for img, a, b in zip(imgs, ft, fj):
+        lj, _ = jpipe.compute_color2d_superpixels_features(
+            img, spec, sp_size=SP, sp_regul=REGUL)
+        lt, _ = tpipe.compute_color2d_superpixels_features(
+            img, spec, sp_size=SP, sp_regul=REGUL, device='cpu')
+        assert (lt == lj).mean() >= 0.999
+        same = _same_superpixels(lt, lj, b.shape[0])
+        np.testing.assert_allclose(a[same], np.asarray(b)[same], rtol=1e-5,
+                                   atol=1e-4)
+    x = torch.as_tensor(np.concatenate([np.array(f) for f in fj]))
+    w = (x.abs().sum(-1) > 0).float()
+    sj = float(jm_score(jm, x, w))
+    st = float(tgmm.gmm_score(tm.gmm, tm.transform(x), w))
+    assert abs(st - sj) <= 1e-3 * abs(sj)
+    yj = np.asarray(jm.predict(jnp.asarray(x.numpy())))
+    yt = tm.predict(x).numpy()
+    keep = w.numpy() > 0
+    assert adjusted_rand_score(yt[keep], yj[keep]) >= 0.98
+    img = _image(SHAPES[0], 9)
+    segm_t, soft_t = tpipe.segment_color2d_slic_features_model_graphcut(
+        img, tm, spec, sp_size=SP, sp_regul=REGUL, gc_regul=GC)
+    assert segm_t.shape == SHAPES[0] and np.isfinite(soft_t).all()
+    segms, _ = tbatch.segment_images_batch(np.stack([img, imgs[0]]), tm,
+                                           spec, sp_size=SP,
+                                           sp_regul=REGUL, gc_regul=GC)
+    np.testing.assert_array_equal(segms[0], segm_t)
+
+
+def jm_score(jm, x, w):
+    """The JAX fit's weighted mean log-likelihood, computed by the port
+    from the carried-over arrays."""
+    arrays = {'weights': jm.gmm.weights, 'means': jm.gmm.means,
+              'covs': jm.gmm.covs, 'scaler_mean': jm.scaler_mean,
+              'scaler_scale': jm.scaler_scale}
+    cm = class_model_from_numpy({k: np.asarray(v) for k, v in arrays.items()})
+    return tgmm.gmm_score(cm.gmm, cm.transform(x), w)
+
+
+def test_compute_superpixel_features_matches_jax():
+    img = _image(SHAPES[1], 10)
+    lj, fj = jpipe.compute_color2d_superpixels_features(
+        img, FEATURES_ALL, sp_size=SP, sp_regul=REGUL)
+    lt, ft = tpipe.compute_color2d_superpixels_features(
+        img, FEATURES_ALL, sp_size=SP, sp_regul=REGUL, device='cpu')
+    assert lt.dtype == np.int32 and (lt == lj).mean() >= 0.999
+    same = _same_superpixels(lt, lj, fj.shape[0])
+    np.testing.assert_allclose(ft[same], fj[same], rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError):
+        tpipe.compute_color2d_superpixels_features(img, FEATURES_ALL,
+                                                   sp_regul=0, device='cpu')
+
+
+@pytest.mark.parametrize('slico', [False, True], ids=['slic', 'slico'])
+def test_segment_slic_img2d_matches_jax(slico):
+    img = _image(SHAPES[1], 11)
+    lj = np.asarray(jsp.segment_slic_img2d(img, sp_size=SP,
+                                           relative_compact=REGUL,
+                                           slico=slico))
+    lt = tsp.segment_slic_img2d(img, sp_size=SP, relative_compact=REGUL,
+                                slico=slico, device='cpu')
+    assert lt.dtype == np.int32 and lt.shape == SHAPES[1]
+    assert (lt == lj).mean() >= 0.999
+    with pytest.raises(NotImplementedError):
+        tsp.segment_slic_img2d(img, compat=True, device='cpu')
+    np.testing.assert_array_equal(
+        tsp.make_graph_segm_connect_grid2d_conn4(lt)[1],
+        jsp.make_graph_segm_connect_grid2d_conn4(lt)[1])
+    vol = np.stack([lt, lt[::-1]])
+    np.testing.assert_array_equal(
+        tsp.make_graph_segm_connect_grid3d_conn6(vol)[1],
+        jsp.make_graph_segm_connect_grid3d_conn6(vol)[1])
+
+
+def test_color_edge_weights_match_jax(models):
+    """``gc_edge_type='color'`` (its mean colours go through the grid
+    reduce, which the card now runs)."""
+    jm, tm = models
+    img = _image(SHAPES[0], 12)
+    segm_j, _ = jpipe.segment_color2d_slic_features_model_graphcut(
+        img, jm, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        gc_edge_type='color')
+    segm_t, _ = tpipe.segment_color2d_slic_features_model_graphcut(
+        img, tm, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        gc_edge_type='color')
+    assert adjusted_rand_score(segm_t, np.asarray(segm_j)) >= 0.98
 
 
 def test_classifier_raises():
@@ -199,12 +399,13 @@ import sys
 sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
-from pyimsegm_tpu_torch import _build, pipelines
-from pyimsegm_tpu_torch.models import class_model, gmm
-from pyimsegm_tpu_torch.ops import (enforce_cuda, graphcut, grid, grid_cuda,
-                                    prep_cuda, slic, slic_cuda)
+from pyimsegm_tpu_torch import _build, descriptors, pipelines, superpixels
+from pyimsegm_tpu_torch.models import bgm, class_model, gmm, otsu
+from pyimsegm_tpu_torch.ops import (color, enforce_cuda, graphcut, grid,
+                                    grid_cuda, prep_cuda, segment_stats, slic,
+                                    slic_cuda)
 from pyimsegm_tpu_torch.parallel import batch
-from pyimsegm_tpu_torch.utils import data_samples, metrics
+from pyimsegm_tpu_torch.utils import data_samples, device, metrics
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32

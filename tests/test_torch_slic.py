@@ -206,3 +206,110 @@ def test_update_labels_twin_pools_its_own_assignment(shape):
         0, lab_c, torch.as_tensor(img[..., 0]).reshape(-1))
     np.testing.assert_allclose(sums[:, 6].numpy(), v0.numpy(), rtol=1e-5,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+@pytest.mark.parametrize('slico', [False, True], ids=['slic', 'slico'])
+def test_slic_segment_matches_jax(shape, slico):
+    """The labels-only SLIC, plain and SLICO, against the JAX XLA path."""
+    img = _image(shape, seed=19)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    lj = np.asarray(jslic._slic_segment_xla(jnp.asarray(img), cfg, m,
+                                            slico=slico))
+    lt = tslic.slic_segment(torch.as_tensor(img),
+                            tslic.slic_config(*shape, SP), m, slico=slico)
+    assert lt.dtype == torch.int32 and tuple(lt.shape) == shape
+    assert (lt.numpy() == lj).mean() >= 0.999
+    geo = tslic.slic_segment_with_geometry(
+        torch.as_tensor(img), tslic.slic_config(*shape, SP), m)
+    ref = jslic.slic_segment_with_geometry(jnp.asarray(img), cfg, m)
+    same = same_superpixels(geo[0].numpy(), np.asarray(ref[0]),
+                            cfg.n_segments)
+    for got, want in zip(geo[1:], ref[1:]):
+        np.testing.assert_allclose(got.numpy()[same], np.asarray(want)[same],
+                                   rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slic_assign_update_twins_match_pallas_interpret(shape):
+    """The labels-only and partials-only passes (and their split
+    ``slic_iteration``) against ``slic_assign_pallas`` /
+    ``slic_update_pallas`` from the same centres, plain and SLICO."""
+    from pyimsegm_tpu.ops import slic_pallas
+    img = _image(shape, seed=23)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    lab_j, cen0_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    sw2 = (jnp.float32(m) / cfg.step) ** 2
+    sw2_slico = 1.0 / jnp.float32(cfg.step) ** 2
+    tcfg = tslic.slic_config(*shape, SP)
+    lab_t = torch.as_tensor(np.array(lab_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    cen_t = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=4)
+    slico_t = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=4,
+        slico=True)
+    patch, calls = _interpret(slic_pallas)
+    with patch:
+        lb_j = slic_pallas.slic_assign_pallas(
+            lab_j, jnp.asarray(cen_t.numpy()), sw2, cfg)
+        part_j = slic_pallas.slic_update_pallas(
+            lab_j, jnp.asarray(cen_t.numpy()), sw2, cfg)
+        lbs_j = slic_pallas.slic_assign_pallas(
+            lab_j, jnp.asarray(slico_t.numpy()), sw2_slico, cfg, slico=True)
+    assert len(calls) == 3
+    lb_t, part_t = slic_cuda.slic_iteration(lab_t, cen_t, m, tcfg)
+    assert lb_t.dtype == torch.int32
+    assert torch.equal(lb_t, slic_cuda.slic_assign(lab_t, cen_t, m, tcfg))
+    assert (lb_t.numpy() == np.asarray(lb_j)).mean() >= 0.999
+    assert part_t.shape == part_j.shape
+    np.testing.assert_allclose(part_t.numpy(), np.asarray(part_j), rtol=1e-5,
+                               atol=1e-3)
+    lbs_t = slic_cuda.slic_assign(lab_t, slico_t, m, tcfg, slico=True)
+    assert (lbs_t.numpy() == np.asarray(lbs_j)).mean() >= 0.999
+
+
+@pytest.mark.parametrize('shape', SHAPES)
+def test_slico_multi_update_twin_matches_pallas_interpret(shape):
+    """Row 2's SLICO mode: centres and colour normalisers M of the plain
+    twin against ``slic_multi_update_pallas(slico=True)`` after one round.
+    The Pallas kernel scores in dot-product form, so a few pixels flip over
+    more rounds; the labels after nine are held to the repo's
+    Pallas-vs-XLA SLICO bar (0.995, ``tests/test_slic_multi_pallas.py``)."""
+    from pyimsegm_tpu.ops import slic_pallas
+    img = _image(shape, seed=29)
+    cfg = jslic.slic_config(*shape, SP)
+    m = jslic.compactness_from_regul(SP, 0.2)
+    lab_j, cen0_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    sw2 = 1.0 / jnp.float32(cfg.step) ** 2
+    patch, calls = _interpret(slic_pallas)
+    with patch:
+        one_j = slic_pallas.slic_multi_update_pallas(
+            lab_j, cen0_j, sw2, cfg, n_upd=1, slico=True,
+            init_m2=jnp.float32(m) ** 2)
+        cen_j = slic_pallas.slic_multi_update_pallas(
+            lab_j, cen0_j, sw2, cfg, n_upd=9, slico=True,
+            init_m2=jnp.float32(m) ** 2)
+        lb_j = slic_pallas.slic_assign_pallas(lab_j, cen_j, sw2, cfg,
+                                              slico=True)
+    assert calls
+    tcfg = tslic.slic_config(*shape, SP)
+    lab_t = torch.as_tensor(np.array(lab_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    one_t = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=1,
+        slico=True)
+    assert tuple(one_t.shape) == (cfg.grid_h, cfg.grid_w, 6)
+    np.testing.assert_allclose(one_t.numpy(), np.asarray(one_j), rtol=1e-4,
+                               atol=1e-3)
+    cen_t = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=9,
+        slico=True)
+    lb_t = slic_cuda.slic_assign(lab_t, cen_t, m, tcfg, slico=True)
+    assert (lb_t.numpy() == np.asarray(lb_j)).mean() >= 0.995
+    assert torch.equal(
+        slic_cuda.slic_multi_update(lab_t, torch.as_tensor(np.array(cen0_j)),
+                                    m, tcfg, n_upd=0, slico=True)[..., 5],
+        torch.full((cfg.grid_h, cfg.grid_w), float(np.float32(m) ** 2)))

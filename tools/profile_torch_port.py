@@ -1,6 +1,6 @@
-"""Stage breakdown and device trace of the PyTorch port's bench path on a GPU.
+"""Stage breakdown and device trace of the PyTorch port on a GPU.
 
-Drives the bench path (``parallel.batch.segment_images_batch``: SLIC,
+``--path bench`` (the default) drives the bench path (``parallel.batch.segment_images_batch``: SLIC,
 connectivity enforcement, min-size merge with the moments re-reduce, GMM
 predict, grid MRF, one fused lookup) stage by stage on 884x1200 images
 (sp_size 35, regul 0.2, gc_regul 2.0, the GMM of
@@ -15,9 +15,15 @@ enforcement do the most work.  Prints:
   time summed over kernels and copies, the wall time, the device idle
   share, the launch count and the top kernels by device time.
 
+``--path fit`` drives the unsupervised fit path
+(``pipe_color2d_slic_features_model_graphcut`` with the full colour feature
+set and a GMM fitted on each image) on the synthetic scenes, stage by stage
+(upload, SLIC, enforcement, geometry, statistics, median, fit,
+predict_proba, MRF, fetch), and profiles one warm call the same way.
+
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/profile_torch_port.py --out DIR [--images 4]
+    python3 tools/profile_torch_port.py --out DIR [--images 4] [--path fit]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -35,6 +41,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
+FEATURES_FIT = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
 
 
 def _stages(torch, image, model):
@@ -88,6 +95,88 @@ def _stages(torch, image, model):
     return times
 
 
+def _fit_stages(torch, image):
+    """One image through the fit path, stage by stage; {stage: ms}."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.models.class_model import estim_class_model
+    from pyimsegm_tpu_torch.ops import graphcut, segment_stats
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    k = cfg.n_segments
+    times = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    img = stage('upload', lambda: torch.as_tensor(image, device='cuda'))
+    labels = stage('slic', lambda: slic_ops.slic_segment(img, cfg, m))
+    labels = stage('enforce', lambda: grid_ops.enforce_grid_connectivity(
+        labels, cfg, min_size=int(0.5 * cfg.step ** 2)))
+    counts, centers = stage('geometry',
+                            lambda: pipelines._grid_geometry(labels, cfg))
+    flat, imgf = labels.reshape(-1), img.to(torch.float32)
+    stats = stage('statistics', lambda: segment_stats.compute_channel_statistics(
+        imgf, flat, k, ('mean', 'std', 'energy', 'meanGrad'),
+        grid_ctx=(labels, cfg)))
+    med = stage('median', lambda: segment_stats.segment_median(
+        imgf.reshape(-1, 3), flat, k))
+    feats = torch.cat([stats[:, :9], med, stats[:, 9:]], dim=-1)
+    model = stage('fit', lambda: estim_class_model(
+        feats, 3, 'GMM', sample_weight=(counts > 0).to(torch.float32)))
+    proba = stage('predict_proba', lambda: model.predict_proba(feats))
+    graph = stage('mrf', lambda: graphcut.segment_graph_cut_general(
+        labels, proba, k, image=img, features=feats, gc_regul=GC_REGUL,
+        grid_ctx=(labels, cfg), centers=centers))
+    stage('fetch', lambda: pipelines._fetch_reconstruct(labels, proba, graph,
+                                                        cfg))
+    return times
+
+
+def _report(kind, rows, walls, n_images):
+    names = list(rows[0])
+    mean = {n: round(float(np.mean([r[n] for r in rows])), 3) for n in names}
+    print('%s stage ms (mean of %d warm images): %s'
+          % (kind, len(rows), json.dumps(mean)))
+    print('%s stage sum ms: %.3f' % (kind, sum(mean.values())))
+    print('%s call ms per image (%d calls of %d, in turns with the stage '
+          'runs): %s' % (kind, len(walls), n_images,
+                         json.dumps([round(w, 3) for w in walls])))
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _profile_fit(torch, images, out_dir):
+    from pyimsegm_tpu_torch import pipelines
+
+    def run(img):
+        return pipelines.pipe_color2d_slic_features_model_graphcut(
+            img, 3, FEATURES_FIT, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL)
+
+    _fit_stages(torch, images[0])                          # build + warm
+    run(images[0])
+    rows, walls = [], []
+    for img in images:
+        rows.append(_fit_stages(torch, img))
+        walls.append(_timed(torch, lambda: run(img)))
+    _report('fit', rows, walls, 1)
+    _profile(torch, lambda: run(images[0]), out_dir, 'fit')
+
+
 def _profile(torch, run, out_dir, kind):
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -101,7 +190,7 @@ def _profile(torch, run, out_dir, kind):
               and str(e.device_type).endswith('CUDA')]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
-    print('%s profiled one-image batch call: wall %.3f ms, device busy '
+    print('%s profiled one-image call: wall %.3f ms, device busy '
           '%.3f ms, idle share %.4f, %d kernel launches'
           % (kind, wall, device_ms, 1.0 - device_ms / wall, launches))
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
@@ -118,6 +207,7 @@ def _profile(torch, run, out_dir, kind):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
+    parser.add_argument('--path', choices=('bench', 'fit'), default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
     args = parser.parse_args()
@@ -139,6 +229,10 @@ def main():
                               'torch_port_fixture.npz')) as npz:
         model = class_model_from_numpy(
             {k: npz[k] for k in npz.files}).to('cuda')
+    if args.path == 'fit':
+        _profile_fit(torch, [sample_color_image_rand_segment(
+            CROP, 3, rand_seed=s)[0] for s in range(args.images)], args.out)
+        return
     rng = np.random.default_rng(0)
     kinds = {
         'synthetic': np.stack([sample_color_image_rand_segment(
@@ -157,20 +251,8 @@ def main():
         rows, walls = [], []
         for img in images:
             rows.append(_stages(torch, img, model))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            walls.append((time.perf_counter() - t0) * 1e3 / len(images))
-        names = list(rows[0])
-        mean = {n: round(float(np.mean([r[n] for r in rows])), 3)
-                for n in names}
-        print('%s stage ms (mean of %d warm images): %s'
-              % (kind, len(rows), json.dumps(mean)))
-        print('%s stage sum ms: %.3f' % (kind, sum(mean.values())))
-        print('%s batch call ms per image (%d calls of %d, in turns with the '
-              'stage runs): %s' % (kind, len(walls), len(images),
-                                   json.dumps([round(w, 3) for w in walls])))
+            walls.append(_timed(torch, run) / len(images))
+        _report(kind, rows, walls, len(images))
         _profile(torch, lambda: batch.segment_images_batch(
             images[:1], model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
             gc_regul=GC_REGUL), args.out, kind)
