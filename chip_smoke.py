@@ -44,11 +44,32 @@ Phases (any failure raises and exits non-zero):
    0.98); SLICO labels of ``segment_slic_img2d`` (>= 0.999); one
    ``gc_edge_type='color'`` call; ``estim_model_classes_group`` on three
    images, then ``segment_images_batch`` with that model; warm ms per image
-   with the fit, and the fit's own ms.
+   with the fit, and the fit's own ms;
+9. the 3D gray-volume path at the repo's 3D workload (48x640x768, spacing
+   (4, 1, 1), sp_size 15, regul 0.2, gc_regul 0.1, 2 classes): the 3D SLIC
+   labels pass (exact) and partials pass (rtol 1e-5) against their twins
+   on the same centres, the whole ``slic3d_iterate`` against its twin on
+   the structured volume of ``sample_gray_volume_3d`` (>= 0.999 of labels
+   equal) and on ``bench_all.py``'s noise volume (reported); then
+   ``pipe_gray3d_slic_features_model_graphcut`` on the structured volume
+   against ``tests/data/torch_port_fixture_3d.npz`` (SLIC labels of the
+   stored slices >= 0.999 equal, segmentation ARS >= 0.98; the supervoxels
+   whose voxel sets JAX's labelling has too, by the fixture's digest, at
+   least ``SAME_SETS_3D`` of all, and their standardised features within
+   the ``*_3D`` bars below; the card fit's weighted mean log-likelihood,
+   on the JAX features and on the card's own, within 1e-3 relative of the
+   JAX fit's on the same features), the edge count against the
+   reference's 8K capacity
+   and the count of edges 3 cells apart, and warm ms per volume and MVox/s.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The second-to-last line is the kernels' JSON record, the
-last line ``{"ok": true, "device": {...}}``.
+last line ``{"ok": true, "device": {...}}``.  Each kernel's record holds its
+bound: the larger of the bytes it must move (each input read once, each
+output written once) over 3.35 TB/s and the f32 operations it does on this
+run's inputs (counted per element as stated where the record is made, no
+FMA) over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; and, where
+one PyTorch call computes the same function, that call's time.
 """
 
 import json
@@ -64,6 +85,7 @@ FIXTURE = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
 FIXTURE_CONN = os.path.join(ROOT, 'tests', 'data',
                             'torch_port_fixture_conn.npz')
 FIXTURE_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
+FIXTURE_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -72,7 +94,24 @@ NB_CLASSES = 3
 REPS = 20
 DEVICE = 'cuda'
 BATCH = 8
-LIBRARIES = ('prep', 'slic', 'grid', 'enforce')
+LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d')
+SHAPE_3D, SPACING_3D, SP_3D = (48, 640, 768), (4, 1, 1), 15
+REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
+#: bars of the 3D path's standardised features against JAX's, on the
+#: supervoxels whose voxel sets agree: mean and energy within rtol + atol,
+#: std within an absolute bar (standardising its narrow column scales the
+#: cancellation of sqrt(E[v^2] - E[v]^2) up); and the least share of
+#: supervoxels whose voxel sets agree
+FEAT_RTOL_3D, FEAT_ATOL_3D, STD_ATOL_3D, SAME_SETS_3D = 1e-5, 1e-5, 5e-3, 0.99
+#: H100 SXM data-sheet peaks (700 W): device memory bytes/s, f32 FLOP/s
+#: outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+#: f32 operations per candidate of a SLIC distance, no FMA: 2D colour
+#: 3 sub + 3 mul + 2 add, spatial 2 sub + 2 mul + 1 add, weighting 2 mul +
+#: 1 add, compare 1; 3D the same with one colour channel and three axes
+#: (each axis sub + scale mul + square mul)
+SLIC_OPS_2D, SLIC_OPS_3D = 17, 17
 
 
 def _time_ms(fn, reps=REPS):
@@ -100,12 +139,26 @@ def _bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
-def _record(name, source, replaces, err, ms, plain_ms, agreement):
+def _bound(nbytes, ops):
+    """(least ms, 'bytes' or 'operations'): the larger of the bytes over
+    the memory rate and the f32 operations over the f32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
+
+
+def _record(name, source, replaces, err, ms, plain_ms, agreement, nbytes,
+            ops, library_ms=None):
+    bound_ms, bound_by = _bound(nbytes, ops)
     print('kernel %-24s %s  max_abs_err %.3g  kernel %.4f ms  plain %.4f ms'
-          % (name, agreement, err, ms, plain_ms), flush=True)
+          '  bound %.4f ms (%s)  library %s ms'
+          % (name, agreement, err, ms, plain_ms, bound_ms, bound_by,
+             'none' if library_ms is None else '%.4f' % library_ms),
+          flush=True)
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': 0, 'max_abs_err': err,
-            'ms': ms, 'plain_ms': plain_ms}
+            'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bound_ms,
+            'bound_by': bound_by, 'library_ms': library_ms}
 
 
 def kernel_phases(torch, img):
@@ -115,6 +168,7 @@ def kernel_phases(torch, img):
 
     cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
     m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    px, ppx, k = CROP[0] * CROP[1], cfg.pad_h * cfg.pad_w, cfg.n_segments
     records = []
 
     lab_k = prep_cuda.blur_lab(img)
@@ -131,7 +185,10 @@ def kernel_phases(torch, img):
         'pyimsegm_tpu/ops/prep_pallas.py:121', err,
         _time_ms(lambda: prep_cuda.blur_lab(img)),
         _time_ms(lambda: prep_cuda._blur_lab_plain(img)),
-        'bf16 equal %.6f, max %d ulp' % (equal, int(ulps.max()))))
+        'bf16 equal %.6f, max %d ulp' % (equal, int(ulps.max())),
+        # f32 RGB in, bf16 Lab out; per pixel 2 x 3 x 17 blur taps, 6 for
+        # the rescale, ~57 for sRGB -> XYZ -> Lab
+        px * (12 + 6), px * (102 + 6 + 57)))
 
     lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
     n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
@@ -149,7 +206,10 @@ def kernel_phases(torch, img):
             lab_chw, centers0, m, cfg, n_upd), reps=5),
         _time_ms(lambda: slic_cuda._slic_multi_update_plain(
             lab_chw, centers0, m, cfg, n_upd), reps=5),
-        'centres within %.3g (tol 1e-3)' % err))
+        'centres within %.3g (tol 1e-3)' % err,
+        # bf16 Lab in, centres in and out; per round and pixel 9 candidate
+        # distances and 6 pooled sums
+        ppx * 6 + 2 * k * 5 * 4, n_upd * ppx * (9 * SLIC_OPS_2D + 6)))
 
     feat_chw = torch.zeros((3, cfg.pad_h, cfg.pad_w), dtype=torch.float32,
                            device=img.device)
@@ -177,12 +237,17 @@ def kernel_phases(torch, img):
             lab_chw, cen_k, m, cfg, feat_chw)),
         _time_ms(lambda: slic_cuda._slic_update_labels_plain(
             lab_chw, cen_k, m, cfg, feat_chw)),
-        'labels equal %.6f, partials within rtol 1e-5' % lab_eq))
+        'labels equal %.6f, partials within rtol 1e-5' % lab_eq,
+        # bf16 Lab + f32 feature image in, i32 labels + partials out; 9
+        # distances, 3 squares and 12 pooled sums per pixel
+        ppx * (6 + 12 + 4) + k * 9 * 12 * 4,
+        ppx * (9 * SLIC_OPS_2D + 3 + 12)))
 
     labels = lb_k[:cfg.height, :cfg.width].contiguous()
     rng = np.random.default_rng(0)
     table = torch.as_tensor(rng.random((cfg.n_segments, 3), np.float32),
                             device=img.device)
+    index = labels.long()
     out_k = grid_cuda.grid_lookup(table, labels, cfg)
     out_p = grid_cuda._grid_lookup_plain(table, labels, cfg)
     torch.cuda.synchronize()
@@ -194,7 +259,10 @@ def kernel_phases(torch, img):
         'pyimsegm_tpu/ops/grid_pallas.py:379', err,
         _time_ms(lambda: grid_cuda.grid_lookup(table, labels, cfg)),
         _time_ms(lambda: grid_cuda._grid_lookup_plain(table, labels, cfg)),
-        'exact'))
+        'exact',
+        # i32 labels + table in, (H, W, 3) f32 out; a window test per pixel
+        px * (4 + 12) + k * 12, px * 6,
+        _time_ms(lambda: table[index])))
 
     words_k = grid_cuda.grid_adjacency_presence(labels, cfg)
     words_p = grid_cuda._grid_adjacency_presence_plain(labels, cfg)
@@ -208,7 +276,10 @@ def kernel_phases(torch, img):
         _time_ms(lambda: grid_cuda.grid_adjacency_presence(labels, cfg)),
         _time_ms(lambda: grid_cuda._grid_adjacency_presence_plain(labels,
                                                                   cfg)),
-        'exact'))
+        'exact',
+        # i32 labels in, 9 words per seed out; two neighbour compares per
+        # pixel
+        px * 4 + k * 9 * 4, px * 2))
     sums = slic_cuda.combine_sums(part_k)
     centers = (sums[..., 3:5] / torch.clamp_min(sums[..., 5:6], 1.0)) \
         .reshape(cfg.n_segments, 2)
@@ -268,12 +339,29 @@ def enforce_phases(torch, img, labels, centers, cfg):
     print('enforce_fused on the noise image: kernel %.4f ms, plain %.4f ms'
           % times[1], flush=True)
     enf = enforce_cuda.enforce_fused(labels, centers, cfg)
+    px, k = CROP[0] * CROP[1], cfg.n_segments
     records.append(_record(
         'enforce_fused', 'pyimsegm_tpu_torch/csrc/enforce.cu',
         'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0, times[0][0],
         times[0][1], 'exact (%.6f / %.6f of pixels relabelled: image 0 / '
-        'noise)' % tuple(notes)))
+        'noise)' % tuple(notes),
+        # i32 labels + centroids in, labels out; per pixel the anchor
+        # distance (6) and one pass of 4 neighbour compares: what a single
+        # connected-components sweep of image 0, with almost nothing to
+        # relabel, needs
+        px * 8 + k * 8, px * 10))
 
+    flat = enf.reshape(-1).long()
+    pair_codes = torch.cat([
+        (enf[:, :-1].long() * k + enf[:, 1:].long()).reshape(-1),
+        (enf[:-1].long() * k + enf[1:].long()).reshape(-1)])
+    moment_data = torch.cat([img.reshape(-1, 3), (img * img).reshape(-1, 3),
+                             torch.ones_like(img[..., :1]).reshape(-1, 1),
+                             torch.stack(torch.meshgrid(
+                                 *[torch.arange(n, dtype=torch.float32,
+                                                device=img.device)
+                                   for n in CROP], indexing='ij'),
+                                 dim=-1).reshape(-1, 2)], dim=-1)
     cnt_k, c9_k = grid_cuda.grid_pair_count(enf, cfg)
     cnt_p, c9_p = grid_cuda._grid_pair_count_plain(enf, cfg)
     torch.cuda.synchronize()
@@ -284,7 +372,11 @@ def enforce_phases(torch, img, labels, centers, cfg):
         'pyimsegm_tpu/ops/grid_pallas.py:478', 0.0,
         _time_ms(lambda: grid_cuda.grid_pair_count(enf, cfg)),
         _time_ms(lambda: grid_cuda._grid_pair_count_plain(enf, cfg)),
-        'exact'))
+        'exact',
+        # i32 labels in, (K, 9, 9) + (K, 9) i32 counts out; two pair
+        # compares and a count per pixel
+        px * 4 + k * 90 * 4, px * 3,
+        _time_ms(lambda: torch.bincount(pair_codes, minlength=k * k))))
 
     min_size = int(0.5 * cfg.step * cfg.step)
     counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
@@ -311,7 +403,10 @@ def enforce_phases(torch, img, labels, centers, cfg):
         _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, donor,
                                                              cfg)),
         'labels exact (%d / %d px merged: chain / window donors), sums '
-        'within rtol 1e-5' % tuple(merges)))
+        'within rtol 1e-5' % tuple(merges),
+        # f32 RGB + i32 labels + donor table in, labels + (K, 9) sums out;
+        # per pixel a donor lookup, 3 squares and 9 sums
+        px * (12 + 4 + 4) + k * 4 + k * 9 * 4, px * (1 + 3 + 9)))
 
     sums_k = grid_cuda.grid_moments_apply(img, enf, None, cfg)[1]
     sums_p = grid_cuda._grid_moments_apply_plain(img, enf, None, cfg)[1]
@@ -325,7 +420,12 @@ def enforce_phases(torch, img, labels, centers, cfg):
         _time_ms(lambda: grid_cuda.grid_moments_apply(img, enf, None, cfg)),
         _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, None,
                                                              cfg)),
-        'sums within rtol 1e-5'))
+        'sums within rtol 1e-5',
+        # f32 RGB + i32 labels in, (K, 9) sums out; 3 squares and 9 sums
+        # per pixel
+        px * (12 + 4) + k * 9 * 4, px * (3 + 9),
+        _time_ms(lambda: torch.zeros((k, 9), device=img.device).index_add_(
+            0, flat, moment_data))))
     return records
 
 
@@ -340,6 +440,7 @@ def fit_kernel_phases(torch, img):
     n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
     lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
     cen = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd)
+    px, ppx, k = CROP[0] * CROP[1], cfg.pad_h * cfg.pad_w, cfg.n_segments
     records = []
 
     for slico in (False, True):
@@ -365,7 +466,10 @@ def fit_kernel_phases(torch, img):
                 _time_ms(lambda: slic_cuda._slic_multi_update_plain(
                     lab_chw, centers0, m, cfg, n_upd, slico=True), reps=5),
                 'centres within %.3g, M within %.3g relative (tol 1e-3)'
-                % (err, m_rel)))
+                % (err, m_rel),
+                # as the plain multi-update, plus a max per pixel
+                ppx * 6 + 2 * k * 6 * 4,
+                n_upd * ppx * (9 * SLIC_OPS_2D + 7)))
         lb_k = slic_cuda.slic_assign(lab_chw, c, m, cfg, slico=slico)
         lb_p = slic_cuda._slic_assign_plain(lab_chw, c, m, cfg, slico=slico)
         torch.cuda.synchronize()
@@ -379,7 +483,9 @@ def fit_kernel_phases(torch, img):
                                                    slico=slico)),
             _time_ms(lambda: slic_cuda._slic_assign_plain(lab_chw, c, m, cfg,
                                                           slico=slico)),
-            'labels exact'))
+            'labels exact',
+            # bf16 Lab in, i32 labels out; 9 distances per pixel
+            ppx * (6 + 4) + k * 6 * 4, ppx * 9 * SLIC_OPS_2D))
 
     part_k = slic_cuda.slic_update(lab_chw, cen, m, cfg)
     part_p = slic_cuda._slic_update_plain(lab_chw, cen, m, cfg)
@@ -394,11 +500,15 @@ def fit_kernel_phases(torch, img):
         'pyimsegm_tpu/ops/slic_pallas.py:604', err,
         _time_ms(lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg)),
         _time_ms(lambda: slic_cuda._slic_update_plain(lab_chw, cen, m, cfg)),
-        'partials within rtol 1e-5'))
+        'partials within rtol 1e-5',
+        # bf16 Lab in, (gh, gw, 9, 6) partials out; 9 distances and 6
+        # pooled sums per pixel
+        ppx * 6 + k * 54 * 4, ppx * (9 * SLIC_OPS_2D + 6)))
 
     labels = slic_cuda.slic_assign(lab_chw, cen, m, cfg)[:cfg.height,
                                                          :cfg.width]
     labels = labels.contiguous()
+    flat = labels.reshape(-1).long()
     rng = np.random.default_rng(2)
     err, times = 0.0, {}
     for f in (3, 7, 15, 40):
@@ -421,31 +531,210 @@ def fit_kernel_phases(torch, img):
     print('grid_reduce kernel / plain ms: %s' % ', '.join(
         'F=%d %s %.4f / %.4f' % (f, str(dt).split('.')[-1], *times[(f, dt)])
         for f, dt in times), flush=True)
+    data7 = torch.as_tensor(rng.normal(size=(px, 7)).astype(np.float32),
+                            device=img.device)
     records.append(_record(
         'grid_reduce', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:106', err,
         *times[(7, torch.float32)],
         'sums within rtol 1e-5 at F = 3, 7, 15, 40, f32 and bf16 (times: '
-        'F=7 f32)'))
+        'F=7 f32)',
+        # F = 7 f32 data + i32 labels in, (K, 7) sums out; 7 adds per pixel
+        px * (28 + 4) + k * 28, px * 7,
+        _time_ms(lambda: torch.zeros((k, 7), device=img.device).index_add_(
+            0, flat, data7))))
     return records
+
+
+def kernel_phases_3d(torch, vol, noise):
+    """Row 15's two passes against their twins on the same centres (the
+    seeds, and the centres after one round), and the whole schedule against
+    its twin on the structured and the noise volume, at the 3D workload."""
+    from pyimsegm_tpu_torch.ops import graph, slic3d, slic3d_cuda
+    from pyimsegm_tpu_torch.ops.slic import compactness_from_regul
+    cfg = slic3d.slic3d_config(SHAPE_3D, SP_3D, SPACING_3D)
+    m = compactness_from_regul(SP_3D, REGUL_3D)
+    vol_p, c0 = slic3d._prep3d(vol, cfg)
+    c1 = slic3d_cuda._update3d_plain(
+        slic3d_cuda.slic3d_partials(vol_p, c0, m, cfg), c0)
+    records = []
+    n_vox, pvox, k = int(np.prod(SHAPE_3D)), int(np.prod(cfg.pad)), \
+        cfg.n_segments
+    err, err_lb = 0.0, 0.0
+    for cen in (c0, c1):
+        lb_k = slic3d_cuda.slic3d_labels(vol_p, cen, m, cfg)
+        lb_p = slic3d_cuda._slic3d_labels_plain(vol_p, cen, m, cfg)
+        part_k = slic3d_cuda.slic3d_partials(vol_p, cen, m, cfg)
+        part_p = slic3d_cuda._slic3d_partials_plain(vol_p, cen, m, cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(lb_k, lb_p):
+            raise AssertionError('slic3d_labels: %d labels differ'
+                                 % int((lb_k != lb_p).sum()))
+        err_lb = max(err_lb, float((lb_k - lb_p).abs().max()))
+        diff = (part_k - part_p).abs()
+        scale = part_p.abs().amax(dim=(0, 1, 2, 3), keepdim=True)
+        err = max(err, float(diff.max()))
+        if not bool((diff <= 1e-5 * part_p.abs() + 1e-5 * scale).all()):
+            raise AssertionError('slic3d_partials: max diff %g'
+                                 % float(diff.max()))
+    records.append(_record(
+        'slic3d_labels', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
+        'pyimsegm_tpu/ops/slic3d_pallas.py:183', err_lb,
+        _time_ms(lambda: slic3d_cuda.slic3d_labels(vol_p, c1, m, cfg)),
+        _time_ms(lambda: slic3d_cuda._slic3d_labels_plain(vol_p, c1, m, cfg),
+                 reps=3),
+        'labels exact (seeds and centres after one round)',
+        # f32 padded volume in, i32 labels out; 27 distances per voxel
+        pvox * (4 + 4) + k * 16, pvox * 27 * SLIC_OPS_3D))
+    records.append(_record(
+        'slic3d_partials', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
+        'pyimsegm_tpu/ops/slic3d_pallas.py:183', err,
+        _time_ms(lambda: slic3d_cuda.slic3d_partials(vol_p, c1, m, cfg)),
+        _time_ms(lambda: slic3d_cuda._slic3d_partials_plain(vol_p, c1, m,
+                                                            cfg), reps=3),
+        'partials within rtol 1e-5 + 1e-5 x channel max',
+        # f32 padded volume in, (K, 27, 5) partials out; 27 distances per
+        # voxel and 5 pooled sums per valid voxel
+        pvox * 4 + k * 16 + k * 135 * 4,
+        pvox * 27 * SLIC_OPS_3D + n_vox * 5))
+
+    n_iter = 10
+    agree, n_diff = {}, {}
+    err = 0.0
+    z, h, w = SHAPE_3D
+    for name, v in (('structured', vol), ('noise', noise)):
+        vp, cc = slic3d._prep3d(v, cfg)
+        lk = slic3d_cuda.slic3d_iterate(vp, cc, m, cfg, n_iter)
+        lp = slic3d_cuda._slic3d_iterate_plain(vp, cc, m, cfg, n_iter)
+        torch.cuda.synchronize()
+        agree[name] = float((lk == lp).float().mean())
+        n_diff[name] = int((lk != lp).sum())
+        # the largest difference of two label ids, over both volumes
+        err = max(err, float((lk - lp).abs().max()))
+        print('%s volume: edges %s' % (name, json.dumps(
+            graph.adjacency3d_counts(lk[:z, :h, :w], cfg))), flush=True)
+    print('slic3d_iterate vs twin, labels equal: structured %.6f (%d voxels '
+          'differ; >= 0.999), noise %.6f (%d voxels differ; reported), '
+          'largest label id difference %d'
+          % (agree['structured'], n_diff['structured'], agree['noise'],
+             n_diff['noise'], err), flush=True)
+    if agree['structured'] < 0.999:
+        raise AssertionError('slic3d_iterate disagrees with its twin')
+    records.append(_record(
+        'slic3d_iterate', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
+        'pyimsegm_tpu/ops/slic3d_pallas.py:183', err,
+        _time_ms(lambda: slic3d_cuda.slic3d_iterate(vol_p, c0, m, cfg,
+                                                    n_iter), reps=5),
+        _time_ms(lambda: slic3d_cuda._slic3d_iterate_plain(vol_p, c0, m, cfg,
+                                                           n_iter), reps=1),
+        'labels equal %.6f (structured) / %.6f (noise), %d / %d voxels '
+        'differ' % (agree['structured'], agree['noise'],
+                    n_diff['structured'], n_diff['noise']),
+        # f32 padded volume + seeds in, i32 labels out; 9 partials passes,
+        # 9 updates (27 x 5 adds + 4 divisions per seed) and a labels pass
+        pvox * (4 + 4) + k * 16,
+        n_iter * pvox * 27 * SLIC_OPS_3D + (n_iter - 1) * (
+            n_vox * 5 + k * (135 + 4))))
+    return records
+
+
+def path_gray3d(torch, vol, fixture):
+    """The 3D gray-volume pipe at the repo's 3D workload, against the
+    stored JAX result; returns the launch counts."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.models import gmm
+    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
+    from pyimsegm_tpu_torch.ops import graph, slic3d
+    from pyimsegm_tpu_torch.utils.metrics import (adjusted_rand_score,
+                                                  segment_digest)
+    features = {'color': ['mean', 'std', 'energy']}
+
+    def run(debug=None):
+        return pipelines.pipe_gray3d_slic_features_model_graphcut(
+            vol, NB_CLASSES_3D, features, spacing=SPACING_3D, sp_size=SP_3D,
+            sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D, debug_visual=debug)
+
+    debug = {}
+    segm, launches = _drive('3D path', PATH_3D, lambda: run(debug))
+    if segm.shape != SHAPE_3D or segm.min() < 0 \
+            or segm.max() >= NB_CLASSES_3D:
+        raise AssertionError('3D path: bad segmentation %s [%d, %d]'
+                             % (segm.shape, segm.min(), segm.max()))
+    want = np.unpackbits(fixture['segm_bits'])[:segm.size].reshape(SHAPE_3D)
+    ars = adjusted_rand_score(segm, want)
+    slic_eq = float((debug['slic'][fixture['slices']]
+                     == fixture['slic']).mean())
+    # features of the supervoxels whose voxel sets JAX's labelling has too
+    digest = segment_digest(debug['slic'], fixture['features'].shape[0])
+    same = np.all(digest == fixture['digest'], axis=1)
+    held = same & (fixture['mask'] > 0)
+    fd = np.abs(debug['features'] - fixture['features'])[held]
+    rel = fd / np.maximum(np.abs(fixture['features'][held]), 1e-30)
+    feat_ok = (bool((fd[:, 0::2] <= FEAT_RTOL_3D * np.abs(
+        fixture['features'][held][:, 0::2]) + FEAT_ATOL_3D).all())
+        and bool((fd[:, 1] <= STD_ATOL_3D).all()))
+    jax_model = class_model_from_numpy({k: fixture[k] for k in (
+        'weights', 'means', 'covs', 'scaler_mean', 'scaler_scale')}).to(DEVICE)
+    model = debug['model']
+
+    def ll_rel(x, w):
+        """(card fit's weighted mean log-likelihood of x, the JAX fit's,
+        their relative difference)"""
+        x = torch.as_tensor(x, device=DEVICE)
+        w = torch.as_tensor(w, dtype=torch.float32, device=DEVICE)
+        ll_p = float(gmm.gmm_score(model.gmm, model.transform(x), w))
+        ll_j = float(gmm.gmm_score(jax_model.gmm, jax_model.transform(x), w))
+        return ll_p, ll_j, abs(ll_p - ll_j) / abs(ll_j)
+
+    ll_jaxf = ll_rel(fixture['features'], fixture['mask'])
+    ll_own = ll_rel(debug['features'], digest[:, 0] > 0)
+    cfg = slic3d.slic3d_config(SHAPE_3D, SP_3D, SPACING_3D)
+    counts = graph.adjacency3d_counts(
+        torch.as_tensor(debug['slic'], device=DEVICE), cfg)
+    print('3D path vs JAX-CPU: SLIC labels of z-slices %s equal %.6f '
+          '(>= 0.999), segm ARS %.6f (>= 0.98); supervoxels with the same '
+          'voxel set %d / %d (share >= %g); on the %d non-empty ones, '
+          'standardised features '
+          'max abs diff per column (mean, std, energy) %s, max rel diff %s '
+          '(mean, energy <= %g x |value| + %g; std <= %g); weighted mean '
+          'log-likelihood, card fit vs JAX fit, on the JAX features %.6f vs '
+          '%.6f (rel %.3g) and on the card features %.6f vs %.6f (rel %.3g) '
+          '(<= 1e-3); edges %d of the 8K capacity %d, edges 3 cells apart %d'
+          % (fixture['slices'].tolist(), slic_eq, ars, int(same.sum()),
+             same.size, SAME_SETS_3D, int(held.sum()),
+             ['%.3g' % d for d in fd.max(axis=0)],
+             ['%.3g' % d for d in rel.max(axis=0)], FEAT_RTOL_3D,
+             FEAT_ATOL_3D, STD_ATOL_3D, *ll_jaxf, *ll_own,
+             counts['edges'], counts['capacity'], counts['far_edges']),
+          flush=True)
+    if (slic_eq < 0.999 or ars < 0.98 or not feat_ok
+            or same.mean() < SAME_SETS_3D or not ll_jaxf[2] <= 1e-3
+            or not ll_own[2] <= 1e-3):
+        raise AssertionError('3D path disagrees with the JAX reference')
+    ms = [_warm_ms(torch, run, 1) for _ in range(3)]
+    mvox = float(np.prod(SHAPE_3D)) / 1e6
+    print('3D path warm ms per 48x640x768 volume: %s (best %.3f ms, %.3f '
+          'MVox/s)' % (['%.3f' % t for t in ms], min(ms),
+                       mvox / min(ms) * 1e3), flush=True)
+    return launches
 
 
 def _counters():
     from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic_cuda)
+                                        slic3d_cuda, slic_cuda)
     counts = {'blur_lab': prep_cuda.LAUNCHES}
     for table in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
-                  enforce_cuda.LAUNCHES):
+                  enforce_cuda.LAUNCHES, slic3d_cuda.LAUNCHES):
         counts.update(table)
     return counts
 
 
 def _reset_counters():
     from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic_cuda)
+                                        slic3d_cuda, slic_cuda)
     prep_cuda.LAUNCHES = 0
     for counts in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
-                   enforce_cuda.LAUNCHES):
+                   enforce_cuda.LAUNCHES, slic3d_cuda.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -460,6 +749,7 @@ PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_update', 'slic_assign',
             'enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_reduce',
             'grid_lookup', 'grid_adjacency_presence',
             'slic_multi_update_slico', 'slic_assign_slico')
+PATH_3D = ('slic3d_partials', 'slic3d_iterate', 'slic3d_labels')
 
 
 def _drive(name, kernels, fn):
@@ -695,20 +985,20 @@ def main():
     from pyimsegm_tpu_torch import _build
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic_cuda)
+                                        slic3d_cuda, slic_cuda)
     from pyimsegm_tpu_torch.utils.data_samples import (
-        sample_color_image_rand_segment)
+        sample_color_image_rand_segment, sample_gray_volume_3d)
 
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
-    for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda):
+    for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda):
         mod._lib()
     print('build: %.2f s total, per library %s'
           % (time.perf_counter() - t0, json.dumps(_build.BUILD_SECONDS)),
           flush=True)
 
     fixtures = []
-    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT):
+    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
@@ -721,10 +1011,21 @@ def main():
     bench = path_bench(torch, model, images, fixtures[1])
     op = path_enforce_op(torch, img)
     fit = path_fit(torch, images, fixtures[2])
+
+    vol = torch.as_tensor(sample_gray_volume_3d(SHAPE_3D)[0], device=DEVICE)
+    rng = np.random.default_rng(0)                # bench_all.py's cfg6 volume
+    noise = rng.random(SHAPE_3D, dtype=np.float32) / 2.0
+    noise[:, :, :SHAPE_3D[2] // 2] += 0.5
+    records += kernel_phases_3d(torch, vol, torch.as_tensor(noise,
+                                                             device=DEVICE))
+    fixture_3d = {k: v for k, v in fixtures[3].items()
+                  if not k.startswith('small_')}
+    gray3d = path_gray3d(torch, vol, fixture_3d)
     for rec in records:
         name = rec['name']
         rec['launches'] = (bench[name] if name in PATH_BENCH else
-                           op[name] if name in PATH_OP else fit[name])
+                           op[name] if name in PATH_OP else
+                           gray3d[name] if name in PATH_3D else fit[name])
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

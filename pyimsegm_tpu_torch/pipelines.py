@@ -6,15 +6,18 @@
   images;
 * :func:`segment_color2d_slic_features_model_graphcut` — segment with a
   fitted model;
-* :func:`compute_color2d_superpixels_features` — SLIC + features.
+* :func:`compute_color2d_superpixels_features` — SLIC + features;
+* :func:`pipe_gray3d_slic_features_model_graphcut` — unsupervised gray
+  volume: 3D SLIC, gray features, a class model fitted on the volume, MRF
+  on the supervoxel grid.
 
 A tensor image runs on its own device; a numpy image on the ``device``
 keyword (``'cuda'`` by default; with no card the call raises, and
 ``device='cpu'`` runs the plain PyTorch path).  Features are any colour
 spec (``'color'`` or ``'color_<space>'`` keys, any of mean / std / energy /
 median / meanGrad); SLICO and ``connectivity`` on or off are ported.  The
-texture keys, classifiers, ``sp_compat`` and 3D volumes raise
-``NotImplementedError`` naming the slice of ROADMAP.md that brings them.
+texture keys, classifiers and ``sp_compat`` raise ``NotImplementedError``
+naming the slice of ROADMAP.md that brings them.
 """
 
 import numpy as np
@@ -28,8 +31,9 @@ from pyimsegm_tpu_torch.ops import graphcut
 from pyimsegm_tpu_torch.ops import grid as grid_ops
 from pyimsegm_tpu_torch.ops import segment_stats
 from pyimsegm_tpu_torch.ops import slic as slic_ops
+from pyimsegm_tpu_torch.ops import slic3d
 from pyimsegm_tpu_torch.ops.grid import grid_lookup
-from pyimsegm_tpu_torch.utils.device import as_tensor
+from pyimsegm_tpu_torch.utils.device import as_tensor, stage_range
 
 _MOMENT_FLAGS = ('mean', 'std', 'energy')
 
@@ -281,3 +285,76 @@ def estim_model_classes_group(list_images, nb_classes, dict_features,
         torch.nan_to_num(torch.cat(all_features)), nb_classes, model_type,
         pca_coef, use_scaler, sample_weight=torch.cat(all_masks), seed=seed)
     return model, list_features
+
+
+def _pipe_gray3d_core(image, *, cfg, feats_spec, nb_classes, estim_model,
+                      gc_regul, compactness, seed=0):
+    """Supervoxels -> grid reductions -> features standardised over the
+    non-empty supervoxels -> class model fitted on them -> MRF on the
+    supervoxel grid -> lookup, all on the volume's device.
+
+    :returns: (segm (Z, H, W) int32, labels (Z, H, W) int32, features
+        (K, F), model)
+    """
+    k = cfg.n_segments
+    with stage_range('slic'):
+        labels = slic3d.slic3d_segment(image, cfg, compactness)
+    with stage_range('counts'):
+        counts, centers = slic3d.grid3d_geometry(labels, cfg)
+        mask = (counts > 0).to(torch.float32)
+    with stage_range('features'):
+        features, _ = descriptors.compute_selected_features_gray3d(
+            image, labels.reshape(-1), k, dict(feats_spec),
+            grid_ctx3d=(labels, cfg))
+        n = torch.clamp_min(torch.sum(mask), 1.0)
+        mu = torch.sum(features * mask[:, None], 0) / n
+        sd = torch.sqrt(torch.sum(((features - mu) ** 2) * mask[:, None], 0)
+                        / n)
+        features = (features - mu) / torch.clamp_min(sd, 1e-12)
+    with stage_range('fit'):
+        model = estim_class_model(features, nb_classes, estim_model,
+                                  sample_weight=mask, seed=seed)
+    with stage_range('predict_proba'):
+        proba = model.predict_proba(features)
+    # the edges and the MRF solve are ranges of their own in graphcut
+    graph_labels = graphcut.segment_graph_cut_general(
+        labels, proba, k, image=image, features=features,
+        gc_regul=float(gc_regul), edge_type='model', grid_ctx3d=(labels, cfg),
+        centers=centers)
+    with stage_range('lookup'):
+        segm = slic3d.grid3d_lookup(graph_labels, labels, cfg)
+    return segm, labels, features, model
+
+
+def pipe_gray3d_slic_features_model_graphcut(
+        image, nb_classes, dict_features, spacing=(12, 1, 1), sp_size=15,
+        sp_regul=0.2, gc_regul=0.1, estim_model='GMM', seed=0,
+        device='cuda', debug_visual=None):
+    """Unsupervised gray-volume pipeline: 3D SLIC supervoxels -> gray
+    features (standardised) -> class model fitted on the volume -> MRF on
+    the supervoxel grid.
+
+    :param image: (Z, H, W) gray volume; a tensor runs on its device,
+        anything else on ``device``
+    :param spacing: physical voxel spacing per axis
+    :param seed: seed of the model fit's ``torch.Generator``
+    :param debug_visual: optional dict, filled with the SLIC labels, the
+        standardised features and the fitted model
+    :returns: segm (Z, H, W) int64 ndarray
+    """
+    with stage_range('upload'):
+        image = as_tensor(image, device).to(torch.float32)
+    cfg = slic3d.slic3d_config(tuple(image.shape), sp_size, spacing)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    segm, labels, features, model = _pipe_gray3d_core(
+        image, cfg=cfg, feats_spec=_features_spec(dict_features),
+        nb_classes=nb_classes, estim_model=estim_model,
+        gc_regul=float(gc_regul), compactness=m, seed=seed)
+    if debug_visual is not None:
+        debug_visual['slic'] = labels.cpu().numpy()
+        debug_visual['features'] = features.cpu().numpy()
+        debug_visual['model'] = model
+    # class ids fit in a byte: fetch 1 B per voxel instead of 4
+    with stage_range('fetch'):
+        small = segm.to(torch.uint8) if nb_classes <= 0xff else segm
+        return small.cpu().numpy().astype(np.int64)

@@ -1,13 +1,16 @@
 """Superpixel API under the reference's names (port of
 ``pyimsegm_tpu.superpixels``): :func:`segment_slic_img2d` from
-``ops/slic.py`` and the host-side numpy edge-list helpers.  The 3D SLIC,
-``superpixel_centers`` and ``get_neighboring_segments`` come with the 3D and
-RG2Sp slices (ROADMAP.md)."""
+``ops/slic.py``, :func:`segment_slic_img3d_gray` from ``ops/slic3d.py`` and
+the host-side numpy edge-list helpers.  ``superpixel_centers`` and
+``get_neighboring_segments`` come with the RG2Sp slice (ROADMAP.md)."""
 
 import numpy as np
 
 from pyimsegm_tpu_torch.ops.slic import (  # noqa: F401  (public re-export)
     segment_slic_img2d,
+)
+from pyimsegm_tpu_torch.ops.slic3d import (  # noqa: F401
+    segment_slic_img3d_gray,
 )
 
 

@@ -1,7 +1,11 @@
-"""Synthetic sample images (numpy only; port of the generator in
-``pyimsegm_tpu.utils.data_samples``)."""
+"""Synthetic sample images and volumes (numpy only; port of the generators
+in ``pyimsegm_tpu.utils.data_samples``)."""
 
 import numpy as np
+
+#: gray level of each class of :func:`sample_gray_volume_3d`: three strips
+#: per z-level, two z-levels, so six piecewise-constant levels in two groups
+GRAY_LEVELS_3D = (0.1, 0.3, 0.8, 0.2, 0.4, 0.9)
 
 
 def sample_color_image_rand_segment(im_size=(150, 100), nb_classes=3,
@@ -24,3 +28,49 @@ def sample_color_image_rand_segment(im_size=(150, 100), nb_classes=3,
         img[:, x0:x1] = means[c]
     img += rng.normal(scale=0.05, size=img.shape).astype(np.float32)
     return np.clip(img, 0, 1), seg
+
+
+def sample_segment_vertical_2d(seg_size=(20, 10), nb_labels=3):
+    """Vertical-strip segmentation: ``nb_labels`` strips of
+    ``seg_size[0] // nb_labels`` columns, ``seg_size[1]`` rows.
+
+    :returns: (seg_size[1], nb_labels * (seg_size[0] // nb_labels)) int32
+    """
+    cls_size = int(seg_size[0] / nb_labels)
+    cls_vals = np.repeat(np.arange(nb_labels, dtype=np.int32), cls_size)
+    return np.tile(cls_vals, (seg_size[1], 1))
+
+
+def sample_segment_vertical_3d(seg_size=(10, 5, 6), nb_labels=3, levels=2):
+    """Striped 3D segmentation: ``levels`` stacks of
+    ``seg_size[2] // levels`` copies of :func:`sample_segment_vertical_2d`,
+    level ``lv`` offset by ``lv * nb_labels``.
+
+    :returns: (levels * (seg_size[2] // levels), seg_size[1], ...) int32
+    """
+    seg = []
+    for lv in range(int(levels)):
+        seg_2d = sample_segment_vertical_2d(seg_size[:2], nb_labels)
+        for _ in range(int(seg_size[2] / levels)):
+            seg.append(seg_2d.copy() + lv * nb_labels)
+    return np.array(seg, dtype=np.int32)
+
+
+def sample_gray_volume_3d(vol_size=(48, 640, 768), rand_seed=0, noise=0.05):
+    """Piecewise-constant gray volume + its segmentation: the six classes
+    of :func:`sample_segment_vertical_3d` (three strips along W, two levels
+    along Z) at :data:`GRAY_LEVELS_3D`, plus N(0, ``noise``) noise from
+    ``np.random.default_rng(rand_seed)``.
+
+    :param vol_size: (Z, H, W) with Z even and W a multiple of 3
+    :returns: (volume (Z, H, W) float32, segm (Z, H, W) int32)
+    """
+    z, h, w = vol_size
+    seg = sample_segment_vertical_3d((w, h, z), nb_labels=3, levels=2)
+    if seg.shape != tuple(vol_size):
+        raise ValueError('vol_size %r needs an even Z and W a multiple of 3'
+                         % (tuple(vol_size),))
+    rng = np.random.default_rng(rand_seed)
+    vol = np.asarray(GRAY_LEVELS_3D, np.float32)[seg]
+    vol += rng.normal(0.0, noise, vol.shape).astype(np.float32)
+    return vol, seg

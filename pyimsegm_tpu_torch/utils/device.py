@@ -16,3 +16,15 @@ def as_tensor(x, device='cuda', dtype=None):
         raise RuntimeError('no CUDA device for device=%r; pass device="cpu" '
                            'to run the plain PyTorch path' % str(device))
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+#: prefix of the stage ranges that ``tools/profile_torch_port.py`` reads
+STAGE_PREFIX = 'pyimsegm:'
+
+
+def stage_range(name):
+    """A ``torch.profiler`` range named ``pyimsegm:<name>`` around one stage
+    of a pipeline: a profiler run attributes the stage's host time and the
+    device time of the kernels it launched to it; without a profiler it
+    costs a few microseconds."""
+    return torch.profiler.record_function(STAGE_PREFIX + name)

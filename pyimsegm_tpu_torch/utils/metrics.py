@@ -19,6 +19,19 @@ def contingency_table(labels_a, labels_b, num_a, num_b):
     return counts.reshape(num_a, num_b).astype(np.float64)
 
 
+def segment_digest(labels, num_segments):
+    """(K, 2) int64 [element count, sum of flat element indices] per label.
+    Two labelings of one array give the same row to a label whose element
+    set they agree on; a row that differs marks a label they disagree on."""
+    flat = _flat_int(labels)
+    count = np.bincount(flat, minlength=num_segments)[:num_segments]
+    # float64 sums of integers below 2**53 are exact
+    index = np.arange(flat.size, dtype=np.float64)
+    index_sum = np.bincount(flat, weights=index,
+                            minlength=num_segments)[:num_segments]
+    return np.stack([count, index_sum.astype(np.int64)], axis=-1)
+
+
 def _comb2(x):
     return x * (x - 1.0) / 2.0
 

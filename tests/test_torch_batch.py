@@ -17,7 +17,7 @@ from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
 from pyimsegm_tpu_torch.parallel import batch as tbatch
 from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SP, REGUL, GC = 16, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}

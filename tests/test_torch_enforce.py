@@ -29,7 +29,7 @@ from pyimsegm_tpu_torch.ops import grid as tgrid
 from pyimsegm_tpu_torch.ops import grid_cuda
 from pyimsegm_tpu_torch.ops import slic as tslic
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SP = 16
 SHAPES = [(96, 140), (101, 133)]

@@ -24,7 +24,7 @@ from pyimsegm_tpu_torch.models import gmm as tgmm
 from pyimsegm_tpu_torch.models import otsu as totsu
 from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _blobs(n=240, d=6, c=3, seed=0):

@@ -19,7 +19,7 @@ from pyimsegm_tpu_torch.models import gmm as tgmm
 from pyimsegm_tpu_torch.utils import data_samples as tsamples
 from pyimsegm_tpu_torch.utils import metrics as tmetrics
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _gmm_arrays(seed, c=3, d=9):

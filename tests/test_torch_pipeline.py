@@ -29,7 +29,7 @@ from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
 from pyimsegm_tpu_torch.ops import slic as tslic
 from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SP, REGUL, GC = 16, 0.2, 2.0
@@ -401,9 +401,9 @@ sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
 from pyimsegm_tpu_torch import _build, descriptors, pipelines, superpixels
 from pyimsegm_tpu_torch.models import bgm, class_model, gmm, otsu
-from pyimsegm_tpu_torch.ops import (color, enforce_cuda, graphcut, grid,
-                                    grid_cuda, prep_cuda, segment_stats, slic,
-                                    slic_cuda)
+from pyimsegm_tpu_torch.ops import (color, enforce_cuda, graph, graphcut,
+                                    grid, grid_cuda, prep_cuda, segment_stats,
+                                    slic, slic3d, slic3d_cuda, slic_cuda)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import data_samples, device, metrics
 import torch

@@ -20,7 +20,7 @@ from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
 from pyimsegm_tpu_torch.ops import prep_cuda, slic_cuda
 from pyimsegm_tpu_torch.ops import slic as tslic
 
-torch.set_num_threads(1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 SP = 16
 #: one shape whose tiles fit, one whose last tile row and column pad

@@ -17,15 +17,28 @@ then segments image 0 and stores two files:
   ``slic`` (int16), the (K, 15) ``features`` and their sample ``weight``,
   the fitted model arrays, the segmentation ``segm`` (uint8), and the
   enforced SLICO labels ``slico`` of ``segment_slic_img2d(..., slico=True)``
-  (int16).
+  (int16);
+* ``torch_port_fixture_3d.npz``: the 3D gray-volume pipe
+  (``pipe_gray3d_slic_features_model_graphcut``, mean / std / energy, a
+  2-class GMM fitted on the volume, gc_regul 0.1, sp_regul 0.2) on the
+  structured volume of ``sample_gray_volume_3d`` at the repo's 3D workload
+  (48x640x768, sp_size 15, spacing (4, 1, 1)) and at a small test size
+  (8x40x48, sp_size 8, spacing (2, 1, 1), keys prefixed ``small_``): the
+  SLIC labels of three z-slices ``slic`` (int16, slice indices in
+  ``slices``), the segmentation ``segm_bits`` (``np.packbits`` of the
+  uint8 map, shape in ``shape``), the standardised (K, 3) ``features``
+  with their sample weight ``mask``, the fitted model arrays, and the
+  (K, 2) ``digest`` of the whole SLIC labelling
+  (``pyimsegm_tpu_torch.utils.metrics.segment_digest``), which tells the
+  supervoxels whose voxel sets a port run reproduces.
 
 A file whose arrays are unchanged is not rewritten, so its bytes stay as
 committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
 JAX.
 
-Run on the CPU (about two minutes)::
+Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone)::
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [--only-3d]
 """
 
 import os
@@ -37,10 +50,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
 OUT_CONN = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_conn.npz')
 OUT_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
+OUT_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
 FEATURES_FIT = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
+#: (prefix, volume shape, sp_size, spacing, stored z-slices) of the 3D file
+CASES_3D = (('', (48, 640, 768), 15, (4, 1, 1), (0, 23, 47)),
+            ('small_', (8, 40, 48), 8, (2, 1, 1), (0, 3, 7)))
+SP_REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
+FEATURES_3D = {'color': ['mean', 'std', 'energy']}
 _MODEL_ARRAYS = ('scaler_mean', 'scaler_scale', 'pca_components', 'pca_mean',
                  'pca_mask')
 
@@ -67,6 +86,12 @@ def main():
     from pyimsegm_tpu import pipelines
     from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
 
+    arrays_3d = {}
+    for case in CASES_3D:
+        arrays_3d.update(_gray3d_outputs(pipelines, *case))
+    _save(OUT_3D, arrays_3d)
+    if '--only-3d' in sys.argv[1:]:
+        return
     imgs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)[0]
             for s in (0, 1)]
     model, _ = pipelines.estim_model_classes_group(
@@ -114,6 +139,52 @@ def _fit_outputs(pipelines, img):
                 features=np.asarray(dv['features'], np.float32),
                 weight=weight.astype(np.float32),
                 slico=np.asarray(slico).astype(np.int16))
+
+
+def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices):
+    """The 3D pipe's stages (SLIC, counts, standardised features, GMM fit)
+    as ``_pipe_gray3d_core`` runs them, and the public call's
+    segmentation."""
+    import jax.numpy as jnp
+    from pyimsegm_tpu import descriptors
+    from pyimsegm_tpu.models.class_model import estim_class_model
+    from pyimsegm_tpu.ops import slic3d
+    from pyimsegm_tpu.ops.slic import compactness_from_regul
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
+    from pyimsegm_tpu_torch.utils.metrics import segment_digest
+
+    vol, _ = sample_gray_volume_3d(shape)
+    cfg = slic3d.slic3d_config(vol.shape, sp_size, spacing)
+    m = compactness_from_regul(sp_size, SP_REGUL_3D)
+    volj = jnp.asarray(vol)
+    labels = slic3d.slic3d_segment(volj, cfg, m)
+    counts = slic3d.grid3d_segment_sum(
+        jnp.ones(labels.shape + (1,), jnp.float32), labels, cfg)[:, 0]
+    mask = (counts > 0).astype(jnp.float32)
+    feats, _ = descriptors.compute_selected_features_gray3d(
+        volj, labels.ravel(), cfg.n_segments, FEATURES_3D,
+        grid_ctx3d=(labels, cfg))
+    mu = jnp.sum(feats * mask[:, None], 0) / jnp.maximum(jnp.sum(mask), 1.0)
+    sd = jnp.sqrt(jnp.sum(((feats - mu) ** 2) * mask[:, None], 0)
+                  / jnp.maximum(jnp.sum(mask), 1.0))
+    feats = (feats - mu) / jnp.maximum(sd, 1e-12)
+    model = estim_class_model(feats, NB_CLASSES_3D, 'GMM', sample_weight=mask,
+                              seed=0)
+    segm = pipelines.pipe_gray3d_slic_features_model_graphcut(
+        vol, NB_CLASSES_3D, FEATURES_3D, spacing=spacing, sp_size=sp_size,
+        sp_regul=SP_REGUL_3D, gc_regul=GC_REGUL_3D)
+    labels = np.asarray(labels)
+    out = dict(_model_arrays(model),
+               slic=labels[list(slices)].astype(np.int16),
+               digest=segment_digest(labels, cfg.n_segments),
+               slices=np.asarray(slices, np.int32),
+               segm_bits=np.packbits(segm.astype(np.uint8).ravel()),
+               shape=np.asarray(shape, np.int32),
+               features=np.asarray(feats, np.float32),
+               mask=np.asarray(mask, np.float32))
+    print('3D %s: K %d, segm class shares %s' % (
+        shape, cfg.n_segments, np.bincount(segm.ravel()) / segm.size))
+    return {prefix + k: v for k, v in out.items()}
 
 
 if __name__ == '__main__':

@@ -21,9 +21,21 @@ set and a GMM fitted on each image) on the synthetic scenes, stage by stage
 (upload, SLIC, enforcement, geometry, statistics, median, fit,
 predict_proba, MRF, fetch), and profiles one warm call the same way.
 
+``--path 3d`` drives the 3D gray-volume path
+(``pipe_gray3d_slic_features_model_graphcut`` at the repo's 3D workload:
+48x640x768, spacing (4, 1, 1), sp_size 15, regul 0.2, gc_regul 0.1, mean /
+std / energy, a 2-class GMM fitted on the volume) on the structured volumes
+of ``sample_gray_volume_3d`` (seeds 0, 1, ...).  Its stages (upload, slic,
+counts, features, fit, predict_proba, edges, mrf, lookup, fetch) are the
+``pyimsegm:<stage>`` profiler ranges that the pipeline itself opens, read
+from a profile of each warm call: host ms per range and the range's span
+on the device; the call's own host-clock ms are taken in turns with the
+profiled calls, and one warm call is profiled as above.
+
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/profile_torch_port.py --out DIR [--images 4] [--path fit]
+    python3 tools/profile_torch_port.py --out DIR [--images 4] \
+        [--path bench|fit|3d]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -42,6 +54,8 @@ CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
 FEATURES_FIT = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
+SHAPE_3D, SPACING_3D, SP_3D, REGUL_3D, GC_REGUL_3D = \
+    (48, 640, 768), (4, 1, 1), 15, 0.2, 0.1
 
 
 def _stages(torch, image, model):
@@ -140,6 +154,56 @@ def _fit_stages(torch, image):
     return times
 
 
+def _stage_ranges(prof):
+    """{stage: (host ms, device ms)} of the pipeline's ``pyimsegm:<stage>``
+    ranges (``utils.device.stage_range``) in one profile: the range's host
+    time, and its span on the device, from the first kernel launched inside
+    it to the end of the last (idle gaps within the stage included)."""
+    from pyimsegm_tpu_torch.utils.device import STAGE_PREFIX
+    out = {}
+    for e in prof.events():
+        if not e.name.startswith(STAGE_PREFIX):
+            continue
+        name = e.name[len(STAGE_PREFIX):]
+        host, dev = out.get(name, (0.0, 0.0))
+        if str(e.device_type).endswith('CPU'):
+            host += e.cpu_time_total / 1e3
+        else:
+            dev += e.device_time_total / 1e3
+        out[name] = (host, dev)
+    return out
+
+
+def _profile_gray3d(torch, volumes, out_dir):
+    """The public 3D call on each volume, in turns: once on the host clock,
+    once under the profiler for its stage ranges."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyimsegm_tpu_torch import pipelines
+
+    def run(vol):
+        return pipelines.pipe_gray3d_slic_features_model_graphcut(
+            vol, 2, FEATURES, spacing=SPACING_3D, sp_size=SP_3D,
+            sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D)
+
+    run(volumes[0])                                        # build + warm
+    host, device, walls = [], [], []
+    for vol in volumes:
+        walls.append(_timed(torch, lambda: run(vol)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(vol)
+            torch.cuda.synchronize()
+        ranges = _stage_ranges(prof)
+        host.append({k: v[0] for k, v in ranges.items()})
+        device.append({k: v[1] for k, v in ranges.items()})
+    _report('3d host (profiled)', host, walls, 1)
+    mean = {n: round(float(np.mean([r[n] for r in device])), 3)
+            for n in device[0]}
+    print('3d stage device span ms (mean of %d volumes): %s; sum %.3f'
+          % (len(device), json.dumps(mean), sum(mean.values())))
+    _profile(torch, lambda: run(volumes[0]), out_dir, '3d')
+
+
 def _report(kind, rows, walls, n_images):
     names = list(rows[0])
     mean = {n: round(float(np.mean([r[n] for r in rows])), 3) for n in names}
@@ -185,9 +249,12 @@ def _profile(torch, run, out_dir, kind):
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    from pyimsegm_tpu_torch.utils.device import STAGE_PREFIX
+    # kernels and copies; a stage range's device-side span is no work
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_type', None) is not None
-              and str(e.device_type).endswith('CUDA')]
+              and str(e.device_type).endswith('CUDA')
+              and not e.key.startswith(STAGE_PREFIX)]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
     launches = sum(e.count for e in events)
     print('%s profiled one-image call: wall %.3f ms, device busy '
@@ -207,7 +274,8 @@ def _profile(torch, run, out_dir, kind):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
-    parser.add_argument('--path', choices=('bench', 'fit'), default='bench')
+    parser.add_argument('--path', choices=('bench', 'fit', '3d'),
+                        default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
     args = parser.parse_args()
@@ -219,7 +287,7 @@ def main():
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.parallel import batch
     from pyimsegm_tpu_torch.utils.data_samples import (
-        sample_color_image_rand_segment)
+        sample_color_image_rand_segment, sample_gray_volume_3d)
 
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
@@ -229,6 +297,10 @@ def main():
                               'torch_port_fixture.npz')) as npz:
         model = class_model_from_numpy(
             {k: npz[k] for k in npz.files}).to('cuda')
+    if args.path == '3d':
+        _profile_gray3d(torch, [sample_gray_volume_3d(SHAPE_3D, rand_seed=s)[0]
+                                for s in range(args.images)], args.out)
+        return
     if args.path == 'fit':
         _profile_fit(torch, [sample_color_image_rand_segment(
             CROP, 3, rand_seed=s)[0] for s in range(args.images)], args.out)
