@@ -60,7 +60,26 @@ Phases (any failure raises and exits non-zero):
    on the JAX features and on the card's own, within 1e-3 relative of the
    JAX fit's on the same features), the edge count against the
    reference's 8K capacity
-   and the count of edges 3 cells apart, and warm ms per volume and MVox/s.
+   and the count of edges 3 cells apart, and warm ms per volume and MVox/s;
+10. the supervised 2D path (BASELINE config 2: colour + tGabor + tLBP
+   features, random forest, gc_regul 5.0) and the wide-image connectivity
+   route: (a) rows 13 (``reach_absorb``, 4096x4096) and 14
+   (``reach_absorb_fused``, 2048x3600) at sp_size 35 on the SLIC kernels'
+   labels of a synthetic tile, from the anchor seed, each against its twin
+   and against row 12 on the same labels and centres (exact), with the
+   launches per call and the grid passes run; (b) row 7 at F = 18 and 60
+   against its twin; (c) config 2 at the bench geometry with the JAX-trained
+   forest of ``tests/data/torch_port_fixture_sup.npz`` carried across,
+   against the fixture's image 0 (enforced labels >= 0.999 equal, feature
+   names equal, features of unchanged superpixels within rtol 1e-5 + 1e-4,
+   their proba within 1e-6, segm ARS >= 0.98), and once with the tLM
+   family's forest (features and ARS); (d)
+   ``train_classif_color2d_slic_features`` on the card on images 0-2 with a
+   3-candidate search (accuracy on the JAX training set and image 0's ARS
+   against its annotation within 0.02 of the JAX forest's; two fits with
+   one seed equal); (e) a 2048x3600 and a 4096x4096 tile segmented with
+   that forest, which must launch row 14 and row 13 and not row 12; warm
+   ms per tile and MPix/s.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after.  The second-to-last line is the kernels' JSON record, the
@@ -86,6 +105,8 @@ FIXTURE_CONN = os.path.join(ROOT, 'tests', 'data',
                             'torch_port_fixture_conn.npz')
 FIXTURE_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 FIXTURE_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
+FIXTURE_SUP = os.path.join(ROOT, 'tests', 'data',
+                           'torch_port_fixture_sup.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -94,7 +115,7 @@ NB_CLASSES = 3
 REPS = 20
 DEVICE = 'cuda'
 BATCH = 8
-LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d')
+LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d', 'connectivity')
 SHAPE_3D, SPACING_3D, SP_3D = (48, 640, 768), (4, 1, 1), 15
 REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
 #: bars of the 3D path's standardised features against JAX's, on the
@@ -112,6 +133,14 @@ F32_OPS_PER_S = 67e12
 #: 1 add, compare 1; 3D the same with one colour channel and three axes
 #: (each axis sub + scale mul + square mul)
 SLIC_OPS_2D, SLIC_OPS_3D = 17, 17
+#: BASELINE config 2 (bench_all.py cfg2) and its reference-matching family
+FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
+                'tGabor': ['mean', 'energy'], 'tLBP': ['mean']}
+FEATURES_TLM = {'color': ['mean', 'std', 'energy'],
+                'tLM': ['mean', 'std', 'energy']}
+GC_REGUL_SUP = 5.0
+#: whole-slide tiles on the routes of rows 14 and 13 at sp_size 35
+TILE_14, TILE_13 = (2048, 3600), (4096, 4096)
 
 
 def _time_ms(fn, reps=REPS):
@@ -719,22 +748,25 @@ def path_gray3d(torch, vol, fixture):
     return launches
 
 
+def _tables():
+    from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
+                                        grid_cuda, slic3d_cuda, slic_cuda)
+    return (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES, enforce_cuda.LAUNCHES,
+            slic3d_cuda.LAUNCHES, connectivity_cuda.LAUNCHES)
+
+
 def _counters():
-    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic3d_cuda, slic_cuda)
+    from pyimsegm_tpu_torch.ops import prep_cuda
     counts = {'blur_lab': prep_cuda.LAUNCHES}
-    for table in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
-                  enforce_cuda.LAUNCHES, slic3d_cuda.LAUNCHES):
+    for table in _tables():
         counts.update(table)
     return counts
 
 
 def _reset_counters():
-    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic3d_cuda, slic_cuda)
+    from pyimsegm_tpu_torch.ops import prep_cuda
     prep_cuda.LAUNCHES = 0
-    for counts in (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES,
-                   enforce_cuda.LAUNCHES, slic3d_cuda.LAUNCHES):
+    for counts in _tables():
         for key in counts:
             counts[key] = 0
 
@@ -752,9 +784,10 @@ PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_update', 'slic_assign',
 PATH_3D = ('slic3d_partials', 'slic3d_iterate', 'slic3d_labels')
 
 
-def _drive(name, kernels, fn):
+def _drive(name, kernels, fn, forbidden=()):
     """Run ``fn`` with every launch count set to 0 just before it; fail
-    unless each of ``kernels`` launched.  Returns (fn's result, counts)."""
+    unless each of ``kernels`` launched and none of ``forbidden`` did.
+    Returns (fn's result, counts)."""
     import torch
     torch.cuda.synchronize()
     _reset_counters()
@@ -763,6 +796,10 @@ def _drive(name, kernels, fn):
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError('%s: kernels not launched: %s' % (name, missing))
+    extra = [k for k in forbidden if launches[k] > 0]
+    if extra:
+        raise AssertionError('%s: kernels of another route launched: %s'
+                             % (name, extra))
     print('%s launches: %s' % (name, json.dumps(
         {k: launches[k] for k in kernels})), flush=True)
     return out, launches
@@ -843,7 +880,8 @@ def path_bench(torch, model, images, fixture_conn):
         return singles, debug, run_batch()
 
     (singles, debug, (segms, probs)), launches = _drive(
-        'bench path', PATH_BENCH, run)
+        'bench path', PATH_BENCH, run,
+        forbidden=('reach_absorb', 'reach_absorb_fused', 'anchor_seed'))
     for segm, soft in singles:
         _check_outputs(segm, soft)
     _agreement('connectivity=True', singles[0][0], debug['slic'],
@@ -972,6 +1010,305 @@ def path_enforce_op(torch, img):
     return launches
 
 
+def _tile(torch, shape, seed=0):
+    """A synthetic colour tile on the card and its SLIC kernels' labels and
+    centroids at sp_size 35."""
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    img = torch.as_tensor(sample_color_image_rand_segment(
+        shape, 3, rand_seed=seed)[0], device=DEVICE)
+    cfg = slic_ops.slic_config(shape[0], shape[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    labels, _, centers, _ = slic_ops.slic_segment_with_features(img, img,
+                                                                 cfg, m)
+    return img, labels, centers, cfg
+
+
+def kernel_phases_wide(torch):
+    """Rows 13 and 14 from the anchor seed, each against its twin and
+    against row 12 on the same labels and centres, at both tile geometries;
+    records at each row's own route geometry, and the anchor seed's."""
+    from pyimsegm_tpu_torch.ops import connectivity_cuda as cc
+    from pyimsegm_tpu_torch.ops import enforce_cuda
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    records = []
+    routes = {TILE_14: ('reach_absorb_fused', 'pyimsegm_tpu/ops/'
+                        'connectivity_pallas.py:379', 1),
+              TILE_13: ('reach_absorb', 'pyimsegm_tpu/ops/'
+                        'connectivity_pallas.py:310', 2)}
+    for shape, (own, replaces, per_call) in routes.items():
+        _img, labels, centers, cfg = _tile(torch, shape)
+        want_route = 'rafused' if own == 'reach_absorb_fused' else 'two'
+        route = grid_ops._enforce_route(cfg)
+        if route != want_route:
+            raise AssertionError('%s: route %s' % (shape, route))
+        seed = enforce_cuda.anchor_seed(labels, centers, cfg)
+        seed_p = enforce_cuda._anchor_seed_plain(labels, centers, cfg)
+        row12 = enforce_cuda.enforce_fused(labels, centers, cfg)
+        twin = enforce_cuda._connect_components(labels, seed.bool(), cfg)
+        torch.cuda.synchronize()
+        if not torch.equal(seed.bool(), seed_p):
+            raise AssertionError('anchor_seed differs from its twin')
+        for name in ('reach_absorb', 'reach_absorb_fused'):
+            before = cc.LAUNCHES[name]
+            out = getattr(cc, name)(labels, seed, cfg)
+            n = cc.LAUNCHES[name] - before
+            torch.cuda.synchronize()
+            sweeps, rounds = cc.grid_passes(cc.LAST_FLAGS, cfg)
+            d_twin = int((out != twin).sum())
+            d_12 = int((out != row12).sum())
+            print('%s at %dx%d: %d kernel launch(es) per call, %d reach '
+                  'sweeps + %d absorb rounds = %d grid passes (of %d the caps '
+                  'allow); pixels differing from the twin %d, from row 12 %d; '
+                  '%d of %d pixels relabelled'
+                  % (name, shape[0], shape[1], n, sweeps, rounds,
+                     2 * (sweeps + rounds),
+                     2 * (cc.MAX_SWEEPS + cc.absorb_rounds(cfg)), d_twin,
+                     d_12, int((out != labels).sum()), labels.numel()),
+                  flush=True)
+            if d_twin or d_12 or n != (2 if name == 'reach_absorb' else 1):
+                raise AssertionError('%s disagrees at %s' % (name, shape))
+        px = shape[0] * shape[1]
+        times = (_time_ms(lambda: getattr(cc, own)(labels, seed, cfg)),
+                 _time_ms(lambda: enforce_cuda._connect_components(
+                     labels, seed.bool(), cfg), reps=2))
+        ms12 = _time_ms(lambda: enforce_cuda.enforce_fused(labels, centers,
+                                                           cfg))
+        print('%s at %dx%d: row 12 on the same labels %.4f ms (seed '
+              'included)' % (own, shape[0], shape[1], ms12), flush=True)
+        records.append(_record(
+            own, 'pyimsegm_tpu_torch/csrc/connectivity.cu', replaces, 0.0,
+            times[0], times[1], 'exact vs twin and row 12 (%d launch(es) per '
+            'call)' % per_call,
+            # i32 labels + u8 seed in, i32 labels out; per pixel one pass of
+            # 4 neighbour compares and a scan step
+            px * 9, px * 10))
+        if own == 'reach_absorb':
+            records.append(_record(
+                'anchor_seed', 'pyimsegm_tpu_torch/csrc/enforce.cu',
+                'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0,
+                _time_ms(lambda: enforce_cuda.anchor_seed(labels, centers,
+                                                          cfg)),
+                _time_ms(lambda: enforce_cuda._anchor_seed_plain(
+                    labels, centers, cfg), reps=3),
+                'exact',
+                # i32 labels + centroids in, u8 seed out; the distance (6)
+                # and the window test per pixel
+                px * 5 + cfg.n_segments * 8, px * 8))
+    return records
+
+
+def row7_phases(torch, img):
+    """Row 7 (the donor-less moments) at the F of the texture battery
+    stacks, on the SLIC kernels' labels of image 0."""
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
+    px, k = CROP[0] * CROP[1], cfg.n_segments
+    rng = np.random.default_rng(3)
+    records = []
+    for f in (18, 60):
+        data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
+            np.float32), device=DEVICE)
+        got = grid_cuda.grid_moments_apply(data, labels, None, cfg)[1]
+        want = grid_cuda._grid_moments_apply_plain(data, labels, None, cfg)[1]
+        torch.cuda.synchronize()
+        ok, err = _sums_agree(got, want)
+        if not ok:
+            raise AssertionError('grid_moments F=%d: max diff %g' % (f, err))
+        flat = labels.reshape(-1).long()
+        stacked = torch.cat([data, data * data,
+                             torch.ones_like(data[..., :3])],
+                            dim=-1).reshape(px, 2 * f + 3)
+        records.append(_record(
+            'grid_moments_f%d' % f, 'pyimsegm_tpu_torch/csrc/grid.cu',
+            'pyimsegm_tpu/ops/grid_pallas.py:195', err,
+            _time_ms(lambda: grid_cuda.grid_moments_apply(data, labels, None,
+                                                          cfg)),
+            _time_ms(lambda: grid_cuda._grid_moments_apply_plain(
+                data, labels, None, cfg)),
+            'sums within rtol 1e-5 + 1e-5 x channel max (F = %d)' % f,
+            # f32 (H, W, F) + i32 labels in, (K, 2F+3) sums out; F squares
+            # and 2F+3 sums per pixel
+            px * (4 * f + 4) + k * (2 * f + 3) * 4, px * (3 * f + 3),
+            _time_ms(lambda: torch.zeros((k, 2 * f + 3), device=DEVICE)
+                     .index_add_(0, flat, stacked))))
+    return records
+
+
+def _fixture_suffix(fixture, suffix):
+    """The arrays of one feature family of the supervised fixture ('' for
+    config 2's, '_tlm' for the LM family's), without the suffix."""
+    return {k[:len(k) - len(suffix)]: v for k, v in fixture.items()
+            if (k.endswith(suffix) if suffix else not k.endswith('_tlm'))}
+
+
+def _classifier(fixture, suffix=''):
+    """The JAX-trained forest of a family, carried to the card."""
+    from pyimsegm_tpu_torch.classification import classifier_from_numpy
+    return classifier_from_numpy(
+        {k[len('clf_'):]: v
+         for k, v in _fixture_suffix(fixture, suffix).items()
+         if k.startswith('clf_')}, device=DEVICE)
+
+
+#: kernels the supervised path launches at the bench geometry
+PATH_SUP = ('blur_lab', 'slic_multi_update', 'slic_assign', 'enforce_fused',
+            'grid_pair_count', 'grid_lookup', 'grid_reduce', 'grid_moments',
+            'grid_adjacency_presence')
+WIDE = ('reach_absorb', 'reach_absorb_fused', 'anchor_seed')
+
+
+def path_supervised(torch, images, fixture):
+    """Config 2 on image 0 with the JAX-trained forests carried across,
+    against the fixture; returns the launch counts."""
+    from pyimsegm_tpu_torch import descriptors, pipelines
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL, gc_regul=GC_REGUL_SUP)
+    families = (('', FEATURES_SUP), ('_tlm', FEATURES_TLM))
+    clfs = {suffix: _classifier(fixture, suffix) for suffix, _ in families}
+
+    segment = pipelines.segment_color2d_slic_features_model_graphcut
+
+    def run():
+        out = {}
+        for suffix, feats in families:
+            debug = {}
+            segm, soft = segment(images[0], clfs[suffix], feats,
+                                 debug_visual=debug, **kw)
+            out[suffix] = (segm, soft, debug)
+        return out
+
+    outs, launches = _drive('supervised path', PATH_SUP, run,
+                            forbidden=WIDE)
+    for suffix, feats in families:
+        want = _fixture_suffix(fixture, suffix)
+        segm, soft, debug = outs[suffix]
+        _check_outputs(segm, soft)
+        slic = debug['slic']
+        _, names = descriptors.compute_selected_features_color2d(
+            torch.as_tensor(images[0], device=DEVICE),
+            torch.as_tensor(slic.reshape(-1), device=DEVICE), cfg.n_segments,
+            feats, grid_ctx=(torch.as_tensor(slic, device=DEVICE), cfg))
+        names_ok = list(names) == [str(n) for n in want['names']]
+        slic_eq = float((slic == want['slic']).mean())
+        diff = slic != want['slic']
+        touched = np.zeros(cfg.n_segments, bool)
+        touched[slic[diff]] = True
+        touched[want['slic'][diff]] = True
+        fd = np.abs(debug['features'] - want['features'])[~touched]
+        feat_ok = bool((fd <= 1e-5 * np.abs(want['features'][~touched])
+                        + 1e-4).all())
+        pd = np.abs(debug['proba'] - want['proba'])[~touched]
+        ars = adjusted_rand_score(segm, want['segm'])
+        print('supervised path%s image 0 vs JAX-CPU: names equal %s, labels '
+              'equal %.6f (>= 0.999), features max diff %.3g on %d / %d '
+              'unchanged superpixels (rtol 1e-5 + 1e-4), proba max diff %.3g '
+              '(<= 1e-6), superpixels whose proba differs by more %d, segm '
+              'ARS %.6f (>= 0.98)'
+              % (suffix, names_ok, slic_eq, float(fd.max()),
+                 int((~touched).sum()), touched.size, float(pd.max()),
+                 int((pd.max(axis=1) > 1e-6).sum()), ars), flush=True)
+        proba_ok = suffix == '_tlm' or bool((pd <= 1e-6).all())
+        if not (names_ok and slic_eq >= 0.999 and feat_ok and proba_ok
+                and ars >= 0.98):
+            raise AssertionError('supervised path%s disagrees with the JAX '
+                                 'reference' % suffix)
+    ms = [_warm_ms(torch, lambda: segment(images[0], clfs[''], FEATURES_SUP,
+                                          **kw), 1)
+          for _ in range(3)]
+    print('supervised path warm ms per 884x1200 image (config 2, carried '
+          'forest): %s (best %.3f ms, %.3f MPix/s)'
+          % (['%.3f' % t for t in ms], min(ms),
+             CROP[0] * CROP[1] / 1e6 / min(ms) * 1e3), flush=True)
+    return launches
+
+
+def path_train(torch, images, annots, fixture):
+    """Config 2's training on the card on images 0-2; returns the
+    classifier."""
+    from pyimsegm_tpu_torch import classification, pipelines
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL)
+
+    def train():
+        return pipelines.train_classif_color2d_slic_features(
+            images[:3], annots[:3], FEATURES_SUP, nb_classif_search=3, **kw)
+
+    t0 = time.perf_counter()
+    (clf, _slic, feats, labels), _ = _drive(
+        'training', tuple(k for k in PATH_SUP
+                          if k != 'grid_adjacency_presence'), train,
+        forbidden=WIDE)
+    torch.cuda.synchronize()
+    train_ms = (time.perf_counter() - t0) * 1e3
+    acc = clf.score(fixture['train_features'], fixture['train_labels'])
+    segm, _ = pipelines.segment_color2d_slic_features_model_graphcut(
+        images[0], clf, FEATURES_SUP, gc_regul=GC_REGUL_SUP, **kw)
+    ars = adjusted_rand_score(segm, annots[0])
+    x, y, _ = classification.convert_set_features_labels_2_dataset(
+        dict(enumerate(feats)), dict(enumerate(labels)),
+        balance_type='unique', drop_labels=[-1])
+    refits = [classification.classifier_to_numpy(classification.Classifier(
+        clf.name, seed=clf.seed, device=DEVICE, **clf.hyper).fit(x, y))
+        for _ in range(2)]
+    mine = classification.classifier_to_numpy(clf)
+    same = all(np.array_equal(refits[0][k], refits[1][k])
+               and np.array_equal(refits[0][k], mine[k]) for k in mine)
+    ms_train = _warm_ms(torch, train, 1)
+    print('training on the card: %d samples, hyper %s, accuracy on the JAX '
+          'training set %.4f vs the JAX forest %.4f, image 0 ARS vs its '
+          'annotation %.4f vs %.4f (within 0.02); two fits with one seed '
+          'equal: %s; training ms %.3f (first call, with the builds of the '
+          'first use) and %.3f (warm)'
+          % (len(y), json.dumps(clf.hyper), acc, float(fixture['train_acc']),
+             ars, float(fixture['ars_annot']), same, train_ms, ms_train),
+          flush=True)
+    if (acc < float(fixture['train_acc']) - 0.02
+            or ars < float(fixture['ars_annot']) - 0.02 or not same):
+        raise AssertionError('training on the card misses the JAX forest')
+    return clf
+
+
+def path_tiles(torch, clf):
+    """Whole-slide tiles segmented with the card-trained forest: the 2048 x
+    3600 tile must take row 14 and the 4096 x 4096 tile row 13, neither
+    row 12; returns the launch counts of each."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    counts = {}
+    for shape, kernel, other in ((TILE_14, 'reach_absorb_fused',
+                                  'reach_absorb'),
+                                 (TILE_13, 'reach_absorb',
+                                  'reach_absorb_fused')):
+        tile = sample_color_image_rand_segment(shape, 3, rand_seed=1)[0]
+
+        def run():
+            return pipelines.segment_color2d_slic_features_model_graphcut(
+                tile, clf, FEATURES_SUP, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+                gc_regul=GC_REGUL_SUP)
+
+        (segm, soft), launches = _drive(
+            'tile %dx%d' % shape, (kernel, 'anchor_seed') + PATH_SUP[:3]
+            + PATH_SUP[4:], run, forbidden=('enforce_fused', other))
+        if segm.shape != shape or soft.shape != shape + (3,) \
+                or not np.isfinite(soft).all() \
+                or not set(np.unique(segm)) <= set(clf.classes_.tolist()):
+            raise AssertionError('tile %s: bad output' % (shape,))
+        ms = [_warm_ms(torch, run, 1) for _ in range(2)]
+        print('tile %dx%d warm ms: %s (best %.3f ms, %.3f MPix/s)'
+              % (shape[0], shape[1], ['%.3f' % t for t in ms], min(ms),
+                 shape[0] * shape[1] / 1e6 / min(ms) * 1e3), flush=True)
+        counts[shape] = launches
+    return counts
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -984,25 +1321,28 @@ def main():
     sys.path.insert(0, ROOT)
     from pyimsegm_tpu_torch import _build
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
-    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
-                                        slic3d_cuda, slic_cuda)
+    from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
+                                        grid_cuda, prep_cuda, slic3d_cuda,
+                                        slic_cuda)
     from pyimsegm_tpu_torch.utils.data_samples import (
         sample_color_image_rand_segment, sample_gray_volume_3d)
 
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
-    for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda):
+    for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda,
+                connectivity_cuda):
         mod._lib()
     print('build: %.2f s total, per library %s'
           % (time.perf_counter() - t0, json.dumps(_build.BUILD_SECONDS)),
           flush=True)
 
     fixtures = []
-    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D):
+    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
-    images = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)[0]
-              for s in range(BATCH)]
+    pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
+             for s in range(BATCH)]
+    images = [p[0] for p in pairs]
     img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
     records += fit_kernel_phases(torch, img)
@@ -1021,11 +1361,21 @@ def main():
     fixture_3d = {k: v for k, v in fixtures[3].items()
                   if not k.startswith('small_')}
     gray3d = path_gray3d(torch, vol, fixture_3d)
+
+    records += kernel_phases_wide(torch)
+    records += row7_phases(torch, img)
+    sup = path_supervised(torch, images, fixtures[4])
+    clf = path_train(torch, images, [p[1] for p in pairs], fixtures[4])
+    tiles = path_tiles(torch, clf)
     for rec in records:
         name = rec['name']
-        rec['launches'] = (bench[name] if name in PATH_BENCH else
-                           op[name] if name in PATH_OP else
-                           gray3d[name] if name in PATH_3D else fit[name])
+        rec['launches'] = (
+            tiles[TILE_14][name] if name == 'reach_absorb_fused' else
+            tiles[TILE_13][name] if name in ('reach_absorb', 'anchor_seed')
+            else sup['grid_moments'] if name.startswith('grid_moments_f')
+            else bench[name] if name in PATH_BENCH else
+            op[name] if name in PATH_OP else
+            gray3d[name] if name in PATH_3D else fit[name])
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

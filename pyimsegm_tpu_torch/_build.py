@@ -6,7 +6,8 @@ library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/torch_kernels/lib<name>_<hash>.so <name>.cu
 
-The file name carries a hash of the source, so an edited kernel is rebuilt
+The file name carries a hash of the source and of the shared headers
+``csrc/*.cuh``, so an edited kernel is rebuilt
 and a stale library is never loaded.  No PyTorch headers are compiled, which
 keeps a build to seconds; :func:`build` compiles several sources at once.  Every C entry point returns ``cudaGetLastError()``
 after its launch; :func:`check` raises when that is not ``cudaSuccess``.
@@ -48,11 +49,16 @@ def _nvcc():
 
 
 def _paths(name):
-    """(source, library path named by the source's hash)."""
+    """(source, library path named by the hash of the source and of the
+    shared headers ``csrc/*.cuh``)."""
     src = os.path.join(CSRC, name + '.cu')
-    with open(src, 'rb') as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, 'lib%s_%s.so' % (name, digest))
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, 'rb') as fh:
+            digest.update(fh.read())
+    return src, os.path.join(BUILD_DIR, 'lib%s_%s.so'
+                             % (name, digest.hexdigest()[:16]))
 
 
 def build(names):

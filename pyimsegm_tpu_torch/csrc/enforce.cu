@@ -23,19 +23,8 @@
 //           reference's one-hot contraction reads it: an inf among the
 //           tile's other 3x3 seeds (an empty superpixel) makes it NaN, and
 //           the pixel is no anchor.
-//   lines - one warp per row (or column).  The warp walks the line in
-//           32-pixel segments; each lane owns one pixel of a segment, warp
-//           shuffles give the segment's inclusive max/min scan, and the
-//           segment's last value carries into the next.  A lane reads and
-//           writes only its own pixels, in the forward and the reverse walk
-//           alike, so no memory is shared between lanes.  Reach: a pixel
-//           joins when the nearest reached position behind it (ahead of it)
-//           lies in its own same-label run (the scan of run starts/ends).
-//           Absorb: the nearest reached pixel's packed (position, label)
-//           is the max scan of pos*pack + label (forward) or
-//           -pos*pack + label (reverse); the label comes back by floor-mod,
-//           written as '& (pack - 1)' since pack is a power of two (C's '%'
-//           truncates toward zero).
+//   lines - one warp per row (or column), the line scans of lines.cuh
+//           (shared with csrc/connectivity.cu, rows 13 and 14).
 //   caps  - the host enqueues every sweep (MAX_SWEEPS) and round (2*step)
 //           up to the reference's caps; flags[i] != 0 says round i-1
 //           changed something, so a converged launch returns at once and
@@ -45,12 +34,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lines.cuh"
+
 #define NOFF 9
-#define FULL 0xffffffffu
 #define SEED_THREADS 256
-#define LINE_WARPS 8
-#define POS_INF (1 << 30)
-#define PACK_NONE (-(1 << 30))
 
 __device__ __forceinline__ int window_code(int l, int y, int x, int gw,
                                            int step) {
@@ -145,36 +132,9 @@ __global__ void reach0_kernel(const int* __restrict__ labels,
     reached[i] = (!nan && d2[i] <= __fadd_rn(own, 1e-3f)) ? 1 : 0;
 }
 
-__device__ __forceinline__ int scan_max_up(int v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_up_sync(FULL, v, d);
-        if (lane >= d) v = max(v, o);
-    }
-    return v;
-}
-
-__device__ __forceinline__ int scan_min_down(int v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_down_sync(FULL, v, d);
-        if (lane + d < 32) v = min(v, o);
-    }
-    return v;
-}
-
-__device__ __forceinline__ int scan_max_down(int v, int lane) {
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-        const int o = __shfl_down_sync(FULL, v, d);
-        if (lane + d < 32) v = max(v, o);
-    }
-    return v;
-}
-
 // Reach (ABSORB false) or absorb (ABSORB true) along every line, forward
-// then reverse.  Lines are rows (rows = 1: line = y, pos = x) or columns
-// (rows = 0: line = x, pos = y).
+// then reverse; a launch returns at once when flag_in says the previous
+// sweep or round changed nothing.
 template <bool ABSORB>
 __global__ void __launch_bounds__(LINE_WARPS * 32)
 line_pass_kernel(int* __restrict__ labels, uint8_t* __restrict__ reached,
@@ -182,91 +142,12 @@ line_pass_kernel(int* __restrict__ labels, uint8_t* __restrict__ reached,
                  int n_lines, int len, int line_stride, int elem_stride,
                  int rows, int gw, int step, int pack) {
     if (flag_in != nullptr && *(volatile const int*)flag_in == 0) return;
-    const int lane = threadIdx.x & 31;
     const int line = blockIdx.x * LINE_WARPS + (threadIdx.x >> 5);
     if (line >= n_lines) return;                 // uniform across the warp
-    int* lab = labels + (size_t)line * line_stride;
-    uint8_t* rch = reached + (size_t)line * line_stride;
-    const int nseg = (len + 31) / 32;
-    bool changed = false;
-
-    // forward
-    int carry_a = ABSORB ? PACK_NONE : -POS_INF, carry_b = -POS_INF;
-    int prev_last = -9;
-    for (int seg = 0; seg < nseg; ++seg) {
-        const int pos = seg * 32 + lane;
-        const bool in = pos < len;
-        const size_t at = (size_t)pos * elem_stride;
-        const int l = in ? lab[at] : -9;
-        const bool r = in && rch[at];
-        if (ABSORB) {
-            const int packed = r ? pos * pack + l : PACK_NONE;
-            const int near = max(carry_a, scan_max_up(packed, lane));
-            if (in && !r && near > PACK_NONE / 2) {
-                const int dl = near & (pack - 1);
-                const int y = rows ? line : pos, x = rows ? pos : line;
-                if (abs(dl / gw - y / step) <= 1 && abs(dl % gw - x / step) <= 1) {
-                    lab[at] = dl;
-                    rch[at] = 1;
-                    changed = true;
-                }
-            }
-            carry_a = __shfl_sync(FULL, near, 31);
-        } else {
-            int prev = __shfl_up_sync(FULL, l, 1);
-            if (lane == 0) prev = prev_last;
-            const int m = max(carry_a, scan_max_up(r ? pos : -POS_INF, lane));
-            const int s = max(carry_b, scan_max_up(
-                (in && l != prev) ? pos : -POS_INF, lane));
-            if (in && !r && m >= s) {
-                rch[at] = 1;
-                changed = true;
-            }
-            carry_a = __shfl_sync(FULL, m, 31);
-            carry_b = __shfl_sync(FULL, s, 31);
-            prev_last = __shfl_sync(FULL, l, 31);
-        }
-    }
-
-    // reverse (each lane revisits its own pixels)
-    carry_a = ABSORB ? PACK_NONE : POS_INF;
-    carry_b = POS_INF;
-    int next_first = -9;
-    for (int seg = nseg - 1; seg >= 0; --seg) {
-        const int pos = seg * 32 + lane;
-        const bool in = pos < len;
-        const size_t at = (size_t)pos * elem_stride;
-        const int l = in ? lab[at] : -9;
-        const bool r = in && rch[at];
-        if (ABSORB) {
-            const int packed = r ? -pos * pack + l : PACK_NONE;
-            const int near = max(carry_a, scan_max_down(packed, lane));
-            if (in && !r && near > PACK_NONE / 2) {
-                const int dl = near & (pack - 1);
-                const int y = rows ? line : pos, x = rows ? pos : line;
-                if (abs(dl / gw - y / step) <= 1 && abs(dl % gw - x / step) <= 1) {
-                    lab[at] = dl;
-                    rch[at] = 1;
-                    changed = true;
-                }
-            }
-            carry_a = __shfl_sync(FULL, near, 0);
-        } else {
-            int next = __shfl_down_sync(FULL, l, 1);
-            if (lane == 31) next = next_first;
-            const int m = min(carry_a, scan_min_down(r ? pos : POS_INF, lane));
-            const int e = min(carry_b, scan_min_down(
-                (in && l != next) ? pos : POS_INF, lane));
-            if (in && !r && m <= e) {
-                rch[at] = 1;
-                changed = true;
-            }
-            carry_a = __shfl_sync(FULL, m, 0);
-            carry_b = __shfl_sync(FULL, e, 0);
-            next_first = __shfl_sync(FULL, l, 0);
-        }
-    }
-    if (__any_sync(FULL, changed) && lane == 0) *flag_out = 1;
+    if (line_pass<ABSORB>(labels, reached, line, len, line_stride,
+                          elem_stride, rows, gw, step, pack)
+            && (threadIdx.x & 31) == 0)
+        *flag_out = 1;
 }
 
 template <bool ABSORB>
@@ -284,6 +165,31 @@ static void launch_sweep(int* labels, uint8_t* reached, const int* flag_in,
         step, pack);
 }
 
+// The anchor seed: d2, the per-tile minima, the per-seed minima and the
+// reached plane: three kernels on one stream.
+static void launch_seed(const float* centers, const int* lab, uint8_t* rch,
+                        float* d2, float* tile_min, float* d2min, int height,
+                        int width, int gh, int gw, int step, cudaStream_t st) {
+    const int k = gh * gw;
+    const size_t n = (size_t)height * width;
+    seed_tile_min_kernel<<<dim3(gw, gh), SEED_THREADS, 0, st>>>(
+        centers, lab, d2, tile_min, height, width, gh, gw, step);
+    seed_min_kernel<<<(k + 127) / 128, 128, 0, st>>>(tile_min, d2min, gh, gw);
+    reach0_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        lab, d2, d2min, rch, height, width, gh, gw, step);
+}
+
+// The anchor seed alone (the seed of rows 13 and 14): reached (H, W) u8.
+extern "C" int anchor_seed(const void* centers, const void* labels,
+                           void* reached, void* d2, void* tile_min,
+                           void* d2min, int height, int width, int gh, int gw,
+                           int step, void* stream) {
+    launch_seed((const float*)centers, (const int*)labels, (uint8_t*)reached,
+                (float*)d2, (float*)tile_min, (float*)d2min, height, width,
+                gh, gw, step, (cudaStream_t)stream);
+    return (int)cudaGetLastError();
+}
+
 // labels is enforced in place.  flags holds max_sweeps + 1 + n_rounds + 1
 // zeroed ints.
 extern "C" int enforce_fused(const void* centers, void* labels, void* reached,
@@ -295,16 +201,9 @@ extern "C" int enforce_fused(const void* centers, void* labels, void* reached,
     int* lab = (int*)labels;
     uint8_t* rch = (uint8_t*)reached;
     int* fl = (int*)flags;
-    const int k = gh * gw;
-    const size_t n = (size_t)height * width;
-    seed_tile_min_kernel<<<dim3(gw, gh), SEED_THREADS, 0, st>>>(
-        (const float*)centers, lab, (float*)d2, (float*)tile_min, height,
-        width, gh, gw, step);
-    seed_min_kernel<<<(k + 127) / 128, 128, 0, st>>>(
-        (const float*)tile_min, (float*)d2min, gh, gw);
-    reach0_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        lab, (const float*)d2, (const float*)d2min, rch, height, width, gh,
-        gw, step);
+    launch_seed((const float*)centers, lab, rch, (float*)d2,
+                (float*)tile_min, (float*)d2min, height, width, gh, gw, step,
+                st);
     for (int s = 0; s < max_sweeps; ++s)
         launch_sweep<false>(lab, rch, s == 0 ? nullptr : fl + s, fl + s + 1,
                             height, width, gw, step, pack, st);

@@ -15,8 +15,10 @@
 //     (tile, offset, channel), and the tile's pixel count per offset;
 //   grid_moments_apply_pallas (_moments_apply_kernel): donor[label] applied
 //     where the donor seed lies in the pixel's 3x3 window, then per-(tile,
-//     offset) sums of [f, f^2, 1, y, x] over the merged labels; without a
-//     donor table the same kernel is grid_moments_pallas (_moments_kernel).
+//     offset) sums of [f, f^2, 1, y, x] over the merged labels, F = 3;
+//   grid_moments_pallas (_moments_kernel): the same sums without a donor
+//     table, for any F (the texture batteries reduce F = 18 or 60), as the
+//     reduce below over the virtual channels [f, f^2, 1, y, x].
 // The plain twins are in pyimsegm_tpu_torch/ops/grid_cuda.py.
 //
 // Bound: device memory.  The lookup reads 4 B of label and writes 4*C B per
@@ -40,7 +42,12 @@
 // chunk; F is 1-40 on the paths) and keeps 9 x 8 register sums per thread,
 // reduced in the same fixed order; a second tiny kernel, one thread per
 // (seed, channel), routes the 9 partials to their seeds in the order of
-// combine_sums, so the call is two launches and no torch routing.  The TPU kernels' selector
+// combine_sums, so the call is two launches and no torch routing.  The
+// donor-less moments (row 7) are that reduce over the 2F + 3 virtual
+// channels [f, f^2, 1, y, x], made per pixel as a chunk reads them, so the
+// stacked (H, W, 2F+3) tensor never exists in device memory; each chunk
+// reads the features it needs again (about twice 4F B per pixel in all,
+// F = 3, 18 or 60 on the paths).  The TPU kernels' selector
 // matmuls, lo/hi field packing and OR trees exist only for the TPU and are
 // not carried over.
 // Labels below 0 (the -2 of the image edge and the pad) are tested before any
@@ -165,12 +172,12 @@ grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
         counts9[tile * NOFF + threadIdx.x] = (float)cnt[threadIdx.x];
 }
 
-// donor == nullptr: the reduce alone over labels (merged is not written).
+// The donor apply + moments of row 8 (F = 3).
 __global__ void __launch_bounds__(MOM_THREADS)
 grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
                     const int* __restrict__ labels,    // (H, W)
-                    const int* __restrict__ donor,     // (K,) or null
-                    int* __restrict__ merged,          // (H, W) or null
+                    const int* __restrict__ donor,     // (K,)
+                    int* __restrict__ merged,          // (H, W)
                     float* __restrict__ partials,      // (gh, gw, 9, 9)
                     int height, int width, int gh, int gw, int step) {
     __shared__ float red[MOM_THREADS / 32][NOFF * MOM_CH];
@@ -188,7 +195,7 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
         if (y >= height || x >= width) continue;
         const size_t idx = (size_t)y * width + x;
         int l = labels[idx];
-        if (donor != nullptr) {
+        {
             const int o = offset_code(l, y, x, gw, step);
             const int nl = (o >= 0 && l < k) ? donor[l] : -1;
             if (nl >= 0 && abs(nl / gw - ty) <= 1 && abs(nl % gw - tx) <= 1)
@@ -240,15 +247,42 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// Per-(tile, offset) sums of (H, W, F) data, F channels in chunks of
-// RED_CHUNK: 9 x RED_CHUNK register sums per thread, warp shuffles, then a
-// fixed-order sum across warps.  Pixels whose label is negative or outside
-// their 3x3 window add nothing.
+// Channel c of pixel idx of (H, W, F) data.
 template <typename T>
+struct DataChannels {
+    const T* __restrict__ data;
+    int f;
+    __device__ __forceinline__ float operator()(size_t idx, int c, int,
+                                                int) const {
+        return to_f32(data[idx * f + c]);
+    }
+};
+
+// Virtual channel c of [f, f^2, 1, y, x] of (H, W, F) f32 features: the
+// squares rounded on their own, as the twin's feat * feat.
+struct MomentChannels {
+    const float* __restrict__ feat;
+    int f;
+    __device__ __forceinline__ float operator()(size_t idx, int c, int y,
+                                                int x) const {
+        if (c < f) return feat[idx * f + c];
+        if (c < 2 * f) {
+            const float v = feat[idx * f + c - f];
+            return __fmul_rn(v, v);
+        }
+        return c == 2 * f ? 1.0f : c == 2 * f + 1 ? (float)y : (float)x;
+    }
+};
+
+// Per-(tile, offset) sums of nch channels, in chunks of RED_CHUNK: 9 x
+// RED_CHUNK register sums per thread, warp shuffles, then a fixed-order sum
+// across warps.  Pixels whose label is negative or outside their 3x3 window
+// add nothing.
+template <typename Src>
 __global__ void __launch_bounds__(RED_THREADS)
-grid_reduce_kernel(const T* __restrict__ data,          // (H, W, F)
+grid_reduce_kernel(Src src,
                    const int* __restrict__ labels,      // (H, W)
-                   float* __restrict__ partials,        // (gh, gw, 9, F)
+                   float* __restrict__ partials,        // (gh, gw, 9, nch)
                    int height, int width, int f, int gw, int step) {
     __shared__ float red[RED_THREADS / 32][NOFF * RED_CHUNK];
     const int tx = blockIdx.x, ty = blockIdx.y;
@@ -269,7 +303,7 @@ grid_reduce_kernel(const T* __restrict__ data,          // (H, W, F)
             float v[RED_CHUNK];
 #pragma unroll
             for (int c = 0; c < RED_CHUNK; ++c)
-                v[c] = c0 + c < f ? to_f32(data[idx * f + c0 + c]) : 0.0f;
+                v[c] = c0 + c < f ? src(idx, c0 + c, y, x) : 0.0f;
 #pragma unroll
             for (int oi = 0; oi < NOFF; ++oi) {
                 if (oi == o) {
@@ -350,6 +384,16 @@ extern "C" int grid_pair_count(const void* labels, void* cnt9, void* counts9,
     return (int)cudaGetLastError();
 }
 
+static int route(const void* partials, void* out, int gh, int gw, int f,
+                 cudaStream_t st) {
+    int err = (int)cudaGetLastError();
+    if (err) return err;
+    size_t n = (size_t)gh * gw * f;
+    grid_route_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        (const float*)partials, (float*)out, gh, gw, f);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int grid_reduce(const void* data, const void* labels,
                            void* partials, void* out, int height, int width,
                            int f, int gh, int gw, int step, int bf16,
@@ -357,19 +401,27 @@ extern "C" int grid_reduce(const void* data, const void* labels,
     dim3 grid(gw, gh);
     cudaStream_t st = (cudaStream_t)stream;
     if (bf16)
-        grid_reduce_kernel<__nv_bfloat16><<<grid, RED_THREADS, 0, st>>>(
-            (const __nv_bfloat16*)data, (const int*)labels, (float*)partials,
-            height, width, f, gw, step);
+        grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
+            DataChannels<__nv_bfloat16>{(const __nv_bfloat16*)data, f},
+            (const int*)labels, (float*)partials, height, width, f, gw, step);
     else
-        grid_reduce_kernel<float><<<grid, RED_THREADS, 0, st>>>(
-            (const float*)data, (const int*)labels, (float*)partials, height,
-            width, f, gw, step);
-    int err = (int)cudaGetLastError();
-    if (err) return err;
-    size_t n = (size_t)gh * gw * f;
-    grid_route_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        (const float*)partials, (float*)out, gh, gw, f);
-    return (int)cudaGetLastError();
+        grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
+            DataChannels<float>{(const float*)data, f}, (const int*)labels,
+            (float*)partials, height, width, f, gw, step);
+    return route(partials, out, gh, gw, f, st);
+}
+
+// Row 7: (K, 2F+3) sums of [f, f^2, 1, y, x] for any F.
+extern "C" int grid_moments(const void* feat, const void* labels,
+                            void* partials, void* out, int height, int width,
+                            int f, int gh, int gw, int step, void* stream) {
+    dim3 grid(gw, gh);
+    cudaStream_t st = (cudaStream_t)stream;
+    const int nch = 2 * f + 3;
+    grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
+        MomentChannels{(const float*)feat, f}, (const int*)labels,
+        (float*)partials, height, width, nch, gw, step);
+    return route(partials, out, gh, gw, nch, st);
 }
 
 extern "C" int grid_moments_apply(const void* feat, const void* labels,

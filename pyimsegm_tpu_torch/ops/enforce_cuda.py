@@ -35,9 +35,10 @@ from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 #: reach sweep cap of the reference (``connectivity_pallas.MAX_SWEEPS``)
 MAX_SWEEPS = 8
-#: kernel launches in this process (one per call: the C entry point runs
-#: the seed, the reach sweeps and the absorb rounds on one stream)
-LAUNCHES = {'enforce_fused': 0}
+#: kernel launches in this process (one per call: the C entry point of
+#: ``enforce_fused`` runs the seed, the reach sweeps and the absorb rounds on
+#: one stream; that of ``anchor_seed`` the seed alone, for rows 13 and 14)
+LAUNCHES = {'enforce_fused': 0, 'anchor_seed': 0}
 
 _INF = 2 ** 30
 _NONE = -2 ** 30
@@ -47,6 +48,7 @@ def _lib():
     v, i = _build.VOIDP, _build.INT
     return _build.load('enforce', {
         'enforce_fused': [v] * 7 + [i] * 8 + [v],
+        'anchor_seed': [v] * 6 + [i] * 5 + [v],
     })
 
 
@@ -83,7 +85,7 @@ def _lookup_onehot(table, labels, cfg: SlicConfig):
     return out
 
 
-def _anchor_seed(labels, centers, cfg: SlicConfig):
+def _anchor_seed_plain(labels, centers, cfg: SlicConfig):
     h, w = labels.shape
     py = torch.arange(h, dtype=torch.float32, device=labels.device)[:, None]
     px = torch.arange(w, dtype=torch.float32, device=labels.device)[None, :]
@@ -178,11 +180,43 @@ def _absorb_unreached(labels, reached, cfg: SlicConfig):
 
 
 def _enforce_fused_plain(labels, centers, cfg: SlicConfig):
-    reached0 = _anchor_seed(labels, centers, cfg)
+    reached0 = _anchor_seed_plain(labels, centers, cfg)
     return _connect_components(labels, reached0, cfg)
 
 
-# ----------------------------------------------------------------- kernel ---
+# ---------------------------------------------------------------- kernels ---
+
+def anchor_seed(labels, centers, cfg: SlicConfig):
+    """The anchor seed alone (step 1 above): the seed of the wide-image
+    route (``ops/connectivity_cuda.py``), the same kernels as the seed of
+    :func:`enforce_fused`, so both routes start from the same anchors.
+
+    :param labels: (H, W) int32 grid-structured SLIC labels
+    :param centers: (K, 2) f32 centroids in (y, x)
+    :returns: (H, W) reached plane: bool on the CPU, uint8 on the card
+    """
+    if not labels.is_cuda:
+        return _anchor_seed_plain(labels, centers, cfg)
+    h, w = labels.shape
+    gh, gw = cfg.grid_h, cfg.grid_w
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    centers = _build.require(centers.to(torch.float32).contiguous(),
+                             'centers', torch.float32, (cfg.n_segments, 2))
+    dev = labels.device
+    reached = torch.empty((h, w), dtype=torch.uint8, device=dev)
+    d2 = torch.empty((h, w), dtype=torch.float32, device=dev)
+    tile_min = torch.empty((gh, gw, 9), dtype=torch.float32, device=dev)
+    d2min = torch.empty((cfg.n_segments,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().anchor_seed(
+            centers.data_ptr(), labels.data_ptr(), reached.data_ptr(),
+            d2.data_ptr(), tile_min.data_ptr(), d2min.data_ptr(), h, w, gh,
+            gw, cfg.step, _build.stream_ptr(labels))
+    _build.check(err, 'anchor_seed')
+    LAUNCHES['anchor_seed'] += 1
+    return reached
+
 
 def enforce_fused(labels, centers, cfg: SlicConfig):
     """Anchor seed + reach + absorb: every superpixel becomes one

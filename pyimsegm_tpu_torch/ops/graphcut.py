@@ -163,7 +163,10 @@ def segment_graph_cut_general(labels, proba, num_segments, image=None,
         csum = grid_ops.grid_segment_sum(torch.cat([img, ones], -1),
                                          labels2d, cfg)
         mean_color = csum[:, :-1] / torch.clamp_min(csum[:, -1:], 1.0)
-    wgrid = grid_ops.grid_edge_weights(
-        labels2d, cfg, proba=proba, features=features, mean_color=mean_color,
-        edge_type=edge_type, centers=centers) * edge_cost
-    return grid_ops.solve_mrf_grid(unary, wgrid, pairwise, cfg)
+    with stage_range('edges'):
+        wgrid = grid_ops.grid_edge_weights(
+            labels2d, cfg, proba=proba, features=features,
+            mean_color=mean_color, edge_type=edge_type,
+            centers=centers) * edge_cost
+    with stage_range('mrf'):
+        return grid_ops.solve_mrf_grid(unary, wgrid, pairwise, cfg)

@@ -7,10 +7,12 @@ sums are masked tile sums routed by 9 grid shifts, and superpixel adjacency
 fits a dense (gh, gw, 25) tensor of relative seed offsets in [-2, 2]^2.
 
 The pixel-scale passes run through ``ops/grid_cuda.py`` (segment sums,
-lookup, adjacency, pair counts, moments with the donor apply) and
-``ops/enforce_cuda.py`` (anchor seed + reach + absorb): a CUDA kernel for a
-CUDA tensor, the plain twin for a CPU tensor.  The (K,)-sized donor tables
-are plain PyTorch on the tensor's device, with no host synchronisation.
+lookup, adjacency, pair counts, moments with the donor apply),
+``ops/enforce_cuda.py`` (anchor seed + reach + absorb) and
+``ops/connectivity_cuda.py`` (reach + absorb of wide images): a CUDA
+kernel for a CUDA tensor, the plain twin for a CPU tensor.  The (K,)-sized
+donor tables are plain PyTorch on the tensor's device, with no host
+synchronisation.
 """
 
 import torch
@@ -283,15 +285,31 @@ def solve_mrf_grid(unary, wgrid, pairwise, cfg: SlicConfig, n_mf_iters=30,
 
 # --------------------------- connectivity enforcement + min-size merge ---
 
+def _enforce_route(cfg: SlicConfig):
+    """The reference's route for this geometry: ``'fused'`` (row 12, seed +
+    reach + absorb in one kernel) where its band fits, else the anchor seed
+    and ``'rafused'`` (row 14, reach + absorb in one launch) or ``'two'``
+    (row 13, two launches; also where the reference falls back to its XLA
+    scans)."""
+    from pyimsegm_tpu_torch.ops import connectivity_cuda as cc
+    if cc.fused_fits(cfg):
+        return 'fused'
+    return 'rafused' if cc.fused_ra_fits(cfg) else 'two'
+
+
 def enforce_grid_connectivity(labels, cfg: SlicConfig, min_size=None,
                               centers=None):
     """Make every superpixel a single 4-connected region.
 
     Anchor each superpixel at its pixels nearest its centroid, reach from
     the anchors through same-label runs, let unreached pixels take the label
-    of their nearest reached neighbour inside their 3x3 seed window
-    (:func:`pyimsegm_tpu_torch.ops.enforce_cuda.enforce_fused`), then
+    of their nearest reached neighbour inside their 3x3 seed window, then
     optionally merge superpixels below ``min_size`` (:func:`min_size_merge`).
+    The route follows the image width as the reference's does
+    (:func:`_enforce_route`): :func:`pyimsegm_tpu_torch.ops.enforce_cuda.
+    enforce_fused`, or :func:`~pyimsegm_tpu_torch.ops.enforce_cuda.
+    anchor_seed` and then :mod:`pyimsegm_tpu_torch.ops.connectivity_cuda`;
+    every route gives the same labels.
 
     :param labels: (H, W) int32 grid-structured SLIC labels
     :param min_size: merge superpixels with fewer pixels into a neighbour
@@ -299,7 +317,7 @@ def enforce_grid_connectivity(labels, cfg: SlicConfig, min_size=None,
         labels when not given
     :returns: (H, W) int32 labels, connected per superpixel
     """
-    from pyimsegm_tpu_torch.ops import enforce_cuda
+    from pyimsegm_tpu_torch.ops import connectivity_cuda, enforce_cuda
     labels = labels.to(torch.int32).contiguous()
     if centers is None:
         h, w = labels.shape
@@ -309,7 +327,14 @@ def enforce_grid_connectivity(labels, cfg: SlicConfig, min_size=None,
         cyx = sums[:, 7:9] / torch.clamp_min(sums[:, 6:7], 1.0)
     else:
         cyx = centers.to(torch.float32)
-    labels = enforce_cuda.enforce_fused(labels, cyx, cfg)
+    route = _enforce_route(cfg)
+    if route == 'fused':
+        labels = enforce_cuda.enforce_fused(labels, cyx, cfg)
+    else:
+        reached0 = enforce_cuda.anchor_seed(labels, cyx, cfg)
+        connect = (connectivity_cuda.reach_absorb_fused if route == 'rafused'
+                   else connectivity_cuda.reach_absorb)
+        labels = connect(labels, reached0, cfg)
     if min_size:
         labels = min_size_merge(labels, cfg, min_size)
     return labels

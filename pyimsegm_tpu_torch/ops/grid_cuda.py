@@ -28,6 +28,7 @@ def _lib():
         'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
         'grid_pair_count': [v, v, v] + [i] * 5 + [v],
         'grid_moments_apply': [v] * 5 + [i] * 5 + [v],
+        'grid_moments': [v] * 4 + [i] * 6 + [v],
     })
 
 
@@ -309,7 +310,12 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
     merged labels in one pass; with ``donor=None`` only the reduce (the
     replacement of ``grid_moments_pallas``).
 
-    :param feat: (H, W, F) float feature image (F = 3 on CUDA)
+    On the card the donor apply (row 8, ``grid_moments_apply_pallas``) takes
+    F = 3, the colour image of the fused branch, its only caller; the
+    donor-less reduce (row 7) takes any F >= 1, as the texture batteries
+    need (F = 18 or 60).
+
+    :param feat: (H, W, F) float feature image
     :param labels: (H, W) int32 enforced (pre-merge) labels
     :param donor: (K,) integer merge targets, or None
     :returns: (merged labels (H, W) int32, sums (K, 2F+3) f32 =
@@ -318,26 +324,38 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
     if not labels.is_cuda:
         return _grid_moments_apply_plain(feat, labels, donor, cfg)
     h, w = labels.shape
+    f = feat.shape[-1]
     labels = _build.require(labels.contiguous(), 'labels', torch.int32,
                             (cfg.height, cfg.width))
     feat = _build.require(feat.to(torch.float32).contiguous(), 'feat',
-                          torch.float32, (h, w, 3))
+                          torch.float32, (h, w, 3 if donor is not None else f))
     dev = labels.device
+    if donor is None:
+        if f < 1:
+            raise ValueError('feat must have at least one channel')
+        nch = 2 * f + 3
+        partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, nch),
+                               dtype=torch.float32, device=dev)
+        out = torch.empty((cfg.n_segments, nch), dtype=torch.float32,
+                          device=dev)
+        with torch.cuda.device(dev):
+            err = _lib().grid_moments(
+                feat.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+                out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
+                _build.stream_ptr(labels))
+        _build.check(err, 'grid_moments')
+        LAUNCHES['grid_moments'] += 1
+        return labels, out
     partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, 9),
                            dtype=torch.float32, device=dev)
-    merged = labels
-    donor_ptr = None
-    if donor is not None:
-        donor = _build.require(donor.to(torch.int32).contiguous(), 'donor',
-                               torch.int32, (cfg.n_segments,))
-        merged = torch.empty_like(labels)
-        donor_ptr = donor.data_ptr()
+    donor = _build.require(donor.to(torch.int32).contiguous(), 'donor',
+                           torch.int32, (cfg.n_segments,))
+    merged = torch.empty_like(labels)
     with torch.cuda.device(dev):
         err = _lib().grid_moments_apply(
-            feat.data_ptr(), labels.data_ptr(), donor_ptr,
-            merged.data_ptr() if donor is not None else None,
-            partials.data_ptr(), h, w, cfg.grid_h, cfg.grid_w, cfg.step,
-            _build.stream_ptr(labels))
+            feat.data_ptr(), labels.data_ptr(), donor.data_ptr(),
+            merged.data_ptr(), partials.data_ptr(), h, w, cfg.grid_h,
+            cfg.grid_w, cfg.step, _build.stream_ptr(labels))
     _build.check(err, 'grid_moments_apply')
-    LAUNCHES['grid_moments' if donor is None else 'grid_moments_apply'] += 1
+    LAUNCHES['grid_moments_apply'] += 1
     return merged, _route_moments(partials)

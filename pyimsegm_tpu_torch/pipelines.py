@@ -5,7 +5,9 @@
 * :func:`estim_model_classes_group` — fit one class model over a group of
   images;
 * :func:`segment_color2d_slic_features_model_graphcut` — segment with a
-  fitted model;
+  fitted class model or a trained classifier;
+* :func:`train_classif_color2d_slic_features` — train a classifier on the
+  superpixels of annotated images (BASELINE config 2);
 * :func:`compute_color2d_superpixels_features` — SLIC + features;
 * :func:`pipe_gray3d_slic_features_model_graphcut` — unsupervised gray
   volume: 3D SLIC, gray features, a class model fitted on the volume, MRF
@@ -15,15 +17,19 @@ A tensor image runs on its own device; a numpy image on the ``device``
 keyword (``'cuda'`` by default; with no card the call raises, and
 ``device='cpu'`` runs the plain PyTorch path).  Features are any colour
 spec (``'color'`` or ``'color_<space>'`` keys, any of mean / std / energy /
-median / meanGrad); SLICO and ``connectivity`` on or off are ported.  The
-texture keys, classifiers and ``sp_compat`` raise ``NotImplementedError``
-naming the slice of ROADMAP.md that brings them.
+median / meanGrad) and the texture keys ``tLM[_short]``, ``tGabor`` and
+``tLBP``; the classifiers are ``RandForest`` and ``DecTree``
+(:mod:`pyimsegm_tpu_torch.classification`); SLICO and ``connectivity`` on
+or off are ported.  ``sp_compat``, the other classifiers and models that are
+neither a :class:`ClassModel` nor a :class:`Classifier` raise
+``NotImplementedError`` naming the item of ROADMAP.md that brings them.
 """
 
 import numpy as np
 import torch
 
 from pyimsegm_tpu_torch import descriptors
+from pyimsegm_tpu_torch.classification import Classifier
 from pyimsegm_tpu_torch.models.class_model import (ClassModel,
                                                    estim_class_model)
 from pyimsegm_tpu_torch.ops import color as color_ops
@@ -36,6 +42,8 @@ from pyimsegm_tpu_torch.ops.grid import grid_lookup
 from pyimsegm_tpu_torch.utils.device import as_tensor, stage_range
 
 _MOMENT_FLAGS = ('mean', 'std', 'energy')
+#: images held out per CV fold of the classifier search
+CROSS_VAL_LEAVE_OUT = 2
 
 
 def _features_spec(dict_features):
@@ -104,18 +112,23 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
             msums = sums[:, :6]
         return labels, _moment_features(msums, counts, flags), counts, centers
     if connectivity or slico:
-        labels = slic_ops.slic_segment(image, cfg, compactness, n_iter=n_iter,
-                                       slico=slico)
+        with stage_range('slic'):
+            labels = slic_ops.slic_segment(image, cfg, compactness,
+                                           n_iter=n_iter, slico=slico)
         if connectivity:
-            labels = grid_ops.enforce_grid_connectivity(labels, cfg,
-                                                        min_size=min_size)
-        counts, centers = _grid_geometry(labels, cfg)
+            with stage_range('enforce'):
+                labels = grid_ops.enforce_grid_connectivity(
+                    labels, cfg, min_size=min_size)
+        with stage_range('geometry'):
+            counts, centers = _grid_geometry(labels, cfg)
     else:
-        labels, counts, centers = slic_ops.slic_segment_with_geometry(
-            image, cfg, compactness, n_iter=n_iter)
-    features, _ = descriptors.compute_selected_features_img2d(
-        image.to(torch.float32), labels.reshape(-1), cfg.n_segments,
-        dict(feats_spec), grid_ctx=(labels, cfg))
+        with stage_range('slic'):
+            labels, counts, centers = slic_ops.slic_segment_with_geometry(
+                image, cfg, compactness, n_iter=n_iter)
+    with stage_range('features'):
+        features, _ = descriptors.compute_selected_features_img2d(
+            image.to(torch.float32), labels.reshape(-1), cfg.n_segments,
+            dict(feats_spec), grid_ctx=(labels, cfg))
     return labels, features, counts, centers
 
 
@@ -132,6 +145,26 @@ def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
         grid_ctx=(labels, cfg), centers=centers)
     segm = grid_lookup(graph_labels, labels, cfg)
     return segm, segm_soft, labels, proba, graph_labels
+
+
+def _segment_with_classif_core(image, classif, *, cfg, feats_spec, gc_regul,
+                               gc_edge_type, compactness, connectivity=True):
+    """SLIC -> features (texture banks included) -> classifier predict ->
+    MRF, all on the image's device; the ``pyimsegm:<stage>`` ranges
+    (``utils.device.stage_range``) split it for a profiler.
+
+    :returns: (labels (H, W) i32, features (K, F), proba (K, C),
+        graph_labels (K,))
+    """
+    labels, features, _counts, centers = _slic_features_core(
+        image, cfg, feats_spec, compactness, connectivity=connectivity)
+    with stage_range('predict_proba'):
+        proba = classif.predict_proba(torch.nan_to_num(features))
+    graph_labels = graphcut.segment_graph_cut_general(
+        labels, proba, cfg.n_segments, image=image.to(torch.float32),
+        features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
+        grid_ctx=(labels, cfg), centers=centers)
+    return labels, features, proba, graph_labels
 
 
 def _pipe_unsup_core(image, *, cfg, feats_spec, nb_classes, estim_model,
@@ -155,6 +188,8 @@ def _pipe_unsup_core(image, *, cfg, feats_spec, nb_classes, estim_model,
 
 
 def _model_device(model):
+    if isinstance(model, Classifier):
+        return model.device
     return next(iter(model.buffers())).device
 
 
@@ -174,9 +209,10 @@ def _fetch_reconstruct(labels, proba, graph_labels, cfg):
 def _to_model_device(image, model):
     """The image as a tensor on the model's device (a numpy image is moved
     there; a tensor image must already be there)."""
-    if not isinstance(model, ClassModel):
-        raise NotImplementedError('classifiers come with the supervised '
-                                  'slice (ROADMAP.md)')
+    if not isinstance(model, (ClassModel, Classifier)):
+        raise NotImplementedError(
+            'models other than a ClassModel or a RandForest / DecTree '
+            'Classifier come with ROADMAP.md item 6')
     device = _model_device(model)
     if isinstance(image, torch.Tensor) and image.device != device:
         raise ValueError('image on %s, model on %s' % (image.device, device))
@@ -189,18 +225,25 @@ def segment_color2d_slic_features_model_graphcut(
         sp_compat=False, connectivity=True):
     """Segment one image with a fitted model.
 
-    The work runs on the device of ``model_pipeline``; a numpy image is
-    moved there, a tensor image must already be there.
+    The work runs on the device of ``model_pipeline``, a :class:`ClassModel`
+    or a trained :class:`Classifier`; a numpy image is moved there, a tensor
+    image must already be there.  A classifier's result is relabelled by its
+    ``classes_``.
 
     :param image: (H, W, 3) float image, numpy or tensor
-    :returns: (segm (H, W) int32 ndarray, segm_soft (H, W, C) ndarray)
+    :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) ndarray)
     """
     if sp_compat:
         raise NotImplementedError('sp_compat (skimage-compat SLIC) comes '
                                   'with the RG2Sp slice (ROADMAP.md)')
-    image = _to_model_device(image, model_pipeline)
+    with stage_range('upload'):
+        image = _to_model_device(image, model_pipeline)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    if isinstance(model_pipeline, Classifier):
+        return _segment_classif(image, model_pipeline, cfg, m, dict_features,
+                                gc_regul, gc_edge_type, connectivity,
+                                debug_visual)
     segm, segm_soft, labels, proba, graph_labels = _segment_with_model_core(
         image, model_pipeline, cfg=cfg,
         feats_spec=_features_spec(dict_features), gc_regul=float(gc_regul),
@@ -212,6 +255,31 @@ def segment_color2d_slic_features_model_graphcut(
         return _fetch_reconstruct(labels, proba, graph_labels, cfg)
     # raw labels may hold out-of-window pixels: the device lookup holds
     return segm.cpu().numpy(), segm_soft.cpu().numpy()
+
+
+def _segment_classif(image, classif, cfg, compactness, dict_features,
+                     gc_regul, gc_edge_type, connectivity, debug_visual):
+    labels, features, proba, graph_labels = _segment_with_classif_core(
+        image, classif, cfg=cfg, feats_spec=_features_spec(dict_features),
+        gc_regul=float(gc_regul), gc_edge_type=gc_edge_type,
+        compactness=compactness, connectivity=connectivity)
+    with stage_range('fetch'):
+        if connectivity:
+            segm_dense, segm_soft = _fetch_reconstruct(labels, proba,
+                                                       graph_labels, cfg)
+        else:
+            # raw labels may hold out-of-window pixels: one device lookup
+            # of [graph label, proba]
+            up = grid_lookup(torch.cat(
+                [graph_labels[:, None].to(torch.float32), proba], dim=-1),
+                labels, cfg).cpu().numpy()
+            segm_dense = up[..., 0].astype(np.int64)
+            segm_soft = up[..., 1:]
+        if debug_visual is not None:
+            debug_visual['slic'] = labels.cpu().numpy()
+            debug_visual['features'] = features.cpu().numpy()
+            debug_visual['proba'] = proba.cpu().numpy()
+    return np.asarray(classif.classes_)[segm_dense], segm_soft
 
 
 def compute_color2d_superpixels_features(image, dict_features, sp_size=30,
@@ -358,3 +426,73 @@ def pipe_gray3d_slic_features_model_graphcut(
     with stage_range('fetch'):
         small = segm.to(torch.uint8) if nb_classes <= 0xff else segm
         return small.cpu().numpy().astype(np.int64)
+
+
+def train_classif_color2d_slic_features(list_images, list_annots,
+                                        dict_features, sp_size=30,
+                                        sp_regul=0.2, clf_name='RandForest',
+                                        label_purity=0.9,
+                                        feature_balance='unique',
+                                        pca_coef=None, nb_classif_search=1,
+                                        nb_hold_out=CROSS_VAL_LEAVE_OUT,
+                                        seed=0, device='cuda'):
+    """Supervised training over annotated images: each superpixel takes the
+    annotation label that covers at least ``label_purity`` of it (else it is
+    dropped), the dataset is balanced, and a classifier is searched and
+    fitted on ``device`` (the superpixels and features of a tensor image
+    come from its own device).
+
+    :returns: (Classifier, list of SLIC label maps, list of (K, F) feature
+        arrays, list of (K,) superpixel labels, -1 = dropped)
+    """
+    from pyimsegm_tpu_torch import classification, labeling
+
+    if len(list_images) != len(list_annots):
+        raise ValueError('images (%i) vs annotations (%i) mismatch'
+                         % (len(list_images), len(list_annots)))
+    feats_spec = _features_spec(dict_features)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    list_slic, list_features, list_labels = [], [], []
+    for image, annot in zip(list_images, list_annots):
+        image = as_tensor(image, device)
+        annot = np.asarray(annot).astype(int)
+        if tuple(image.shape[:2]) != annot.shape[:2]:
+            raise ValueError('image %r and annot %r should match'
+                             % (tuple(image.shape), annot.shape))
+        cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+        labels_map, features, counts, _centers = _slic_features_core(
+            image, cfg, feats_spec, m)
+        labels_map = labels_map.cpu().numpy()
+        counts = counts.cpu().numpy()
+        neg_label = annot.max() + 1 if (annot < 0).any() else None
+        if neg_label is not None:
+            annot[annot < 0] = neg_label
+        hist = labeling.histogram_regions_labels_norm(
+            labels_map, annot, nb_labels=annot.max() + 1)
+        k = counts.shape[0]
+        if hist.shape[0] < k:
+            # the highest grid labels can be empty (merged away by the
+            # min-size pass): pad to the static capacity
+            hist = np.vstack([hist,
+                              np.zeros((k - hist.shape[0], hist.shape[1]))])
+        lbs = np.argmax(hist, axis=1)
+        purity = np.max(hist, axis=1)
+        if neg_label is not None:
+            lbs[lbs == neg_label] = -1
+        lbs[purity < label_purity] = -1
+        lbs[counts == 0] = -1                       # empty slots
+        list_slic.append(labels_map)
+        list_features.append(torch.nan_to_num(features).cpu().numpy())
+        list_labels.append(lbs)
+
+    features, labels, sizes = \
+        classification.convert_set_features_labels_2_dataset(
+            dict(enumerate(list_features)), dict(enumerate(list_labels)),
+            balance_type=feature_balance, drop_labels=[-1], device=device)
+    features = np.nan_to_num(features)
+    cv = (classification.CrossValidateGroups(sizes, nb_hold_out=nb_hold_out)
+          if len(sizes) > nb_hold_out * 5 else 10)
+    classif, _ = classification.create_classif_search_train_export(
+        clf_name, features, labels, pca_coef=pca_coef, cross_val=cv,
+        nb_search_iter=nb_classif_search, seed=seed, device=device)
+    return classif, list_slic, list_features, list_labels

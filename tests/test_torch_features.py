@@ -145,11 +145,13 @@ def test_gray_descriptors_match_jax(scene):
 
 @pytest.mark.parametrize('key', ['tLM', 'tLM_short', 'tGabor', 'tLBP'])
 def test_texture_keys_raise(scene, key):
+    """Texture of colour images is ported (tests/test_torch_filters.py);
+    texture of gray images still raises, naming its slice."""
     img, labels, _ = scene
     with pytest.raises(NotImplementedError, match='supervised'):
-        tdesc.compute_selected_features_color2d(
-            _t(img), _t(labels.reshape(-1)), 10, {'color': ('mean',),
-                                                  key: ('mean',)})
+        tdesc.compute_selected_features_gray2d(
+            _t(img[..., 0]), _t(labels.reshape(-1)), 10,
+            {'color': ('mean',), key: ('mean',)})
 
 
 def _damaged(labels, cfg, seed):

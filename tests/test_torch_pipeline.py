@@ -182,19 +182,26 @@ def test_bench_geometry_connectivity_matches_committed_jax_output():
     assert adjusted_rand_score(segm, want['segm']) >= 0.98
 
 
+# texture keys of colour images are ported (tests/test_torch_supervised.py);
+# those of gray images still raise
 @pytest.mark.parametrize('kwargs', [
-    {'dict_features': {'color': ['mean'], 'tLM': ['mean']}},
+    {'gray': True, 'dict_features': {'color': ['mean'], 'tLM': ['mean']}},
     {'connectivity': False, 'sp_compat': True},
-    {'connectivity': False, 'dict_features': {'tLM_short': ['mean']}},
-    {'dict_features': {'color_hsv': ['mean'], 'tGabor': ['mean']}},
+    {'gray': True, 'connectivity': False,
+     'dict_features': {'tLM_short': ['mean']}},
+    {'gray': True,
+     'dict_features': {'color_hsv': ['mean'], 'tGabor': ['mean']}},
 ], ids=['texture', 'sp_compat', 'texture_short', 'gabor'])
 def test_unported_options_raise(models, kwargs):
     _, tm = models
     kwargs = dict(kwargs)
     feats = kwargs.pop('dict_features', FEATURES)
+    img = _image(SHAPES[0], 0)
+    if kwargs.pop('gray', False):
+        img = np.ascontiguousarray(img[..., 0])
     with pytest.raises(NotImplementedError):
         tpipe.segment_color2d_slic_features_model_graphcut(
-            _image(SHAPES[0], 0), tm, feats, sp_size=SP, **kwargs)
+            img, tm, feats, sp_size=SP, **kwargs)
 
 
 def test_numpy_input_needs_a_card_or_device_cpu():
@@ -399,11 +406,13 @@ import sys
 sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
-from pyimsegm_tpu_torch import _build, descriptors, pipelines, superpixels
-from pyimsegm_tpu_torch.models import bgm, class_model, gmm, otsu
-from pyimsegm_tpu_torch.ops import (color, enforce_cuda, graph, graphcut,
-                                    grid, grid_cuda, prep_cuda, segment_stats,
-                                    slic, slic3d, slic3d_cuda, slic_cuda)
+from pyimsegm_tpu_torch import (_build, classification, descriptors,
+                                labeling, pipelines, superpixels)
+from pyimsegm_tpu_torch.models import bgm, class_model, forest, gmm, otsu
+from pyimsegm_tpu_torch.ops import (color, connectivity_cuda, enforce_cuda,
+                                    filters, graph, graphcut, grid, grid_cuda,
+                                    prep_cuda, segment_stats, slic, slic3d,
+                                    slic3d_cuda, slic_cuda)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import data_samples, device, metrics
 import torch

@@ -30,15 +30,29 @@ then segments image 0 and stores two files:
   with their sample weight ``mask``, the fitted model arrays, and the
   (K, 2) ``digest`` of the whole SLIC labelling
   (``pyimsegm_tpu_torch.utils.metrics.segment_digest``), which tells the
-  supervoxels whose voxel sets a port run reproduces.
+  supervoxels whose voxel sets a port run reproduces;
+* ``torch_port_fixture_sup.npz``: the supervised path of BASELINE config 2
+  at the bench geometry: ``train_classif_color2d_slic_features`` on images
+  0-2 and their annotations with ``nb_classif_search=3``, once with cfg2's
+  features (colour + tGabor + tLBP) and once with its reference-matching
+  family (colour + tLM, keys suffixed ``_tlm``); each forest's arrays
+  (``clf_*``, the arrays ``pyimsegm_tpu_torch.classification.
+  classifier_from_numpy`` reads), its training set (``train_features``,
+  ``train_labels``) and its accuracy on it (``train_acc``); then image 0
+  segmented with it (gc_regul 5.0): the enforced SLIC labels ``slic``
+  (int16), the (K, F) ``features`` and their ``names``, ``proba``, the
+  segmentation ``segm`` (uint8) and its ARS against the annotation
+  (``ars_annot``).
 
 A file whose arrays are unchanged is not rewritten, so its bytes stay as
 committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
 JAX.
 
-Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone)::
+Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
+``--only-sup`` the supervised one)::
 
-    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py [--only-3d]
+    JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
+        [--only-3d | --only-sup]
 """
 
 import os
@@ -51,6 +65,7 @@ OUT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture.npz')
 OUT_CONN = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_conn.npz')
 OUT_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 OUT_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
+OUT_SUP = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_sup.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -60,6 +75,13 @@ CASES_3D = (('', (48, 640, 768), 15, (4, 1, 1), (0, 23, 47)),
             ('small_', (8, 40, 48), 8, (2, 1, 1), (0, 3, 7)))
 SP_REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
 FEATURES_3D = {'color': ['mean', 'std', 'energy']}
+#: BASELINE config 2 (bench_all.py): its features, the reference-matching
+#: family, the MRF weight, the images trained on and the search size
+FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
+                'tGabor': ['mean', 'energy'], 'tLBP': ['mean']}
+FEATURES_TLM = {'color': ['mean', 'std', 'energy'],
+                'tLM': ['mean', 'std', 'energy']}
+GC_REGUL_SUP, N_TRAIN_SUP, SEARCH_SUP = 5.0, 3, 3
 _MODEL_ARRAYS = ('scaler_mean', 'scaler_scale', 'pca_components', 'pca_mean',
                  'pca_mask')
 
@@ -86,6 +108,9 @@ def main():
     from pyimsegm_tpu import pipelines
     from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
 
+    if '--only-sup' in sys.argv[1:]:
+        _save(OUT_SUP, _sup_outputs(pipelines))
+        return
     arrays_3d = {}
     for case in CASES_3D:
         arrays_3d.update(_gray3d_outputs(pipelines, *case))
@@ -108,6 +133,7 @@ def main():
     _save(OUT, dict(outputs[False], **_model_arrays(model)))
     _save(OUT_CONN, outputs[True])
     _save(OUT_FIT, _fit_outputs(pipelines, imgs[0]))
+    _save(OUT_SUP, _sup_outputs(pipelines))
 
 
 def _model_arrays(model):
@@ -139,6 +165,62 @@ def _fit_outputs(pipelines, img):
                 features=np.asarray(dv['features'], np.float32),
                 weight=weight.astype(np.float32),
                 slico=np.asarray(slico).astype(np.int16))
+
+
+def _sup_outputs(pipelines):
+    """Config 2's training and image 0's segmentation, for both feature
+    families."""
+    import jax.numpy as jnp
+    from pyimsegm_tpu import classification, descriptors
+    from pyimsegm_tpu.ops import slic as slic_ops
+    from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+    from pyimsegm_tpu.utils.metrics import adjusted_rand_score
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    pairs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)
+             for s in range(N_TRAIN_SUP)]
+    imgs, annots = [p[0] for p in pairs], [p[1] for p in pairs]
+    out = {}
+    for suffix, feats in (('', FEATURES_SUP), ('_tlm', FEATURES_TLM)):
+        classif, _slic, list_feats, list_lbs = \
+            pipelines.train_classif_color2d_slic_features(
+                imgs, annots, feats, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+                nb_classif_search=SEARCH_SUP)
+        x, y, _ = classification.convert_set_features_labels_2_dataset(
+            dict(enumerate(list_feats)), dict(enumerate(list_lbs)),
+            balance_type='unique', drop_labels=[-1])
+        dv = {}
+        segm, _soft = pipelines.segment_color2d_slic_features_model_graphcut(
+            imgs[0], classif, feats, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL_SUP, debug_visual=dv)
+        slic = np.asarray(dv['slic'])
+        features, names = descriptors.compute_selected_features_color2d(
+            jnp.asarray(imgs[0]), jnp.asarray(slic.ravel()), cfg.n_segments,
+            feats, grid_ctx=(jnp.asarray(slic), cfg))
+        p = classif._params
+        arrays = {
+            'clf_classes': np.asarray(classif.classes_),
+            'clf_scaler_mean': np.asarray(classif._scaler[0], np.float32),
+            'clf_scaler_std': np.asarray(classif._scaler[1], np.float32),
+            'clf_feat': np.asarray(p.feat, np.int32),
+            'clf_thr': np.asarray(p.thr, np.float32),
+            'clf_leaf_proba': np.asarray(p.leaf_proba, np.float32),
+            'clf_depth': np.asarray(int(p.depth), np.int32),
+            'train_features': np.asarray(x, np.float32),
+            'train_labels': np.asarray(y, np.int8),
+            'train_acc': np.asarray(classif.score(x, y), np.float64),
+            'slic': slic.astype(np.int16),
+            'features': np.nan_to_num(np.asarray(features, np.float32)),
+            'names': np.asarray(names),
+            'proba': np.asarray(dv['proba'], np.float32),
+            'segm': np.asarray(segm).astype(np.uint8),
+            'ars_annot': np.asarray(adjusted_rand_score(segm, annots[0]),
+                                    np.float64)}
+        print('supervised%s: %d training samples, accuracy %.4f, hyper %r, '
+              'image 0 ARS vs annotation %.4f'
+              % (suffix, len(y), float(arrays['train_acc']), classif.hyper,
+                 float(arrays['ars_annot'])))
+        out.update({k + suffix: v for k, v in arrays.items()})
+    return out
 
 
 def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices):

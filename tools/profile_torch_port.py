@@ -32,10 +32,19 @@ from a profile of each warm call: host ms per range and the range's span
 on the device; the call's own host-clock ms are taken in turns with the
 profiled calls, and one warm call is profiled as above.
 
+``--path sup`` drives the supervised path (BASELINE config 2:
+``segment_color2d_slic_features_model_graphcut`` with colour + tGabor +
+tLBP features, gc_regul 5.0, the JAX-trained forest of
+``tests/data/torch_port_fixture_sup.npz``) on the synthetic scenes at
+884x1200 and on one 2048x3600 and one 4096x4096 tile (rows 14 and 13 of
+the enforcement); its stages (upload, slic, enforce, geometry, features,
+predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
+ranges, read as for ``--path 3d``.
+
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
-        [--path bench|fit|3d]
+        [--path bench|fit|3d|sup]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -56,6 +65,10 @@ FEATURES = {'color': ['mean', 'std', 'energy']}
 FEATURES_FIT = {'color': ['mean', 'std', 'energy', 'median', 'meanGrad']}
 SHAPE_3D, SPACING_3D, SP_3D, REGUL_3D, GC_REGUL_3D = \
     (48, 640, 768), (4, 1, 1), 15, 0.2, 0.1
+FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
+                'tGabor': ['mean', 'energy'], 'tLBP': ['mean']}
+GC_REGUL_SUP = 5.0
+TILES = ((2048, 3600), (4096, 4096))
 
 
 def _stages(torch, image, model):
@@ -174,10 +187,32 @@ def _stage_ranges(prof):
     return out
 
 
-def _profile_gray3d(torch, volumes, out_dir):
-    """The public 3D call on each volume, in turns: once on the host clock,
-    once under the profiler for its stage ranges."""
+def _profile_ranges(torch, run, inputs, out_dir, kind):
+    """The public call on each input, in turns: once on the host clock,
+    once under the profiler for the pipeline's stage ranges; then one
+    profiled call's device summary."""
     from torch.profiler import ProfilerActivity, profile
+
+    run(inputs[0])                                         # build + warm
+    host, device, walls = [], [], []
+    for x in inputs:
+        walls.append(_timed(torch, lambda: run(x)))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run(x)
+            torch.cuda.synchronize()
+        ranges = _stage_ranges(prof)
+        host.append({k: v[0] for k, v in ranges.items()})
+        device.append({k: v[1] for k, v in ranges.items()})
+    _report('%s host (profiled)' % kind, host, walls, 1)
+    mean = {n: round(float(np.mean([r[n] for r in device])), 3)
+            for n in device[0]}
+    print('%s stage device span ms (mean of %d inputs): %s; sum %.3f'
+          % (kind, len(device), json.dumps(mean), sum(mean.values())))
+    _profile(torch, lambda: run(inputs[0]), out_dir, kind)
+
+
+def _profile_gray3d(torch, volumes, out_dir):
     from pyimsegm_tpu_torch import pipelines
 
     def run(vol):
@@ -185,23 +220,31 @@ def _profile_gray3d(torch, volumes, out_dir):
             vol, 2, FEATURES, spacing=SPACING_3D, sp_size=SP_3D,
             sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D)
 
-    run(volumes[0])                                        # build + warm
-    host, device, walls = [], [], []
-    for vol in volumes:
-        walls.append(_timed(torch, lambda: run(vol)))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(vol)
-            torch.cuda.synchronize()
-        ranges = _stage_ranges(prof)
-        host.append({k: v[0] for k, v in ranges.items()})
-        device.append({k: v[1] for k, v in ranges.items()})
-    _report('3d host (profiled)', host, walls, 1)
-    mean = {n: round(float(np.mean([r[n] for r in device])), 3)
-            for n in device[0]}
-    print('3d stage device span ms (mean of %d volumes): %s; sum %.3f'
-          % (len(device), json.dumps(mean), sum(mean.values())))
-    _profile(torch, lambda: run(volumes[0]), out_dir, '3d')
+    _profile_ranges(torch, run, volumes, out_dir, '3d')
+
+
+def _profile_sup(torch, images, out_dir):
+    """Config 2 with the carried JAX forest on the scenes, then one call of
+    each tile."""
+    from pyimsegm_tpu_torch import classification, pipelines
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    with np.load(os.path.join(ROOT, 'tests', 'data',
+                              'torch_port_fixture_sup.npz')) as npz:
+        clf = classification.classifier_from_numpy(
+            {k[len('clf_'):]: npz[k] for k in npz.files
+             if k.startswith('clf_') and not k.endswith('_tlm')})
+
+    def run(img):
+        return pipelines.segment_color2d_slic_features_model_graphcut(
+            img, clf, FEATURES_SUP, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL_SUP)
+
+    _profile_ranges(torch, run, images, out_dir, 'sup')
+    for shape in TILES:
+        tile = sample_color_image_rand_segment(shape, 3, rand_seed=1)[0]
+        _profile_ranges(torch, run, [tile], out_dir,
+                        'sup_%dx%d' % shape)
 
 
 def _report(kind, rows, walls, n_images):
@@ -274,7 +317,7 @@ def _profile(torch, run, out_dir, kind):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
-    parser.add_argument('--path', choices=('bench', 'fit', '3d'),
+    parser.add_argument('--path', choices=('bench', 'fit', '3d', 'sup'),
                         default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
@@ -300,6 +343,10 @@ def main():
     if args.path == '3d':
         _profile_gray3d(torch, [sample_gray_volume_3d(SHAPE_3D, rand_seed=s)[0]
                                 for s in range(args.images)], args.out)
+        return
+    if args.path == 'sup':
+        _profile_sup(torch, [sample_color_image_rand_segment(
+            CROP, 3, rand_seed=s)[0] for s in range(args.images)], args.out)
         return
     if args.path == 'fit':
         _profile_fit(torch, [sample_color_image_rand_segment(
