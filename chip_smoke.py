@@ -14,7 +14,14 @@ Phases (any failure raises and exits non-zero):
 3. for each kernel, at the bench geometry (884x1200, sp_size 35, regul 0.2)
    on the labels the SLIC kernels produce: kernel and plain PyTorch twin on
    the same inputs on the card, agreement within the stated tolerance, and
-   both times;
+   both times; row 9 exact at C = 1 (int32 and f32), 2, 3, 4 and 5 on the
+   labels and on damaged labels; row 12 exact on the noise image's labels
+   and on ``ENFORCE_CASES`` (fragmented noise labels, a tall image, the
+   serpentine labels that need more reach sweeps than the cap, which must
+   stop at the cap); then, for rows 9 and 12 as the paths call them, the
+   call ms, the device ms and the CUDA kernels per call from
+   ``torch.profiler`` on the labels of image 0 and of the noise image, row 9
+   at C = 1 and 4 beside ``table[index]`` (``measure_rows_9_12``);
 4. the ``connectivity=False`` path: three synthetic 884x1200 images through
    ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
    with the GMM class model of ``tests/data/torch_port_fixture.npz``; each
@@ -25,7 +32,9 @@ Phases (any failure raises and exits non-zero):
    (ARS >= 0.98, enforced labels >= 0.999 equal), then eight images through
    ``parallel.batch.segment_images_batch``, image i equal to the
    single-image call on image i; all eight kernels of the path must have
-   launched; warm ms per image and MPix/s;
+   launched; warm ms per image and MPix/s; then ``bench.py``'s first two
+   noise images against ``tests/data/torch_port_fixture_noise.npz`` (SLIC
+   labels >= 0.999, enforced labels >= ``NOISE_ENFORCED_BAR``, ARS >= 0.98);
 6. the enforcement op with centroids reduced from the labels
    (``ops.grid.enforce_grid_connectivity(..., centers=None)``), which runs
    the donor-less moments kernel;
@@ -107,6 +116,13 @@ FIXTURE_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 FIXTURE_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 FIXTURE_SUP = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_fixture_sup.npz')
+FIXTURE_NOISE = os.path.join(ROOT, 'tests', 'data',
+                             'torch_port_fixture_noise.npz')
+#: least share of enforced labels equal to JAX's on bench.py's noise images:
+#: near-tie SLIC assignments flip between the port and XLA, and a moved
+#: centroid of a fragmented superpixel moves its anchor
+#: (tests/test_torch_noise.py); the SLIC and ARS bars are the scenes'
+NOISE_ENFORCED_BAR = 0.997
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL = 35, 0.2, 2.0
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -158,6 +174,81 @@ def _time_ms(fn, reps=REPS):
     return start.elapsed_time(end) / reps
 
 
+def _profiled(torch, fn, reps=5, tries=3):
+    """(device ms, CUDA kernel launches) per call of ``fn``, from
+    torch.profiler over ``reps`` warm calls: the durations of the device
+    events (kernels and copies) summed, and the count of kernel events,
+    each over ``reps``.  The profiler now and then drops events, so a
+    profile that recorded no kernel is taken again; after ``tries`` such
+    profiles the result is (nan, nan), not measured."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if str(e.device_type).endswith('CUDA')]
+        kernels = [e for e in device
+                   if not e.name.startswith(('Memcpy', 'Memset'))]
+        if kernels:
+            return (sum(e.time_range.elapsed_us() for e in device) / 1e3
+                    / reps, len(kernels) / reps)
+    return float('nan'), float('nan')
+
+
+def measure_rows_9_12(torch, img):
+    """Rows 9 and 12 as the paths call them (``ops.grid.grid_lookup``,
+    ``ops.enforce_cuda.enforce_fused``) on the SLIC kernels' labels of image
+    0 and of ``bench.py``'s first noise image: per call the call ms (CUDA
+    events around REPS calls, as ``_time_ms``), the device ms and the CUDA
+    kernel launches (``_profiled``); row 9 at C = 1 (the min-size merge's
+    int32 donor table, and f32), 3 and 4, beside ``table[index]``.  Prints
+    one ``rows_9_12`` JSON line and returns its dict."""
+    from pyimsegm_tpu_torch.ops import enforce_cuda
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    noise = torch.as_tensor(np.random.default_rng(0).random(
+        CROP + (3,), dtype=np.float32), device=img.device)
+    out = {}
+    rng = np.random.default_rng(4)
+    for name, image in (('image0', img), ('noise', noise)):
+        labels, _, centers, _ = slic_ops.slic_segment_with_features(
+            image, image, cfg, m)
+        index = labels.long()
+        row = {}
+        tables = {
+            'C1_int32': torch.arange(cfg.n_segments, dtype=torch.int32,
+                                     device=img.device).flip(0),
+            'C1_f32': torch.as_tensor(rng.random(cfg.n_segments, np.float32),
+                                      device=img.device)}
+        for c in (3, 4):
+            tables['C%d_f32' % c] = torch.as_tensor(
+                rng.random((cfg.n_segments, c), np.float32),
+                device=img.device)
+        for key, table in tables.items():
+            row['lookup_' + key] = (
+                _time_ms(lambda: grid_ops.grid_lookup(table, labels, cfg)),
+                *_profiled(torch, lambda: grid_ops.grid_lookup(table, labels,
+                                                               cfg)))
+            row['index_' + key] = (_time_ms(lambda: table[index]),
+                                   *_profiled(torch, lambda: table[index]))
+        row['enforce_fused'] = (
+            _time_ms(lambda: enforce_cuda.enforce_fused(labels, centers,
+                                                        cfg)),
+            *_profiled(torch, lambda: enforce_cuda.enforce_fused(
+                labels, centers, cfg)))
+        out[name] = row
+    print('rows_9_12 (call ms, device ms, kernel launches per call) %s'
+          % json.dumps(out), flush=True)
+    return out
+
+
 def _bf16_ulps(a, b):
     """Per-element distance in bf16 ulps of two bf16 tensors."""
     import torch
@@ -176,12 +267,20 @@ def _bound(nbytes, ops):
     return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
-def _record(name, source, replaces, err, ms, plain_ms, agreement, nbytes,
-            ops, library_ms=None):
+def _record(name, source, replaces, err, kernel, plain_ms, agreement,
+            nbytes, ops, library_ms=None):
+    """A kernel's record: ``kernel`` is one call of its wrapper, timed as
+    ``_time_ms`` times it (ms) and by ``_profiled`` (device ms, CUDA kernels
+    per call; printed beside the rest)."""
+    import torch
+    ms = _time_ms(kernel)
+    device_ms, per_call = _profiled(torch, kernel)
     bound_ms, bound_by = _bound(nbytes, ops)
-    print('kernel %-24s %s  max_abs_err %.3g  kernel %.4f ms  plain %.4f ms'
-          '  bound %.4f ms (%s)  library %s ms'
-          % (name, agreement, err, ms, plain_ms, bound_ms, bound_by,
+    print('kernel %-24s %s  max_abs_err %.3g  kernel %.4f ms  device %.4f '
+          'ms in %g CUDA kernel(s)  plain %.4f ms  bound %.4f ms (%s)  '
+          'library %s ms'
+          % (name, agreement, err, ms, device_ms, per_call, plain_ms,
+             bound_ms, bound_by,
              'none' if library_ms is None else '%.4f' % library_ms),
           flush=True)
     return {'name': name, 'route': 'cuda', 'source': source,
@@ -212,7 +311,7 @@ def kernel_phases(torch, img):
     records.append(_record(
         'blur_lab', 'pyimsegm_tpu_torch/csrc/prep.cu',
         'pyimsegm_tpu/ops/prep_pallas.py:121', err,
-        _time_ms(lambda: prep_cuda.blur_lab(img)),
+        lambda: prep_cuda.blur_lab(img),
         _time_ms(lambda: prep_cuda._blur_lab_plain(img)),
         'bf16 equal %.6f, max %d ulp' % (equal, int(ulps.max())),
         # f32 RGB in, bf16 Lab out; per pixel 2 x 3 x 17 blur taps, 6 for
@@ -231,8 +330,7 @@ def kernel_phases(torch, img):
     records.append(_record(
         'slic_multi_update', 'pyimsegm_tpu_torch/csrc/slic.cu',
         'pyimsegm_tpu/ops/slic_pallas.py:477', err,
-        _time_ms(lambda: slic_cuda.slic_multi_update(
-            lab_chw, centers0, m, cfg, n_upd), reps=5),
+        lambda: slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd),
         _time_ms(lambda: slic_cuda._slic_multi_update_plain(
             lab_chw, centers0, m, cfg, n_upd), reps=5),
         'centres within %.3g (tol 1e-3)' % err,
@@ -262,8 +360,8 @@ def kernel_phases(torch, img):
     records.append(_record(
         'slic_update_labels', 'pyimsegm_tpu_torch/csrc/slic.cu',
         'pyimsegm_tpu/ops/slic_pallas.py:573', err,
-        _time_ms(lambda: slic_cuda.slic_update_labels(
-            lab_chw, cen_k, m, cfg, feat_chw)),
+        lambda: slic_cuda.slic_update_labels(
+            lab_chw, cen_k, m, cfg, feat_chw),
         _time_ms(lambda: slic_cuda._slic_update_labels_plain(
             lab_chw, cen_k, m, cfg, feat_chw)),
         'labels equal %.6f, partials within rtol 1e-5' % lab_eq,
@@ -274,23 +372,40 @@ def kernel_phases(torch, img):
 
     labels = lb_k[:cfg.height, :cfg.width].contiguous()
     rng = np.random.default_rng(0)
-    table = torch.as_tensor(rng.random((cfg.n_segments, 3), np.float32),
-                            device=img.device)
     index = labels.long()
-    out_k = grid_cuda.grid_lookup(table, labels, cfg)
-    out_p = grid_cuda._grid_lookup_plain(table, labels, cfg)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    if not torch.equal(out_k, out_p):
-        raise AssertionError('grid_lookup differs by %g' % err)
+    # C = 1 int32 (the donor table: a seed id within the window, or an
+    # out-of-grid id), 1 and 2 f32, 3 f32, 4 f32 (the batch's table), 5 f32
+    # (the generic kernel), on labels with every fifth pixel set to a
+    # negative, out-of-range or out-of-window id
+    bad = labels.clone().reshape(-1)
+    bad[::5] = torch.as_tensor(rng.choice(
+        [-2, -1, k + 3, 0, k - 1], size=bad[::5].numel()).astype(np.int32),
+        device=img.device)
+    bad = bad.reshape(labels.shape)
+    tables = [torch.as_tensor(rng.integers(-1, k + 2, k).astype(np.int32),
+                              device=img.device)[:, None]]
+    tables += [torch.as_tensor(rng.random((k, c), np.float32),
+                               device=img.device) for c in (1, 2, 3, 4, 5)]
+    for table in tables:
+        for lab in (labels, bad):
+            out_k = grid_cuda.grid_lookup(table, lab, cfg)
+            out_p = grid_cuda._grid_lookup_plain(table, lab, cfg).to(
+                table.dtype)
+            torch.cuda.synchronize()
+            if out_k.dtype != table.dtype or not torch.equal(out_k, out_p):
+                raise AssertionError('grid_lookup C=%d %s: %d words differ'
+                                     % (table.shape[1], table.dtype,
+                                        int((out_k != out_p).sum())))
+    table = tables[4]
     records.append(_record(
         'grid_lookup', 'pyimsegm_tpu_torch/csrc/grid.cu',
-        'pyimsegm_tpu/ops/grid_pallas.py:379', err,
-        _time_ms(lambda: grid_cuda.grid_lookup(table, labels, cfg)),
+        'pyimsegm_tpu/ops/grid_pallas.py:379', 0.0,
+        lambda: grid_cuda.grid_lookup(table, labels, cfg),
         _time_ms(lambda: grid_cuda._grid_lookup_plain(table, labels, cfg)),
-        'exact',
-        # i32 labels + table in, (H, W, 3) f32 out; a window test per pixel
-        px * (4 + 12) + k * 12, px * 6,
+        'exact at C = 1 (int32, f32), 2, 3, 4, 5, on the labels and on '
+        'damaged labels (times: C = 4 f32)',
+        # i32 labels + table in, (H, W, 4) f32 out; a window test per pixel
+        px * (4 + 16) + k * 16, px * 6,
         _time_ms(lambda: table[index])))
 
     words_k = grid_cuda.grid_adjacency_presence(labels, cfg)
@@ -302,7 +417,7 @@ def kernel_phases(torch, img):
     records.append(_record(
         'grid_adjacency_presence', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:568', 0.0,
-        _time_ms(lambda: grid_cuda.grid_adjacency_presence(labels, cfg)),
+        lambda: grid_cuda.grid_adjacency_presence(labels, cfg),
         _time_ms(lambda: grid_cuda._grid_adjacency_presence_plain(labels,
                                                                   cfg)),
         'exact',
@@ -314,6 +429,55 @@ def kernel_phases(torch, img):
         .reshape(cfg.n_segments, 2)
     records += enforce_phases(torch, img, labels, centers, cfg)
     return records
+
+
+#: enforcement cases beyond the bench geometry, as
+#: tests/test_torch_enforce.py holds the twin against JAX on them: (image
+#: kind, shape, sp_size) of fragmented noise labels and of a tall image
+#: whose columns are longer than a block's stage (2,560 rows)
+ENFORCE_CASES = {'noise': ('noise', (128, 160), 8),
+                 'tall': ('scene', (2700, 48), 16)}
+
+
+def enforce_cases(torch):
+    """Row 12 against its twin (exact) on ENFORCE_CASES and on the
+    serpentine labels that need more reach sweeps than the cap, with the
+    sweeps and rounds each call ran."""
+    from pyimsegm_tpu_torch.ops import connectivity_cuda as cc
+    from pyimsegm_tpu_torch.ops import enforce_cuda
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import (
+        sample_color_image_rand_segment, sample_serpentine_labels)
+    cases = {}
+    for name, (kind, shape, sp) in ENFORCE_CASES.items():
+        img = (np.random.RandomState(7).rand(*shape, 3).astype(np.float32)
+               if kind == 'noise' else
+               sample_color_image_rand_segment(shape, 3, rand_seed=2)[0])
+        img = torch.as_tensor(img, device=DEVICE)
+        cfg = slic_ops.slic_config(*shape, sp)
+        m = slic_ops.compactness_from_regul(sp, SP_REGUL)
+        labels, _, centers, _ = slic_ops.slic_segment_with_features(
+            img, img, cfg, m)
+        cases[name] = (labels, centers, cfg)
+    labels = torch.as_tensor(sample_serpentine_labels(), device=DEVICE)
+    cfg = slic_ops.slic_config(labels.shape[0], labels.shape[1], 16)
+    sums = grid_ops.grid_geometry_moments(
+        torch.zeros(labels.shape + (1,), device=DEVICE), labels, cfg)
+    cases['caps'] = (labels, sums[:, 3:5] / torch.clamp_min(sums[:, 2:3], 1.0),
+                     cfg)
+    for name, (labels, centers, cfg) in cases.items():
+        out = enforce_cuda.enforce_fused(labels, centers, cfg)
+        sweeps, rounds = cc.grid_passes(enforce_cuda.LAST_FLAGS, cfg)
+        want = enforce_cuda._enforce_fused_plain(labels, centers, cfg)
+        torch.cuda.synchronize()
+        n_diff = int((out != want).sum())
+        print('enforce_fused case %s %dx%d: %d pixels differ from the twin, '
+              '%d relabelled, %d reach sweeps + %d absorb rounds'
+              % (name, cfg.height, cfg.width, n_diff,
+                 int((out != labels).sum()), sweeps, rounds), flush=True)
+        if n_diff or (name == 'caps' and sweeps != cc.MAX_SWEEPS):
+            raise AssertionError('enforce_fused disagrees on case %s' % name)
 
 
 def _sums_agree(got, want):
@@ -371,8 +535,9 @@ def enforce_phases(torch, img, labels, centers, cfg):
     px, k = CROP[0] * CROP[1], cfg.n_segments
     records.append(_record(
         'enforce_fused', 'pyimsegm_tpu_torch/csrc/enforce.cu',
-        'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0, times[0][0],
-        times[0][1], 'exact (%.6f / %.6f of pixels relabelled: image 0 / '
+        'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0,
+        lambda: enforce_cuda.enforce_fused(labels, centers, cfg), times[0][1],
+        'exact (%.6f / %.6f of pixels relabelled: image 0 / '
         'noise)' % tuple(notes),
         # i32 labels + centroids in, labels out; per pixel the anchor
         # distance (6) and one pass of 4 neighbour compares: what a single
@@ -399,7 +564,7 @@ def enforce_phases(torch, img, labels, centers, cfg):
     records.append(_record(
         'grid_pair_count', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:478', 0.0,
-        _time_ms(lambda: grid_cuda.grid_pair_count(enf, cfg)),
+        lambda: grid_cuda.grid_pair_count(enf, cfg),
         _time_ms(lambda: grid_cuda._grid_pair_count_plain(enf, cfg)),
         'exact',
         # i32 labels in, (K, 9, 9) + (K, 9) i32 counts out; two pair
@@ -428,7 +593,7 @@ def enforce_phases(torch, img, labels, centers, cfg):
     records.append(_record(
         'grid_moments_apply', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:302', err,
-        _time_ms(lambda: grid_cuda.grid_moments_apply(img, enf, donor, cfg)),
+        lambda: grid_cuda.grid_moments_apply(img, enf, donor, cfg),
         _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, donor,
                                                              cfg)),
         'labels exact (%d / %d px merged: chain / window donors), sums '
@@ -446,7 +611,7 @@ def enforce_phases(torch, img, labels, centers, cfg):
     records.append(_record(
         'grid_moments', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:195', err,
-        _time_ms(lambda: grid_cuda.grid_moments_apply(img, enf, None, cfg)),
+        lambda: grid_cuda.grid_moments_apply(img, enf, None, cfg),
         _time_ms(lambda: grid_cuda._grid_moments_apply_plain(img, enf, None,
                                                              cfg)),
         'sums within rtol 1e-5',
@@ -490,8 +655,8 @@ def fit_kernel_phases(torch, img):
             records.append(_record(
                 'slic_multi_update_slico', 'pyimsegm_tpu_torch/csrc/slic.cu',
                 'pyimsegm_tpu/ops/slic_pallas.py:477', err,
-                _time_ms(lambda: slic_cuda.slic_multi_update(
-                    lab_chw, centers0, m, cfg, n_upd, slico=True), reps=5),
+                lambda: slic_cuda.slic_multi_update(
+                    lab_chw, centers0, m, cfg, n_upd, slico=True),
                 _time_ms(lambda: slic_cuda._slic_multi_update_plain(
                     lab_chw, centers0, m, cfg, n_upd, slico=True), reps=5),
                 'centres within %.3g, M within %.3g relative (tol 1e-3)'
@@ -508,8 +673,7 @@ def fit_kernel_phases(torch, img):
         records.append(_record(
             name, 'pyimsegm_tpu_torch/csrc/slic.cu',
             'pyimsegm_tpu/ops/slic_pallas.py:619', 0.0,
-            _time_ms(lambda: slic_cuda.slic_assign(lab_chw, c, m, cfg,
-                                                   slico=slico)),
+            lambda: slic_cuda.slic_assign(lab_chw, c, m, cfg, slico=slico),
             _time_ms(lambda: slic_cuda._slic_assign_plain(lab_chw, c, m, cfg,
                                                           slico=slico)),
             'labels exact',
@@ -527,7 +691,7 @@ def fit_kernel_phases(torch, img):
     records.append(_record(
         'slic_update', 'pyimsegm_tpu_torch/csrc/slic.cu',
         'pyimsegm_tpu/ops/slic_pallas.py:604', err,
-        _time_ms(lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg)),
+        lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg),
         _time_ms(lambda: slic_cuda._slic_update_plain(lab_chw, cen, m, cfg)),
         'partials within rtol 1e-5',
         # bf16 Lab in, (gh, gw, 9, 6) partials out; 9 distances and 6
@@ -553,6 +717,8 @@ def fit_kernel_phases(torch, img):
                 raise AssertionError('grid_reduce F=%d %s: max diff %g'
                                      % (f, dtype, diff))
             err = max(err, diff)
+            if (f, dtype) == (7, torch.float32):
+                data7_f = d
             times[(f, dtype)] = (
                 _time_ms(lambda: grid_cuda.grid_reduce(d, labels, cfg)),
                 _time_ms(lambda: grid_cuda._grid_reduce_plain(d, labels,
@@ -565,7 +731,8 @@ def fit_kernel_phases(torch, img):
     records.append(_record(
         'grid_reduce', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:106', err,
-        *times[(7, torch.float32)],
+        lambda: grid_cuda.grid_reduce(data7_f, labels, cfg),
+        times[(7, torch.float32)][1],
         'sums within rtol 1e-5 at F = 3, 7, 15, 40, f32 and bf16 (times: '
         'F=7 f32)',
         # F = 7 f32 data + i32 labels in, (K, 7) sums out; 7 adds per pixel
@@ -609,7 +776,7 @@ def kernel_phases_3d(torch, vol, noise):
     records.append(_record(
         'slic3d_labels', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
         'pyimsegm_tpu/ops/slic3d_pallas.py:183', err_lb,
-        _time_ms(lambda: slic3d_cuda.slic3d_labels(vol_p, c1, m, cfg)),
+        lambda: slic3d_cuda.slic3d_labels(vol_p, c1, m, cfg),
         _time_ms(lambda: slic3d_cuda._slic3d_labels_plain(vol_p, c1, m, cfg),
                  reps=3),
         'labels exact (seeds and centres after one round)',
@@ -618,7 +785,7 @@ def kernel_phases_3d(torch, vol, noise):
     records.append(_record(
         'slic3d_partials', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
         'pyimsegm_tpu/ops/slic3d_pallas.py:183', err,
-        _time_ms(lambda: slic3d_cuda.slic3d_partials(vol_p, c1, m, cfg)),
+        lambda: slic3d_cuda.slic3d_partials(vol_p, c1, m, cfg),
         _time_ms(lambda: slic3d_cuda._slic3d_partials_plain(vol_p, c1, m,
                                                             cfg), reps=3),
         'partials within rtol 1e-5 + 1e-5 x channel max',
@@ -652,8 +819,7 @@ def kernel_phases_3d(torch, vol, noise):
     records.append(_record(
         'slic3d_iterate', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
         'pyimsegm_tpu/ops/slic3d_pallas.py:183', err,
-        _time_ms(lambda: slic3d_cuda.slic3d_iterate(vol_p, c0, m, cfg,
-                                                    n_iter), reps=5),
+        lambda: slic3d_cuda.slic3d_iterate(vol_p, c0, m, cfg, n_iter),
         _time_ms(lambda: slic3d_cuda._slic3d_iterate_plain(vol_p, c0, m, cfg,
                                                            n_iter), reps=1),
         'labels equal %.6f (structured) / %.6f (noise), %d / %d voxels '
@@ -904,6 +1070,35 @@ def path_bench(torch, model, images, fixture_conn):
     return launches
 
 
+def path_noise(torch, model, fixture):
+    """The bench path's single-image call on bench.py's first two noise
+    images, with connectivity=False and at the default, against the JAX-CPU
+    outputs of ``tests/data/torch_port_fixture_noise.npz``."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    segment = pipelines.segment_color2d_slic_features_model_graphcut
+    rng = np.random.default_rng(0)
+    for i in range(2):
+        img = rng.random(CROP + (3,), dtype=np.float32)
+        out = {}
+        for conn in (False, True):
+            debug = {}
+            segm, soft = segment(
+                img, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+                gc_regul=GC_REGUL, debug_visual=debug, connectivity=conn)
+            _check_outputs(segm, soft)
+            out[conn] = (segm, debug['slic'])
+        slic_eq = float((out[False][1] == fixture['slic%d' % i]).mean())
+        enf_eq = float((out[True][1] == fixture['enforced%d' % i]).mean())
+        ars = adjusted_rand_score(out[True][0], fixture['segm%d' % i])
+        print('noise image %d vs JAX-CPU: SLIC labels equal %.6f (>= 0.999), '
+              'enforced labels equal %.6f (>= %g), segm ARS %.6f (>= 0.98)'
+              % (i, slic_eq, enf_eq, NOISE_ENFORCED_BAR, ars), flush=True)
+        if slic_eq < 0.999 or enf_eq < NOISE_ENFORCED_BAR or ars < 0.98:
+            raise AssertionError('noise image %d disagrees with the JAX '
+                                 'reference' % i)
+
+
 def path_fit(torch, images, fixture):
     """The unsupervised fit path at full width; returns the launch
     counts."""
@@ -1070,16 +1265,16 @@ def kernel_phases_wide(torch):
             if d_twin or d_12 or n != (2 if name == 'reach_absorb' else 1):
                 raise AssertionError('%s disagrees at %s' % (name, shape))
         px = shape[0] * shape[1]
-        times = (_time_ms(lambda: getattr(cc, own)(labels, seed, cfg)),
-                 _time_ms(lambda: enforce_cuda._connect_components(
-                     labels, seed.bool(), cfg), reps=2))
+        plain_ms = _time_ms(lambda: enforce_cuda._connect_components(
+            labels, seed.bool(), cfg), reps=2)
         ms12 = _time_ms(lambda: enforce_cuda.enforce_fused(labels, centers,
                                                            cfg))
         print('%s at %dx%d: row 12 on the same labels %.4f ms (seed '
               'included)' % (own, shape[0], shape[1], ms12), flush=True)
         records.append(_record(
             own, 'pyimsegm_tpu_torch/csrc/connectivity.cu', replaces, 0.0,
-            times[0], times[1], 'exact vs twin and row 12 (%d launch(es) per '
+            lambda: getattr(cc, own)(labels, seed, cfg), plain_ms,
+            'exact vs twin and row 12 (%d launch(es) per '
             'call)' % per_call,
             # i32 labels + u8 seed in, i32 labels out; per pixel one pass of
             # 4 neighbour compares and a scan step
@@ -1088,8 +1283,7 @@ def kernel_phases_wide(torch):
             records.append(_record(
                 'anchor_seed', 'pyimsegm_tpu_torch/csrc/enforce.cu',
                 'pyimsegm_tpu/ops/enforce_pallas.py:297', 0.0,
-                _time_ms(lambda: enforce_cuda.anchor_seed(labels, centers,
-                                                          cfg)),
+                lambda: enforce_cuda.anchor_seed(labels, centers, cfg),
                 _time_ms(lambda: enforce_cuda._anchor_seed_plain(
                     labels, centers, cfg), reps=3),
                 'exact',
@@ -1126,8 +1320,7 @@ def row7_phases(torch, img):
         records.append(_record(
             'grid_moments_f%d' % f, 'pyimsegm_tpu_torch/csrc/grid.cu',
             'pyimsegm_tpu/ops/grid_pallas.py:195', err,
-            _time_ms(lambda: grid_cuda.grid_moments_apply(data, labels, None,
-                                                          cfg)),
+            lambda: grid_cuda.grid_moments_apply(data, labels, None, cfg),
             _time_ms(lambda: grid_cuda._grid_moments_apply_plain(
                 data, labels, None, cfg)),
             'sums within rtol 1e-5 + 1e-5 x channel max (F = %d)' % f,
@@ -1337,7 +1530,8 @@ def main():
           flush=True)
 
     fixtures = []
-    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP):
+    for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
+                 FIXTURE_NOISE):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
@@ -1345,10 +1539,13 @@ def main():
     images = [p[0] for p in pairs]
     img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
+    enforce_cases(torch)
+    measure_rows_9_12(torch, img)
     records += fit_kernel_phases(torch, img)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])
     bench = path_bench(torch, model, images, fixtures[1])
+    path_noise(torch, model, fixtures[5])
     op = path_enforce_op(torch, img)
     fit = path_fit(torch, images, fixtures[2])
 

@@ -10,7 +10,8 @@ The file name carries a hash of the source and of the shared headers
 ``csrc/*.cuh``, so an edited kernel is rebuilt
 and a stale library is never loaded.  No PyTorch headers are compiled, which
 keeps a build to seconds; :func:`build` compiles several sources at once.  Every C entry point returns ``cudaGetLastError()``
-after its launch; :func:`check` raises when that is not ``cudaSuccess``.
+after its launch; :func:`launch` calls one on the tensor's device and
+current stream and raises (:func:`check`) when that is not ``cudaSuccess``.
 """
 
 import ctypes
@@ -117,7 +118,21 @@ def check(err, what):
 def stream_ptr(tensor):
     """The current CUDA stream of the tensor's device, as a C pointer."""
     import torch
-    return torch.cuda.current_stream(tensor.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(tensor.device.index)
+
+
+def launch(fn, what, tensor, *args):
+    """Call the C entry point ``fn(*args, stream)`` on the device of
+    ``tensor`` and its current stream (switching the current device only when
+    it differs); raise when the launch returned a CUDA error."""
+    import torch
+    index = tensor.get_device()
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    check(err, what)
 
 
 def require(tensor, name, dtype, shape=None):

@@ -22,13 +22,17 @@
 // The plain twins are in pyimsegm_tpu_torch/ops/grid_cuda.py.
 //
 // Bound: device memory.  The lookup reads 4 B of label and writes 4*C B per
-// pixel (the (K, C) table stays in L1/L2); the adjacency and the pair count
-// read 4 B of label per pixel (the down neighbour is the next row's read)
-// and write 36 B / 936 B per tile; the moments read 4 + 12 B per pixel (and
-// write 4 B of merged label) and write 324 B per tile.
-// Design: the lookup is one thread per pixel, a plain gather guarded by the
-// window test.  The other three are one block per tile.  The adjacency ORs
-// each pixel's two pair bits into one of 9 shared words picked by its own
+// pixel (the (K, C) f32 or int32 table stays in L1/L2); the adjacency and
+// the pair count read 4 B of label per pixel (the down neighbour is the
+// next row's read) and write 36 B / 936 B per tile; the moments read 4 +
+// 12 B per pixel (and write 4 B of merged label) and write 324 B per tile.
+// Design: the lookup is four neighbouring pixels per thread of a block row
+// per image row (no 64-bit division), a gather guarded by the window test,
+// templated on C (1-4, and a generic kernel) so that the stores are 16-byte
+// vectors where the layout allows; it copies 4-byte words, so f32 and int32
+// tables need no cast.  The other
+// three are one block per tile.  The adjacency ORs each pixel's two pair
+// bits into one of 9 shared words picked by its own
 // offset code; the pair count adds 1 into one of 9 x 25 shared counters per
 // boundary pair, and keeps its pixel counts per thread in registers, reduced
 // by warp shuffles before one shared add per warp (OR and integer adds are
@@ -64,23 +68,73 @@
 #define MOM_THREADS 256
 #define MOM_CH 9
 #define FULL 0xffffffffu
+#define LOOKUP_THREADS 128
+#define LOOKUP_PIXELS 4
 
-__global__ void grid_lookup_kernel(const float* __restrict__ table,  // (K, C)
-                                   const int* __restrict__ labels,   // (H, W)
-                                   float* __restrict__ out,          // (H, W, C)
-                                   int height, int width, int c, int gh, int gw,
-                                   int step) {
-    const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= (size_t)height * width) return;
-    const int y = (int)(i / width), x = (int)(i % width);
-    const int l = labels[i];
-    bool ok = l >= 0 && l < gh * gw;
-    if (ok) {
-        int dy = l / gw - y / step + 1, dx = l % gw - x / step + 1;
-        ok = dy >= 0 && dy < 3 && dx >= 0 && dx < 3;
+// The table's words are copied as bits (f32 or int32 alike; 0 is both
+// types' zero).
+__device__ __forceinline__ bool in_window(int l, int k, int gw, int ty,
+                                          int tx) {
+    if (l < 0 || l >= k) return false;
+    const int ly = l / gw, dy = ly - ty + 1, dx = l - ly * gw - tx + 1;
+    return dy >= 0 && dy < 3 && dx >= 0 && dx < 3;
+}
+
+// One block row per image row (grid-stride over rows past 65535), each
+// thread LOOKUP_PIXELS pixels of the row: the tile row is one division per
+// row, the tile column one per pixel, all in 32 bits.  At C = 1, where the
+// width is a multiple of four, a thread takes four neighbouring pixels, one
+// 16-byte load of labels and one 16-byte store; otherwise its pixels are
+// LOOKUP_THREADS apart, so that neighbouring threads write neighbouring
+// pixels, each pixel's C = 2 or 4 words as one vector.
+template <int C>
+__global__ void __launch_bounds__(LOOKUP_THREADS)
+grid_lookup_kernel(const unsigned int* __restrict__ table,  // (K, C)
+                   const int* __restrict__ labels,          // (H, W)
+                   unsigned int* __restrict__ out,          // (H, W, C)
+                   int height, int width, int c, int k, int gw, int step) {
+    const int base = blockIdx.x * LOOKUP_THREADS * LOOKUP_PIXELS;
+    const bool quad = C == 1 && width % LOOKUP_PIXELS == 0;
+    for (int y = blockIdx.y; y < height; y += gridDim.y) {
+        const size_t row = (size_t)y * width;
+        const int ty = y / step;
+        if (quad) {
+            const int x0 = base + threadIdx.x * LOOKUP_PIXELS;
+            if (x0 >= width) return;
+            const int4 l = *(const int4*)(labels + row + x0);
+            *(uint4*)(out + row + x0) = make_uint4(
+                in_window(l.x, k, gw, ty, x0 / step) ? table[l.x] : 0u,
+                in_window(l.y, k, gw, ty, (x0 + 1) / step) ? table[l.y] : 0u,
+                in_window(l.z, k, gw, ty, (x0 + 2) / step) ? table[l.z] : 0u,
+                in_window(l.w, k, gw, ty, (x0 + 3) / step) ? table[l.w]
+                                                           : 0u);
+            continue;
+        }
+        int l[LOOKUP_PIXELS];
+#pragma unroll
+        for (int j = 0; j < LOOKUP_PIXELS; ++j) {
+            const int x = base + threadIdx.x + j * LOOKUP_THREADS;
+            l[j] = x < width ? labels[row + x] : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < LOOKUP_PIXELS; ++j) {
+            const int x = base + threadIdx.x + j * LOOKUP_THREADS;
+            if (x >= width) continue;
+            const size_t i = row + x;
+            const bool ok = in_window(l[j], k, gw, ty, x / step);
+            if constexpr (C == 2) {
+                ((uint2*)out)[i] = ok ? ((const uint2*)table)[l[j]]
+                                      : make_uint2(0u, 0u);
+            } else if constexpr (C == 4) {
+                ((uint4*)out)[i] = ok ? ((const uint4*)table)[l[j]]
+                                      : make_uint4(0u, 0u, 0u, 0u);
+            } else {
+                const int n = C > 0 ? C : c;
+                for (int m = 0; m < n; ++m)
+                    out[i * n + m] = ok ? table[(size_t)l[j] * n + m] : 0u;
+            }
+        }
     }
-    for (int k = 0; k < c; ++k)
-        out[i * c + k] = ok ? table[(size_t)l * c + k] : 0.0f;
 }
 
 __device__ __forceinline__ int pair_bit(int a, int b, int gw) {
@@ -353,15 +407,39 @@ __global__ void grid_route_kernel(const float* __restrict__ partials,  // (gh, g
     out[i] = sum;
 }
 
+// table (K, C) of 4-byte words (f32 or int32), out (H, W, C) of the same.
 extern "C" int grid_lookup(const void* table, const void* labels, void* out,
                            int height, int width, int c, int gh, int gw,
                            int step, void* stream) {
-    size_t n = (size_t)height * width;
-    int threads = 256;
-    unsigned blocks = (unsigned)((n + threads - 1) / threads);
-    grid_lookup_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const float*)table, (const int*)labels, (float*)out, height, width, c,
-        gh, gw, step);
+    const int per_block = LOOKUP_THREADS * LOOKUP_PIXELS;
+    const dim3 grid((width + per_block - 1) / per_block,
+                    height < 65535 ? height : 65535);
+    cudaStream_t st = (cudaStream_t)stream;
+    const unsigned int* t = (const unsigned int*)table;
+    const int* lab = (const int*)labels;
+    unsigned int* o = (unsigned int*)out;
+    const int k = gh * gw;
+    switch (c) {
+    case 1:
+        grid_lookup_kernel<1><<<grid, LOOKUP_THREADS, 0, st>>>(
+            t, lab, o, height, width, c, k, gw, step);
+        break;
+    case 2:
+        grid_lookup_kernel<2><<<grid, LOOKUP_THREADS, 0, st>>>(
+            t, lab, o, height, width, c, k, gw, step);
+        break;
+    case 3:
+        grid_lookup_kernel<3><<<grid, LOOKUP_THREADS, 0, st>>>(
+            t, lab, o, height, width, c, k, gw, step);
+        break;
+    case 4:
+        grid_lookup_kernel<4><<<grid, LOOKUP_THREADS, 0, st>>>(
+            t, lab, o, height, width, c, k, gw, step);
+        break;
+    default:
+        grid_lookup_kernel<0><<<grid, LOOKUP_THREADS, 0, st>>>(
+            t, lab, o, height, width, c, k, gw, step);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -21,6 +21,8 @@ where the reference falls back to its XLA scans (same semantics; the card
 has no band limit).
 """
 
+import functools
+
 import torch
 
 from pyimsegm_tpu_torch import _build
@@ -80,6 +82,7 @@ def fused_fits(cfg: SlicConfig):
     return band_fits(cfg.step, cfg.pad_w, PLANES_FUSED, VMEM_FUSED)
 
 
+@functools.cache
 def _lib():
     v, i = _build.VOIDP, _build.INT
     sig = [v] * 3 + [i] * 7 + [v]
@@ -96,18 +99,15 @@ def _launch(name, n_kernels, labels, reached0, cfg: SlicConfig):
     if reached0.device != labels.device:
         raise ValueError('reached0 on %s, labels on %s'
                          % (reached0.device, labels.device))
-    dev = labels.device
     out = labels.clone()
     reached = reached0.to(torch.uint8).contiguous().clone()
     n_rounds = absorb_rounds(cfg)
-    flags = torch.zeros((MAX_SWEEPS + 1 + n_rounds + 1,), dtype=torch.int32,
-                        device=dev)
-    with torch.cuda.device(dev):
-        err = getattr(_lib(), name)(
-            out.data_ptr(), reached.data_ptr(), flags.data_ptr(), h, w,
-            cfg.grid_w, cfg.step, _pack(cfg), MAX_SWEEPS, n_rounds,
-            _build.stream_ptr(labels))
-    _build.check(err, name)
+    # zeroed by the kernels
+    flags = torch.empty((MAX_SWEEPS + 1 + n_rounds + 1,), dtype=torch.int32,
+                        device=labels.device)
+    _build.launch(getattr(_lib(), name), name, labels, out.data_ptr(),
+                  reached.data_ptr(), flags.data_ptr(), h, w, cfg.grid_w,
+                  cfg.step, _pack(cfg), MAX_SWEEPS, n_rounds)
     LAUNCHES[name] += n_kernels
     global LAST_FLAGS
     LAST_FLAGS = flags

@@ -2,11 +2,13 @@
 twin.
 
 Replaces ``pyimsegm_tpu.ops.enforce_pallas.enforce_fused_pallas`` with the
-kernels of ``csrc/enforce.cu``.  The contract is the JAX package's global
-XLA path (``pyimsegm_tpu.ops.grid.enforce_grid_connectivity`` with its
-anchor seed, ``_connect_components`` and ``_absorb_unreached``), which the
-TPU kernel equals on a single band; the card holds the whole label plane,
-so the port has no bands.
+kernels of ``csrc/enforce.cu`` (the seed) and the cooperative kernel of
+``csrc/enforce.cuh`` (the reach sweeps and absorb rounds).  The contract is
+the JAX package's global XLA path
+(``pyimsegm_tpu.ops.grid.enforce_grid_connectivity`` with its anchor seed,
+``_connect_components`` and ``_absorb_unreached``), which the TPU kernel
+equals on a single band; the card holds the whole label plane, so the port
+has no bands.
 
 1. *Anchor seed*: ``d2`` = squared distance of each pixel to its own
    label's centroid, ``d2min`` its per-superpixel minimum, and
@@ -22,9 +24,14 @@ so the port has no bands.
    seed window, and becomes reached.
 
 A converged sweep or round changes nothing, so running to the caps gives
-the early-exit result exactly; the kernels skip converged rounds on a
-device-side flag, with no host synchronisation.
+the early-exit result exactly; on the card the sweep and round loops run
+inside one cooperative kernel, which leaves a loop on a device-side flag,
+with no host synchronisation.  A reach pass is idempotent (every run that
+holds a reached pixel is full after it), so the kernel also ends the reach
+phase after the first row pass of a later sweep that changes nothing.
 """
+
+import functools
 
 import torch
 
@@ -35,19 +42,23 @@ from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 #: reach sweep cap of the reference (``connectivity_pallas.MAX_SWEEPS``)
 MAX_SWEEPS = 8
-#: kernel launches in this process (one per call: the C entry point of
-#: ``enforce_fused`` runs the seed, the reach sweeps and the absorb rounds on
-#: one stream; that of ``anchor_seed`` the seed alone, for rows 13 and 14)
+#: calls that launched their kernels in this process (``enforce_fused``: the
+#: three seed kernels, then the reach sweeps and absorb rounds in one
+#: cooperative launch; ``anchor_seed``: the seed alone, for rows 13 and 14)
 LAUNCHES = {'enforce_fused': 0, 'anchor_seed': 0}
+#: the device flags of the last ``enforce_fused`` call on the card, for
+#: measurement (``connectivity_cuda.grid_passes`` reads them)
+LAST_FLAGS = None
 
 _INF = 2 ** 30
 _NONE = -2 ** 30
 
 
+@functools.cache
 def _lib():
     v, i = _build.VOIDP, _build.INT
     return _build.load('enforce', {
-        'enforce_fused': [v] * 7 + [i] * 8 + [v],
+        'enforce_fused': [v] * 8 + [i] * 8 + [v],
         'anchor_seed': [v] * 6 + [i] * 5 + [v],
     })
 
@@ -208,12 +219,10 @@ def anchor_seed(labels, centers, cfg: SlicConfig):
     d2 = torch.empty((h, w), dtype=torch.float32, device=dev)
     tile_min = torch.empty((gh, gw, 9), dtype=torch.float32, device=dev)
     d2min = torch.empty((cfg.n_segments,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().anchor_seed(
-            centers.data_ptr(), labels.data_ptr(), reached.data_ptr(),
-            d2.data_ptr(), tile_min.data_ptr(), d2min.data_ptr(), h, w, gh,
-            gw, cfg.step, _build.stream_ptr(labels))
-    _build.check(err, 'anchor_seed')
+    _build.launch(_lib().anchor_seed, 'anchor_seed', labels,
+                  centers.data_ptr(), labels.data_ptr(), reached.data_ptr(),
+                  d2.data_ptr(), tile_min.data_ptr(), d2min.data_ptr(), h, w,
+                  gh, gw, cfg.step)
     LAUNCHES['anchor_seed'] += 1
     return reached
 
@@ -235,20 +244,21 @@ def enforce_fused(labels, centers, cfg: SlicConfig):
     centers = _build.require(centers.to(torch.float32).contiguous(),
                              'centers', torch.float32, (cfg.n_segments, 2))
     dev = labels.device
-    out = labels.clone()
+    out = torch.empty((h, w), dtype=torch.int32, device=dev)
     reached = torch.empty((h, w), dtype=torch.uint8, device=dev)
     d2 = torch.empty((h, w), dtype=torch.float32, device=dev)
     tile_min = torch.empty((gh, gw, 9), dtype=torch.float32, device=dev)
     d2min = torch.empty((cfg.n_segments,), dtype=torch.float32, device=dev)
     n_rounds = absorb_rounds(cfg)
-    flags = torch.zeros((MAX_SWEEPS + 1 + n_rounds + 1,), dtype=torch.int32,
+    # zeroed by the cooperative kernel
+    flags = torch.empty((MAX_SWEEPS + 1 + n_rounds + 1,), dtype=torch.int32,
                         device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().enforce_fused(
-            centers.data_ptr(), out.data_ptr(), reached.data_ptr(),
-            d2.data_ptr(), tile_min.data_ptr(), d2min.data_ptr(),
-            flags.data_ptr(), h, w, gh, gw, cfg.step, _pack(cfg),
-            MAX_SWEEPS, n_rounds, _build.stream_ptr(labels))
-    _build.check(err, 'enforce_fused')
+    _build.launch(_lib().enforce_fused, 'enforce_fused', labels,
+                  centers.data_ptr(), labels.data_ptr(), out.data_ptr(),
+                  reached.data_ptr(), d2.data_ptr(), tile_min.data_ptr(),
+                  d2min.data_ptr(), flags.data_ptr(), h, w, gh, gw, cfg.step,
+                  _pack(cfg), MAX_SWEEPS, n_rounds)
     LAUNCHES['enforce_fused'] += 1
+    global LAST_FLAGS
+    LAST_FLAGS = flags
     return out

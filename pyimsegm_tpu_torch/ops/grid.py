@@ -72,20 +72,18 @@ def grid_geometry_moments(feat, labels, cfg: SlicConfig):
 def grid_lookup(table, labels, cfg: SlicConfig):
     """Per-pixel ``table[labels]`` for grid-structured labels.
 
-    The table goes through f32 (integer tables such as graph labels come
-    back exactly); pixels whose label lies outside their 3x3 seed window get
-    0.
+    f32 and int32 tables are looked up as they are; any other dtype goes
+    through f32 (integer tables come back exactly below 2**24).  Pixels
+    whose label lies outside their 3x3 seed window get 0.
 
     :param table: (K,) or (K, C) tensor
     :param labels: (H, W) int32
     :returns: (H, W) or (H, W, C) tensor of ``table.dtype``
     """
-    squeeze = table.ndim == 1
-    if squeeze:
-        table = table[:, None]
-    out = grid_cuda.grid_lookup(table.to(torch.float32), labels, cfg)
-    out = out.to(table.dtype)
-    return out[..., 0] if squeeze else out
+    if table.dtype in (torch.float32, torch.int32):
+        return grid_cuda.grid_lookup(table, labels, cfg)
+    return grid_cuda.grid_lookup(table.to(torch.float32), labels,
+                                 cfg).to(table.dtype)
 
 
 def grid_segment_count(labels, cfg: SlicConfig):

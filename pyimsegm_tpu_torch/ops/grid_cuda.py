@@ -10,6 +10,8 @@ of ``csrc/grid.cu``: ``grid_reduce_pallas``, ``grid_lookup_pallas``,
 and runs its plain twin for CPU tensors.
 """
 
+import functools
+
 import torch
 
 from pyimsegm_tpu_torch import _build
@@ -20,6 +22,7 @@ LAUNCHES = {'grid_reduce': 0, 'grid_lookup': 0, 'grid_adjacency_presence': 0,
             'grid_pair_count': 0, 'grid_moments_apply': 0, 'grid_moments': 0}
 
 
+@functools.cache
 def _lib():
     v, i = _build.VOIDP, _build.INT
     return _build.load('grid', {
@@ -92,12 +95,10 @@ def grid_reduce(data, labels, cfg: SlicConfig):
     partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, f), dtype=torch.float32,
                            device=dev)
     out = torch.empty((cfg.n_segments, f), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().grid_reduce(
-            data.data_ptr(), labels.data_ptr(), partials.data_ptr(),
-            out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
-            int(data.dtype == torch.bfloat16), _build.stream_ptr(labels))
-    _build.check(err, 'grid_reduce')
+    _build.launch(_lib().grid_reduce, 'grid_reduce', labels,
+                  data.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+                  out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
+                  int(data.dtype == torch.bfloat16))
     LAUNCHES['grid_reduce'] += 1
     return out
 
@@ -113,25 +114,28 @@ def _grid_lookup_plain(table, labels, cfg: SlicConfig):
 def grid_lookup(table, labels, cfg: SlicConfig):
     """Per-pixel ``table[labels]`` for grid-structured labels.
 
-    :param table: (K, C) float32
+    :param table: (K,) or (K, C) float32 or int32; the kernel copies its
+        words as they are
     :param labels: (H, W) int32
-    :returns: (H, W, C) float32; 0 where a label is negative or outside its
-        pixel's 3x3 seed window
+    :returns: (H, W) or (H, W, C) of ``table.dtype``; 0 where a label is
+        negative, not below K or outside its pixel's 3x3 seed window
     """
+    if table.dtype not in (torch.float32, torch.int32) or table.ndim > 2 \
+            or table.shape[0] != cfg.n_segments:
+        raise ValueError('table must be (K,) or (K, C) float32 or int32, got '
+                         '%s %s' % (tuple(table.shape), table.dtype))
     if not labels.is_cuda:
-        return _grid_lookup_plain(table, labels, cfg)
+        out = _grid_lookup_plain(table.reshape(cfg.n_segments, -1), labels,
+                                 cfg)
+        return out.to(table.dtype).reshape(labels.shape + table.shape[1:])
     h, w = labels.shape
-    c = table.shape[-1]
-    table = _build.require(table.contiguous(), 'table', torch.float32,
-                           (cfg.n_segments, c))
+    table = _build.require(table.contiguous(), 'table', table.dtype)
     labels = _build.require(labels.contiguous(), 'labels', torch.int32)
-    out = torch.empty((h, w, c), dtype=torch.float32, device=labels.device)
-    with torch.cuda.device(labels.device):
-        err = _lib().grid_lookup(table.data_ptr(), labels.data_ptr(),
-                                 out.data_ptr(), h, w, c, cfg.grid_h,
-                                 cfg.grid_w, cfg.step,
-                                 _build.stream_ptr(labels))
-    _build.check(err, 'grid_lookup')
+    out = labels.new_empty(labels.shape + table.shape[1:], dtype=table.dtype)
+    _build.launch(_lib().grid_lookup, 'grid_lookup', labels,
+                  table.data_ptr(), labels.data_ptr(), out.data_ptr(), h, w,
+                  table.numel() // cfg.n_segments, cfg.grid_h, cfg.grid_w,
+                  cfg.step)
     LAUNCHES['grid_lookup'] += 1
     return out
 
@@ -185,11 +189,9 @@ def grid_adjacency_presence(labels, cfg: SlicConfig):
                             (cfg.height, cfg.width))
     words = torch.empty((cfg.grid_h, cfg.grid_w, 9), dtype=torch.int32,
                         device=labels.device)
-    with torch.cuda.device(labels.device):
-        err = _lib().grid_adjacency_presence(
-            labels.data_ptr(), words.data_ptr(), h, w, cfg.grid_h, cfg.grid_w,
-            cfg.step, _build.stream_ptr(labels))
-    _build.check(err, 'grid_adjacency_presence')
+    _build.launch(_lib().grid_adjacency_presence, 'grid_adjacency_presence',
+                  labels, labels.data_ptr(), words.data_ptr(), h, w,
+                  cfg.grid_h, cfg.grid_w, cfg.step)
     LAUNCHES['grid_adjacency_presence'] += 1
     return words
 
@@ -250,11 +252,9 @@ def grid_pair_count(labels, cfg: SlicConfig):
                        device=dev)
     counts9 = torch.empty((cfg.grid_h, cfg.grid_w, 9), dtype=torch.float32,
                           device=dev)
-    with torch.cuda.device(dev):
-        err = _lib().grid_pair_count(
-            labels.data_ptr(), cnt9.data_ptr(), counts9.data_ptr(), h, w,
-            cfg.grid_h, cfg.grid_w, cfg.step, _build.stream_ptr(labels))
-    _build.check(err, 'grid_pair_count')
+    _build.launch(_lib().grid_pair_count, 'grid_pair_count', labels,
+                  labels.data_ptr(), cnt9.data_ptr(), counts9.data_ptr(), h,
+                  w, cfg.grid_h, cfg.grid_w, cfg.step)
     LAUNCHES['grid_pair_count'] += 1
     return cnt9, counts9
 
@@ -338,12 +338,10 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
                                dtype=torch.float32, device=dev)
         out = torch.empty((cfg.n_segments, nch), dtype=torch.float32,
                           device=dev)
-        with torch.cuda.device(dev):
-            err = _lib().grid_moments(
-                feat.data_ptr(), labels.data_ptr(), partials.data_ptr(),
-                out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
-                _build.stream_ptr(labels))
-        _build.check(err, 'grid_moments')
+        _build.launch(_lib().grid_moments, 'grid_moments', labels,
+                      feat.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+                      out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w,
+                      cfg.step)
         LAUNCHES['grid_moments'] += 1
         return labels, out
     partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, 9),
@@ -351,11 +349,9 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
     donor = _build.require(donor.to(torch.int32).contiguous(), 'donor',
                            torch.int32, (cfg.n_segments,))
     merged = torch.empty_like(labels)
-    with torch.cuda.device(dev):
-        err = _lib().grid_moments_apply(
-            feat.data_ptr(), labels.data_ptr(), donor.data_ptr(),
-            merged.data_ptr(), partials.data_ptr(), h, w, cfg.grid_h,
-            cfg.grid_w, cfg.step, _build.stream_ptr(labels))
-    _build.check(err, 'grid_moments_apply')
+    _build.launch(_lib().grid_moments_apply, 'grid_moments_apply', labels,
+                  feat.data_ptr(), labels.data_ptr(), donor.data_ptr(),
+                  merged.data_ptr(), partials.data_ptr(), h, w, cfg.grid_h,
+                  cfg.grid_w, cfg.step)
     LAUNCHES['grid_moments_apply'] += 1
     return merged, _route_moments(partials)

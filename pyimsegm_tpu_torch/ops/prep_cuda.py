@@ -6,6 +6,8 @@ and runs :func:`_blur_lab_plain` for a CPU tensor.  Both follow
 kernel it replaces is ``pyimsegm_tpu.ops.prep_pallas.blur_lab_pallas``).
 """
 
+import functools
+
 import torch
 
 from pyimsegm_tpu_torch import _build
@@ -16,6 +18,7 @@ _RADIUS = 4  # int(4 * sigma + 0.5) for sigma = 1, fixed in the kernel
 LAUNCHES = 0
 
 
+@functools.cache
 def _lib():
     return _build.load('prep', {'blur_lab': [_build.VOIDP] * 4
                                 + [_build.INT] * 2 + [_build.VOIDP]})
@@ -36,10 +39,8 @@ def blur_lab(image):
     lohi = torch.stack(torch.aminmax(img))
     taps = _gaussian_kernel1d(1.0, _RADIUS, img.device)
     out = torch.empty((3, h, w), dtype=torch.bfloat16, device=img.device)
-    with torch.cuda.device(img.device):
-        err = _lib().blur_lab(img.data_ptr(), lohi.data_ptr(), taps.data_ptr(),
-                              out.data_ptr(), h, w, _build.stream_ptr(img))
-    _build.check(err, 'blur_lab')
+    _build.launch(_lib().blur_lab, 'blur_lab', img, img.data_ptr(),
+                  lohi.data_ptr(), taps.data_ptr(), out.data_ptr(), h, w)
     LAUNCHES += 1
     return out
 

@@ -18,6 +18,7 @@ its kernel for CUDA tensors and runs the plain twin (``_assign3d_plain``,
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -32,6 +33,7 @@ LAUNCHES = {'slic3d_labels': 0, 'slic3d_partials': 0, 'slic3d_iterate': 0}
 _BIG = 1e10
 
 
+@functools.cache
 def _lib():
     v, i, f = _build.VOIDP, _build.INT, _build.FLOAT
     return _build.load('slic3d', {

@@ -25,6 +25,7 @@ the plain twins (``_assign_plain``, ``_pool_plain``,
 """
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +43,7 @@ LAUNCHES = {'slic_multi_update': 0, 'slic_multi_update_slico': 0,
             'slic_update': 0}
 
 
+@functools.cache
 def _lib():
     v, i, f = _build.VOIDP, _build.INT, _build.FLOAT
     return _build.load('slic', {

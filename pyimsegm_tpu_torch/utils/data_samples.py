@@ -74,3 +74,24 @@ def sample_gray_volume_3d(vol_size=(48, 640, 768), rand_seed=0, noise=0.05):
     vol = np.asarray(GRAY_LEVELS_3D, np.float32)[seg]
     vol += rng.normal(0.0, noise, vol.shape).astype(np.float32)
     return vol, seg
+
+
+def sample_serpentine_labels(step=16, n_tiles=(4, 5)):
+    """Grid-structured labels that need more reach sweeps than the
+    connectivity enforcement's cap (8): the superpixel of seed (1, 1) is a
+    one-pixel-wide serpentine over the 3 x 3 tiles around it (``3 * step /
+    2`` rows joined at alternate ends, so a sweep reaches one more row in
+    each direction); every other pixel is labelled by its own tile's seed.
+
+    :returns: (H, W) int32 labels, (H, W) = ``n_tiles * step``
+    """
+    gh, gw = n_tiles
+    ty = np.arange(gh * step)[:, None] // step
+    tx = np.arange(gw * step)[None, :] // step
+    labels = (ty * gw + tx).astype(np.int32)
+    span, target = 3 * step, gw + 1
+    for k, y in enumerate(range(0, span, 2)):
+        labels[y, :span] = target
+        if y + 2 < span:
+            labels[y + 1, span - 1 if k % 2 == 0 else 0] = target
+    return labels

@@ -1,6 +1,7 @@
 """The port's random forest and classification helpers vs the JAX package
 on the CPU: prediction with carried parameters (exact up to the mean's
-rounding), the fit by accuracy (the random draws differ), and the CV folds,
+rounding), the fit by accuracy (the random draws differ; also on classes
+that overlap), and the CV folds,
 balancing, datasets and search candidates (numpy draws, exact)."""
 
 from unittest import mock
@@ -13,6 +14,7 @@ import torch
 
 from pyimsegm_tpu import classification as jclf
 from pyimsegm_tpu.models import forest as jforest
+from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
 from pyimsegm_tpu_torch import classification as tclf
 from pyimsegm_tpu_torch.models import forest as tforest
 
@@ -87,6 +89,37 @@ def test_fit_accuracy_matches_jax(name):
     proba = ct.predict_proba(torch.as_tensor(x))
     assert isinstance(proba, torch.Tensor) and proba.shape == (len(x), 3)
     np.testing.assert_allclose(proba.sum(dim=1).numpy(), 1.0, atol=1e-5)
+
+
+def _noisy_pixels(seeds, size=(48, 64)):
+    """Per-pixel RGB of ``sample_color_image_rand_segment`` images with
+    added N(0, 0.2) noise, so that the class colours overlap (each image
+    also draws its own class colours), and the class ids 1..3."""
+    xs, ys = [], []
+    for s in seeds:
+        img, seg = sample_color_image_rand_segment(size, 3, rand_seed=s)
+        img = img + np.random.default_rng(100 + s).normal(scale=0.2,
+                                                           size=img.shape)
+        xs.append(img.reshape(-1, 3).astype(np.float32))
+        ys.append(seg.reshape(-1) + 1)
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def test_forest_fit_on_overlapping_classes_matches_jax():
+    """A training set where the classes overlap: the forests' accuracies
+    differ from 1.0, and the port's stays within 0.02 of JAX's on the
+    training half and on the held-out half."""
+    x, y = _noisy_pixels((0, 1, 2))
+    cj = jclf.Classifier('RandForest', seed=0).fit(x[0::2], y[0::2])
+    ct = tclf.Classifier('RandForest', seed=0, device='cpu').fit(x[0::2],
+                                                                 y[0::2])
+    for part in (slice(0, None, 2), slice(1, None, 2)):
+        acc_j, acc_t = cj.score(x[part], y[part]), ct.score(x[part], y[part])
+        print('forest accuracy on overlapping classes (%s half): JAX %.4f, '
+              'port %.4f' % ('training' if part.start == 0 else 'held-out',
+                             acc_j, acc_t))
+        assert 0.5 < acc_j < 0.98
+        assert acc_t >= acc_j - 0.02
 
 
 def test_fit_deterministic_for_a_seed():

@@ -28,6 +28,7 @@ from pyimsegm_tpu_torch.ops import enforce_cuda
 from pyimsegm_tpu_torch.ops import grid as tgrid
 from pyimsegm_tpu_torch.ops import grid_cuda
 from pyimsegm_tpu_torch.ops import slic as tslic
+from pyimsegm_tpu_torch.utils.data_samples import sample_serpentine_labels
 
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -138,6 +139,43 @@ def test_enforce_with_empty_superpixel_matches_jax():
     out = tgrid.enforce_grid_connectivity(torch.as_tensor(lab), tcfg,
                                           min_size=MIN_SIZE).numpy()
     np.testing.assert_array_equal(out, ref)
+
+
+#: row 12's cases beyond the SLIC scenes above (``chip_smoke.py`` holds the
+#: kernel against its twin on the same, ``chip_smoke.ENFORCE_CASES``):
+#: (image kind, shape, sp_size) of fragmented noise labels and of a tall
+#: image (the card's route has no bound on the height), and the serpentine
+#: labels that need more reach sweeps than the cap
+CASES = {'noise': ('noise', (128, 160), 8),
+         'tall': ('scene', (2700, 48), 16),
+         'caps': ('serpentine', (64, 80), 16)}
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_enforce_cases_match_jax(case):
+    kind, shape, sp = CASES[case]
+    cfg = jslic.slic_config(*shape, sp)
+    tcfg = tslic.slic_config(*shape, sp)
+    if kind == 'serpentine':
+        labels = sample_serpentine_labels(sp)
+    else:
+        img = (np.random.RandomState(7).rand(*shape, 3).astype(np.float32)
+               if kind == 'noise' else
+               sample_color_image_rand_segment(shape, 3, rand_seed=2)[0])
+        labels = np.asarray(jslic.slic_segment(
+            jnp.asarray(img), cfg, jslic.compactness_from_regul(sp, 0.2)))
+    assert labels.shape == shape
+    ref = np.asarray(jgrid.enforce_grid_connectivity(jnp.asarray(labels),
+                                                     cfg))
+    out = tgrid.enforce_grid_connectivity(torch.as_tensor(labels), tcfg)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    assert (ref != labels).any()
+    if case == 'caps':
+        # the sweep cap binds: without it the labels differ
+        with mock.patch.object(enforce_cuda, 'MAX_SWEEPS', 64):
+            free = tgrid.enforce_grid_connectivity(torch.as_tensor(labels),
+                                                   tcfg).numpy()
+        assert (free != ref).any()
 
 
 def test_enforced_output_connected_and_window_valid(raw):

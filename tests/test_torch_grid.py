@@ -100,6 +100,37 @@ def test_grid_lookup_int_table_and_invalid_labels(scene):
                               tcfg).numpy(), pal)
 
 
+@pytest.mark.parametrize('dtype,c', [(np.int32, 1), (np.float32, 1),
+                                     (np.float32, 4)],
+                         ids=['C1-int32', 'C1-f32', 'C4-f32'])
+def test_grid_lookup_main_path_tables_match_jax_and_pallas(scene, dtype, c):
+    """Row 9 at the main path's C = 1 (the min-size merge's int32 donor
+    table) and C = 4 (the batch's [graph label, proba] table), on labels
+    with negative, out-of-range and out-of-window ids: the kernel's twin
+    keeps the table's dtype and equals the JAX lookup and the Pallas kernel
+    in interpret mode."""
+    labels, cfg, tcfg = scene
+    bad = _damaged(labels, cfg, seed=6)
+    rng = np.random.default_rng(7)
+    if dtype == np.int32:
+        table = rng.integers(-1, cfg.n_segments + 2, (cfg.n_segments, c))
+    else:
+        table = rng.random((cfg.n_segments, c))
+    table = table.astype(dtype)
+    out = grid_cuda.grid_lookup(torch.as_tensor(table), torch.as_tensor(bad),
+                                tcfg)
+    assert out.dtype == torch.as_tensor(table).dtype
+    ref = np.asarray(jgrid.grid_lookup(jnp.asarray(table), jnp.asarray(bad),
+                                       cfg))
+    np.testing.assert_array_equal(out.numpy(), ref)
+    pal = _pallas_interpret(grid_pallas.grid_lookup_pallas,
+                            jnp.asarray(table), jnp.asarray(bad), cfg)
+    np.testing.assert_array_equal(out.numpy(), pal.astype(dtype))
+    squeezed = tgrid.grid_lookup(torch.as_tensor(table[:, 0]),
+                                 torch.as_tensor(bad), tcfg)
+    np.testing.assert_array_equal(squeezed.numpy(), ref[..., 0])
+
+
 @pytest.mark.parametrize('damage', [False, True], ids=['slic', 'damaged'])
 def test_grid_adjacency_matches_jax_and_pallas(scene, damage):
     labels, cfg, tcfg = scene

@@ -42,17 +42,23 @@ then segments image 0 and stores two files:
   segmented with it (gc_regul 5.0): the enforced SLIC labels ``slic``
   (int16), the (K, F) ``features`` and their ``names``, ``proba``, the
   segmentation ``segm`` (uint8) and its ARS against the annotation
-  (``ars_annot``).
+  (``ars_annot``);
+* ``torch_port_fixture_noise.npz``: the first two images of ``bench.py``'s
+  noise fallback (``default_rng(0)``, 884x1200) segmented with the group
+  model of ``torch_port_fixture.npz``: for image i, the SLIC labels
+  ``slic<i>`` of the ``connectivity=False`` call, and the enforced labels
+  ``enforced<i>`` (int16) and segmentation ``segm<i>`` (uint8) of the
+  default call.
 
 A file whose arrays are unchanged is not rewritten, so its bytes stay as
 committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
 JAX.
 
 Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
-``--only-sup`` the supervised one)::
+``--only-sup`` the supervised one, ``--only-noise`` the noise one)::
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [--only-3d | --only-sup]
+        [--only-3d | --only-sup | --only-noise]
 """
 
 import os
@@ -66,6 +72,8 @@ OUT_CONN = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_conn.npz')
 OUT_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 OUT_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 OUT_SUP = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_sup.npz')
+OUT_NOISE = os.path.join(ROOT, 'tests', 'data',
+                         'torch_port_fixture_noise.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -111,6 +119,13 @@ def main():
     if '--only-sup' in sys.argv[1:]:
         _save(OUT_SUP, _sup_outputs(pipelines))
         return
+    if '--only-noise' in sys.argv[1:]:
+        model = _group_model(pipelines)
+        with np.load(OUT) as old:
+            for k, v in _model_arrays(model).items():
+                np.testing.assert_array_equal(old[k], v)
+        _save(OUT_NOISE, _noise_outputs(pipelines, model))
+        return
     arrays_3d = {}
     for case in CASES_3D:
         arrays_3d.update(_gray3d_outputs(pipelines, *case))
@@ -119,8 +134,7 @@ def main():
         return
     imgs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)[0]
             for s in (0, 1)]
-    model, _ = pipelines.estim_model_classes_group(
-        imgs, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL)
+    model = _group_model(pipelines)
     outputs = {}
     for conn in (False, True):
         dv = {}
@@ -134,6 +148,35 @@ def main():
     _save(OUT_CONN, outputs[True])
     _save(OUT_FIT, _fit_outputs(pipelines, imgs[0]))
     _save(OUT_SUP, _sup_outputs(pipelines))
+    _save(OUT_NOISE, _noise_outputs(pipelines, model))
+
+
+def _group_model(pipelines):
+    """The group class model over synthetic images 0 and 1."""
+    from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+    imgs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)[0]
+            for s in (0, 1)]
+    return pipelines.estim_model_classes_group(
+        imgs, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL)[0]
+
+
+def _noise_outputs(pipelines, model):
+    """bench.py's first two noise images through the bench-path call."""
+    rng = np.random.default_rng(0)
+    arrays = {}
+    for i in range(2):
+        img = rng.random(CROP + (3,), dtype=np.float32)
+        for conn in (False, True):
+            dv = {}
+            segm, _ = pipelines.segment_color2d_slic_features_model_graphcut(
+                img, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+                gc_regul=GC_REGUL, debug_visual=dv, connectivity=conn)
+            if conn:
+                arrays['enforced%d' % i] = np.asarray(dv['slic'], np.int16)
+                arrays['segm%d' % i] = np.asarray(segm).astype(np.uint8)
+            else:
+                arrays['slic%d' % i] = np.asarray(dv['slic'], np.int16)
+    return arrays
 
 
 def _model_arrays(model):

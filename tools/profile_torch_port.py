@@ -41,10 +41,16 @@ the enforcement); its stages (upload, slic, enforce, geometry, features,
 predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
 ranges, read as for ``--path 3d``.
 
+``--path kernels`` measures kernel rows 9 and 12 as the paths call them
+(``chip_smoke.measure_rows_9_12``: call ms, device ms and CUDA kernel
+launches per call, on the bench labels of image 0 and of the noise image),
+with the package of the checkout at ``--root`` (this one by default), so
+that one call on the card can measure two checkouts in turns.
+
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
-        [--path bench|fit|3d|sup]
+        [--path bench|fit|3d|sup|kernels] [--root CHECKOUT]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -317,16 +323,18 @@ def _profile(torch, run, out_dir, kind):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
-    parser.add_argument('--path', choices=('bench', 'fit', '3d', 'sup'),
-                        default='bench')
+    parser.add_argument('--path', choices=('bench', 'fit', '3d', 'sup',
+                                           'kernels'), default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
+    parser.add_argument('--root', default=ROOT,
+                        help='checkout whose package is measured')
     args = parser.parse_args()
 
     import torch
     if not torch.cuda.is_available():
         raise SystemExit('profile_torch_port: no CUDA device')
-    sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.abspath(args.root))
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.parallel import batch
     from pyimsegm_tpu_torch.utils.data_samples import (
@@ -335,6 +343,17 @@ def main():
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip())
+    if args.path == 'kernels':
+        import importlib.util
+        spec = importlib.util.spec_from_file_location(
+            'chip_smoke', os.path.join(ROOT, 'chip_smoke.py'))
+        chip_smoke = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(chip_smoke)
+        print('package of %s' % os.path.abspath(args.root))
+        chip_smoke.measure_rows_9_12(torch, torch.as_tensor(
+            sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
+            device='cuda'))
+        return
     os.makedirs(args.out, exist_ok=True)
     with np.load(os.path.join(ROOT, 'tests', 'data',
                               'torch_port_fixture.npz')) as npz:
