@@ -18,10 +18,15 @@ Phases (any failure raises and exits non-zero):
    labels and on damaged labels; row 12 exact on the noise image's labels
    and on ``ENFORCE_CASES`` (fragmented noise labels, a tall image, the
    serpentine labels that need more reach sweeps than the cap, which must
-   stop at the cap); then, for rows 9 and 12 as the paths call them, the
-   call ms, the device ms and the CUDA kernels per call from
-   ``torch.profiler`` on the labels of image 0 and of the noise image, row 9
-   at C = 1 and 4 beside ``table[index]`` (``measure_rows_9_12``);
+   stop at the cap); rows 2 (plain and SLICO, centres within 1e-3) and 8
+   (merged labels exact, sums within rtol 1e-5) again at an odd geometry,
+   883x1197 (the width not a multiple of 4, the last tile row and column
+   partial), from seeds of which one wins no pixel, whose empty cluster must
+   keep its centre; every row 2 call must be one C call of the wrapper;
+   then, for rows 2, 8, 9 and 12 as the paths call them, the call ms, the
+   device ms and the CUDA kernels per call from ``torch.profiler`` on the
+   labels of image 0 and of the noise image, row 9 at C = 1 and 4 beside
+   ``table[index]`` (``measure_path_kernels``);
 4. the ``connectivity=False`` path: three synthetic 884x1200 images through
    ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
    with the GMM class model of ``tests/data/torch_port_fixture.npz``; each
@@ -32,7 +37,8 @@ Phases (any failure raises and exits non-zero):
    (ARS >= 0.98, enforced labels >= 0.999 equal), then eight images through
    ``parallel.batch.segment_images_batch``, image i equal to the
    single-image call on image i; all eight kernels of the path must have
-   launched; warm ms per image and MPix/s; then ``bench.py``'s first two
+   launched, the SLIC schedule once per image; warm ms per image and
+   MPix/s; then ``bench.py``'s first two
    noise images against ``tests/data/torch_port_fixture_noise.npz`` (SLIC
    labels >= 0.999, enforced labels >= ``NOISE_ENFORCED_BAR``, ARS >= 0.98);
 6. the enforcement op with centroids reduced from the labels
@@ -76,7 +82,8 @@ Phases (any failure raises and exits non-zero):
    (``reach_absorb_fused``, 2048x3600) at sp_size 35 on the SLIC kernels'
    labels of a synthetic tile, from the anchor seed, each against its twin
    and against row 12 on the same labels and centres (exact), with the
-   launches per call and the grid passes run; (b) row 7 at F = 18 and 60
+   launches per call and the grid passes run, and row 2's schedule, plain
+   and SLICO, on each tile against its twin (centres within 1e-3); (b) row 7 at F = 18 and 60
    against its twin; (c) config 2 at the bench geometry with the JAX-trained
    forest of ``tests/data/torch_port_fixture_sup.npz`` carried across,
    against the fixture's image 0 (enforced labels >= 0.999 equal, feature
@@ -97,7 +104,9 @@ bound: the larger of the bytes it must move (each input read once, each
 output written once) over 3.35 TB/s and the f32 operations it does on this
 run's inputs (counted per element as stated where the record is made, no
 FMA) over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; and, where
-one PyTorch call computes the same function, that call's time.
+one PyTorch call computes the same function, that call's time (row 8:
+the sum of its two, the guarded ``donor[labels]`` and the ``index_add_`` of
+the moments, each printed).
 """
 
 import json
@@ -157,6 +166,10 @@ FEATURES_TLM = {'color': ['mean', 'std', 'energy'],
 GC_REGUL_SUP = 5.0
 #: whole-slide tiles on the routes of rows 14 and 13 at sp_size 35
 TILE_14, TILE_13 = (2048, 3600), (4096, 4096)
+#: an odd geometry at sp_size 35: the width not a multiple of 4 (row 8's
+#: scalar path) and the last tile row and column partial; and the seed moved
+#: off the image's colours there, so that it wins no pixel
+ODD, EMPTY_SEED = (883, 1197), (10, 10)
 
 
 def _time_ms(fn, reps=REPS):
@@ -200,19 +213,23 @@ def _profiled(torch, fn, reps=5, tries=3):
     return float('nan'), float('nan')
 
 
-def measure_rows_9_12(torch, img):
-    """Rows 9 and 12 as the paths call them (``ops.grid.grid_lookup``,
-    ``ops.enforce_cuda.enforce_fused``) on the SLIC kernels' labels of image
-    0 and of ``bench.py``'s first noise image: per call the call ms (CUDA
-    events around REPS calls, as ``_time_ms``), the device ms and the CUDA
-    kernel launches (``_profiled``); row 9 at C = 1 (the min-size merge's
-    int32 donor table, and f32), 3 and 4, beside ``table[index]``.  Prints
-    one ``rows_9_12`` JSON line and returns its dict."""
-    from pyimsegm_tpu_torch.ops import enforce_cuda
+def measure_path_kernels(torch, img):
+    """Rows 2, 8, 9 and 12 as the paths call them
+    (``ops.slic_cuda.slic_multi_update``, ``ops.grid_cuda.grid_moments_apply``
+    with the min-size donor table, ``ops.grid.grid_lookup``,
+    ``ops.enforce_cuda.enforce_fused``) on image 0 and ``bench.py``'s first
+    noise image (rows 8, 9 and 12 on the SLIC kernels' labels): per call the
+    call ms (CUDA events around REPS calls, as ``_time_ms``), the device ms
+    and the CUDA kernel launches (``_profiled``); row 2 plain and SLICO; row
+    9 at C = 1 (the min-size merge's int32 donor table, and f32), 3 and 4,
+    beside ``table[index]``.  Prints one ``path_kernels`` JSON line and
+    returns its dict."""
+    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda, slic_cuda
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     from pyimsegm_tpu_torch.ops import slic as slic_ops
     cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
     m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
     noise = torch.as_tensor(np.random.default_rng(0).random(
         CROP + (3,), dtype=np.float32), device=img.device)
     out = {}
@@ -222,6 +239,24 @@ def measure_rows_9_12(torch, img):
             image, image, cfg, m)
         index = labels.long()
         row = {}
+        lab_chw, centers0 = slic_ops._prepare_chw(image, cfg)
+        for slico in (False, True):
+            def schedule():
+                return slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg,
+                                                   n_upd, slico=slico)
+            row['slic_multi_update' + ('_slico' if slico else '')] = (
+                _time_ms(schedule), *_profiled(torch, schedule))
+        enf = grid_ops.enforce_grid_connectivity(labels, cfg,
+                                                 centers=centers)
+        counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
+        donor = grid_ops.donor_chain_table(
+            counts, sym25, cfg.grid_h, cfg.grid_w,
+            int(0.5 * cfg.step * cfg.step), counts9=counts9)
+
+        def moments():
+            return grid_cuda.grid_moments_apply(image, enf, donor, cfg)
+        row['grid_moments_apply'] = (_time_ms(moments),
+                                     *_profiled(torch, moments))
         tables = {
             'C1_int32': torch.arange(cfg.n_segments, dtype=torch.int32,
                                      device=img.device).flip(0),
@@ -244,7 +279,7 @@ def measure_rows_9_12(torch, img):
             *_profiled(torch, lambda: enforce_cuda.enforce_fused(
                 labels, centers, cfg)))
         out[name] = row
-    print('rows_9_12 (call ms, device ms, kernel launches per call) %s'
+    print('path_kernels (call ms, device ms, kernel launches per call) %s'
           % json.dumps(out), flush=True)
     return out
 
@@ -320,7 +355,8 @@ def kernel_phases(torch, img):
 
     lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
     n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
-    cen_k = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd)
+    cen_k = _one_schedule(lambda: slic_cuda.slic_multi_update(
+        lab_chw, centers0, m, cfg, n_upd))
     cen_p = slic_cuda._slic_multi_update_plain(lab_chw, centers0, m, cfg,
                                                n_upd)
     torch.cuda.synchronize()
@@ -489,6 +525,99 @@ def _sums_agree(got, want):
             float(diff.max()))
 
 
+def _one_schedule(fn):
+    """``fn()``, failing unless it made exactly one C call of row 2 (the
+    wrapper's counters)."""
+    from pyimsegm_tpu_torch.ops import slic_cuda
+    keys = ('slic_multi_update', 'slic_multi_update_slico')
+    before = sum(slic_cuda.LAUNCHES[k] for k in keys)
+    out = fn()
+    calls = sum(slic_cuda.LAUNCHES[k] for k in keys) - before
+    if calls != 1:
+        raise AssertionError('slic_multi_update: %d C calls for one '
+                             'schedule' % calls)
+    return out
+
+
+def check_schedule(torch, lab_chw, centers0, m, cfg, where, empty=None,
+                   n_upd=None):
+    """Row 2, plain and SLICO, against its twin: centres within 1e-3, M
+    within 1e-3 relative, one C call per schedule of ``n_upd`` rounds (the
+    path's count by default); with ``empty`` that seed's cluster must stay
+    empty and keep its centre (M = 1 after a round).  Returns the largest
+    centre difference."""
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.ops import slic_cuda
+    if n_upd is None:
+        n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
+    err = 0.0
+    for slico in (False, True):
+        got = _one_schedule(lambda: slic_cuda.slic_multi_update(
+            lab_chw, centers0, m, cfg, n_upd, slico=slico))
+        want = slic_cuda._slic_multi_update_plain(lab_chw, centers0, m, cfg,
+                                                  n_upd, slico)
+        torch.cuda.synchronize()
+        e = float((got[..., :5] - want[..., :5]).abs().max())
+        m_rel = (float(((got[..., 5] - want[..., 5]).abs()
+                        / want[..., 5]).max()) if slico else 0.0)
+        kept = empty is None or (
+            torch.equal(got[empty][:5], centers0[empty])
+            and (not slico or n_upd == 0 or float(got[empty][5]) == 1.0))
+        print('slic_multi_update%s at %s, %d rounds: centres within %.3g, M '
+              'within %.3g relative (tol 1e-3), one C call%s'
+              % (' SLICO' if slico else '', where, n_upd, e, m_rel,
+                 '' if empty is None else ', empty cluster %s kept its '
+                 'centre: %s' % (empty, kept)), flush=True)
+        if not (e <= 1e-3 and m_rel <= 1e-3 and kept):
+            raise AssertionError('slic_multi_update%s disagrees at %s'
+                                 % (' SLICO' if slico else '', where))
+        err = max(err, e)
+    return err
+
+
+def odd_geometry_phases(torch):
+    """Rows 2 and 8 against their twins at ODD: the schedule from seeds of
+    which one wins no pixel, the donor apply + moments with the min-size
+    and the window donor tables on the enforced SLIC kernels' labels."""
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    img = torch.as_tensor(sample_color_image_rand_segment(
+        ODD, 3, rand_seed=0)[0], device=DEVICE)
+    cfg = slic_ops.slic_config(ODD[0], ODD[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
+    centers0 = centers0.clone()
+    centers0[EMPTY_SEED + (0,)] = 1000.0          # L far beyond the image's
+    for n_upd in (0, 1, None):
+        check_schedule(torch, lab_chw, centers0, m, cfg, '%dx%d' % ODD,
+                       empty=EMPTY_SEED, n_upd=n_upd)
+    labels, _, centers, _ = slic_ops.slic_segment_with_features(img, img,
+                                                                cfg, m)
+    enf = grid_ops.enforce_grid_connectivity(labels, cfg, centers=centers)
+    counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
+    donor = grid_ops.donor_chain_table(counts, sym25, cfg.grid_h, cfg.grid_w,
+                                       int(0.5 * cfg.step * cfg.step),
+                                       counts9=counts9)
+    for name, table in (('chain', donor),
+                        ('window', _window_donor(torch, cfg, DEVICE))):
+        lab_k, sums_k = grid_cuda.grid_moments_apply(img, enf, table, cfg)
+        lab_p, sums_p = grid_cuda._grid_moments_apply_plain(img, enf, table,
+                                                            cfg)
+        torch.cuda.synchronize()
+        ok, diff = _sums_agree(sums_k, sums_p)
+        n_diff = int((lab_k != lab_p).sum())
+        print('grid_moments_apply at %dx%d, %s donors: %d px merged, %d '
+              'labels differ from the twin, sums max diff %g (rtol 1e-5)'
+              % (ODD[0], ODD[1], name, int((lab_k != enf).sum()), n_diff,
+                 diff), flush=True)
+        if n_diff or not ok:
+            raise AssertionError('grid_moments_apply disagrees at %dx%d'
+                                 % ODD)
+
+
 def _window_donor(torch, cfg, device):
     """A donor table of random seeds within +-1 grid cell: most pixels merge,
     those whose tile lies further from the donor keep their label."""
@@ -578,6 +707,7 @@ def enforce_phases(torch, img, labels, centers, cfg):
                                        min_size, counts9=counts9)
     merges = []
     err = 0.0
+    merged = grid_cuda.grid_moments_apply(img, enf, donor, cfg)[0]
     for table in (donor, _window_donor(torch, cfg, img.device)):
         lab_k, sums_k = grid_cuda.grid_moments_apply(img, enf, table, cfg)
         lab_p, sums_p = grid_cuda._grid_moments_apply_plain(img, enf, table,
@@ -590,6 +720,25 @@ def enforce_phases(torch, img, labels, centers, cfg):
                                                   diff))
         merges.append(int((lab_k != enf).sum()))
         err = max(err, diff)
+    # the library yardstick: donor[labels] with the window guard, then the
+    # index_add_ of the moments over the merged labels
+    index, donor64 = enf.long(), donor.long()
+    ty = torch.arange(CROP[0], device=img.device)[:, None] // cfg.step
+    tx = torch.arange(CROP[1], device=img.device)[None, :] // cfg.step
+
+    def guarded_donor():
+        new = donor64[index]
+        ok = (new >= 0) & ((new // cfg.grid_w - ty).abs() <= 1) \
+            & ((new % cfg.grid_w - tx).abs() <= 1)
+        return torch.where(ok, new, index)
+
+    merged_flat = merged.reshape(-1).long()
+    library = (_time_ms(guarded_donor),
+               _time_ms(lambda: torch.zeros((k, 9), device=img.device)
+                        .index_add_(0, merged_flat, moment_data)))
+    print('grid_moments_apply library yardstick: donor[labels] with the '
+          'window guard %.4f ms + index_add_ of the moments %.4f ms'
+          % library, flush=True)
     records.append(_record(
         'grid_moments_apply', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:302', err,
@@ -598,9 +747,10 @@ def enforce_phases(torch, img, labels, centers, cfg):
                                                              cfg)),
         'labels exact (%d / %d px merged: chain / window donors), sums '
         'within rtol 1e-5' % tuple(merges),
-        # f32 RGB + i32 labels + donor table in, labels + (K, 9) sums out;
-        # per pixel a donor lookup, 3 squares and 9 sums
-        px * (12 + 4 + 4) + k * 4 + k * 9 * 4, px * (1 + 3 + 9)))
+        # f32 RGB + i32 labels + i64 donor table in, labels + (K, 9) sums
+        # out; per pixel a donor lookup, 3 squares and 9 sums
+        px * (12 + 4 + 4) + k * 8 + k * 9 * 4, px * (1 + 3 + 9),
+        sum(library)))
 
     sums_k = grid_cuda.grid_moments_apply(img, enf, None, cfg)[1]
     sums_p = grid_cuda._grid_moments_apply_plain(img, enf, None, cfg)[1]
@@ -641,8 +791,8 @@ def fit_kernel_phases(torch, img):
         name = 'slic_assign_slico' if slico else 'slic_assign'
         c = cen
         if slico:
-            c = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd,
-                                            slico=True)
+            c = _one_schedule(lambda: slic_cuda.slic_multi_update(
+                lab_chw, centers0, m, cfg, n_upd, slico=True))
             c_p = slic_cuda._slic_multi_update_plain(lab_chw, centers0, m,
                                                      cfg, n_upd, slico=True)
             torch.cuda.synchronize()
@@ -943,7 +1093,7 @@ PATH_FALSE = ('blur_lab', 'slic_multi_update', 'slic_update_labels',
 PATH_BENCH = PATH_FALSE + ('grid_pair_count', 'grid_moments_apply',
                            'enforce_fused')
 PATH_OP = ('enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_lookup')
-PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_update', 'slic_assign',
+PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_assign',
             'enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_reduce',
             'grid_lookup', 'grid_adjacency_presence',
             'slic_multi_update_slico', 'slic_assign_slico')
@@ -1048,6 +1198,10 @@ def path_bench(torch, model, images, fixture_conn):
     (singles, debug, (segms, probs)), launches = _drive(
         'bench path', PATH_BENCH, run,
         forbidden=('reach_absorb', 'reach_absorb_fused', 'anchor_seed'))
+    if launches['slic_multi_update'] != launches['slic_update_labels']:
+        raise AssertionError('bench path: %d SLIC schedule calls for %d '
+                             'images' % (launches['slic_multi_update'],
+                                         launches['slic_update_labels']))
     for segm, soft in singles:
         _check_outputs(segm, soft)
     _agreement('connectivity=True', singles[0][0], debug['slic'],
@@ -1232,8 +1386,12 @@ def kernel_phases_wide(torch):
                         'connectivity_pallas.py:379', 1),
               TILE_13: ('reach_absorb', 'pyimsegm_tpu/ops/'
                         'connectivity_pallas.py:310', 2)}
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
     for shape, (own, replaces, per_call) in routes.items():
-        _img, labels, centers, cfg = _tile(torch, shape)
+        img, labels, centers, cfg = _tile(torch, shape)
+        check_schedule(torch, *slic_ops._prepare_chw(img, cfg), m, cfg,
+                       'tile %dx%d' % shape)
         want_route = 'rafused' if own == 'reach_absorb_fused' else 'two'
         route = grid_ops._enforce_route(cfg)
         if route != want_route:
@@ -1540,7 +1698,8 @@ def main():
     img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
     enforce_cases(torch)
-    measure_rows_9_12(torch, img)
+    odd_geometry_phases(torch)
+    measure_path_kernels(torch, img)
     records += fit_kernel_phases(torch, img)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])

@@ -37,11 +37,16 @@
 // boundary pair, and keeps its pixel counts per thread in registers, reduced
 // by warp shuffles before one shared add per warp (OR and integer adds are
 // order-free, so shared atomics keep both exact and deterministic; the f32
-// outputs are exact integers).  The moments keep 9 x 9 running sums per
-// thread in registers (the offset index is unrolled), reduced with warp
-// shuffles and then across warps in a fixed order, as csrc/slic.cu does: no
-// float atomics, so a run is deterministic.  The 9 grid shifts that route
-// the partials to their seeds run in torch.  The reduce reads 4F (2F for
+// outputs are exact integers).  The moments (row 8) add each pixel's 9
+// channels into 9 x 9 per-thread sums in shared memory, indexed by the
+// merged label's offset (9 adds per pixel, where register sums would need
+// 81 predicated ones; laid out [channel][thread], so a warp never shares a
+// bank); each (offset, channel) is then reduced by one warp, a fixed
+// strided sum and a shuffle tree: no float atomics, so a run is
+// deterministic.  Where the width allows, a thread reads 4-pixel quads (16
+// B of labels, 48 B of features) and stores the merged labels as one
+// 16-byte vector.  The route kernel below then adds the 9 partials of each
+// seed, so the call is two launches and no torch routing.  The reduce reads 4F (2F for
 // bf16) + 4 B per pixel once per chunk of 8 channels (the labels again per
 // chunk; F is 1-40 on the paths) and keeps 9 x 8 register sums per thread,
 // reduced in the same fixed order; a second tiny kernel, one thread per
@@ -57,6 +62,7 @@
 // Labels below 0 (the -2 of the image edge and the pad) are tested before any
 // division: C's '/' truncates where JAX's '//' floors.
 
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -65,7 +71,9 @@
 #define RED_CHUNK 8
 #define ADJ_THREADS 256
 #define NCH 25
-#define MOM_THREADS 256
+// row 8's block size, chosen by a same-call A/B on the card against 64 and
+// 128 (PERF.md)
+#define MOM_THREADS 96
 #define MOM_CH 9
 #define FULL 0xffffffffu
 #define LOOKUP_THREADS 128
@@ -226,75 +234,130 @@ grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
         counts9[tile * NOFF + threadIdx.x] = (float)cnt[threadIdx.x];
 }
 
-// The donor apply + moments of row 8 (F = 3).
+// Row 8's window code: the offset 0..8 of label l in the 3x3 seed window
+// of tile (ty, tx), -1 where l is negative (tested before any division) or
+// outside the window.
+__device__ __forceinline__ int tile_code(int l, int ty, int tx, int gw) {
+    if (l < 0) return -1;
+    const int ly = l / gw, oy = ly - ty + 1, ox = l - ly * gw - tx + 1;
+    return (oy >= 0 && oy < 3 && ox >= 0 && ox < 3) ? oy * 3 + ox : -1;
+}
+
+// One pixel of row 8: the donor apply, then its 9 moment channels added into
+// the thread's accumulators mine[(o * MOM_CH + c) * MOM_THREADS].  Returns
+// the merged label.  D: the donor table's int32 or int64 entries.
+template <typename D>
+__device__ __forceinline__ int moments_pixel(int l, float f0, float f1,
+                                             float f2, int y, int x,
+                                             const D* __restrict__ donor,
+                                             int k, int ty, int tx, int gw,
+                                             float* mine) {
+    int o = tile_code(l, ty, tx, gw);
+    const long long nl64 = (o >= 0 && l < k) ? (long long)donor[l] : -1;
+    // a donor below 0 or beyond int range lies outside every window
+    const int nl = (nl64 < 0 || nl64 > 0x7fffffffLL) ? -1 : (int)nl64;
+    if (nl >= 0 && abs(nl / gw - ty) <= 1 && abs(nl % gw - tx) <= 1) {
+        l = nl;
+        o = tile_code(l, ty, tx, gw);
+    }
+    if (o >= 0) {
+        float* s = mine + o * MOM_CH * MOM_THREADS;
+        const float v[MOM_CH] = {f0, f1, f2, __fmul_rn(f0, f0),
+                                 __fmul_rn(f1, f1), __fmul_rn(f2, f2), 1.0f,
+                                 (float)y, (float)x};
+#pragma unroll
+        for (int c = 0; c < MOM_CH; ++c)
+            s[c * MOM_THREADS] = __fadd_rn(s[c * MOM_THREADS], v[c]);
+    }
+    return l;
+}
+
+// The donor apply + moments of row 8 (F = 3), one block per tile.  quad: the
+// width is a multiple of 4 and the pointers 16-byte aligned, so a thread
+// takes the 4-pixel quads that overlap the tile's columns (one 16-byte label
+// load, three 16-byte feature loads, one 16-byte store where the quad lies
+// inside the tile) and keeps the pixels of its own tile; otherwise one pixel
+// at a time.
+template <typename D>
 __global__ void __launch_bounds__(MOM_THREADS)
 grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
                     const int* __restrict__ labels,    // (H, W)
-                    const int* __restrict__ donor,     // (K,)
+                    const D* __restrict__ donor,       // (K,)
                     int* __restrict__ merged,          // (H, W)
                     float* __restrict__ partials,      // (gh, gw, 9, 9)
-                    int height, int width, int gh, int gw, int step) {
-    __shared__ float red[MOM_THREADS / 32][NOFF * MOM_CH];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    const int tid = threadIdx.x;
+                    int height, int width, int gh, int gw, int step,
+                    bool quad) {
+    __shared__ float acc[NOFF * MOM_CH * MOM_THREADS];
+    const int tx = blockIdx.x, ty = blockIdx.y, tid = threadIdx.x;
     const int k = gh * gw;
-    float acc[NOFF][MOM_CH];
+    float* mine = acc + tid;
 #pragma unroll
-    for (int o = 0; o < NOFF; ++o)
+    for (int j = 0; j < NOFF * MOM_CH; ++j) mine[j * MOM_THREADS] = 0.0f;
+    const int x0 = tx * step, x1 = min(x0 + step, width);
+    const int y0 = ty * step, y1 = min(y0 + step, height);
+    if (quad) {
+        const int q0 = x0 / 4, nq = (x1 + 3) / 4 - q0;
+        const int n = (y1 - y0) * nq;
+        for (int i = tid; i < n; i += MOM_THREADS) {
+            const int r = i / nq, xq = (q0 + i - r * nq) * 4, y = y0 + r;
+            const size_t idx = (size_t)y * width + xq;
+            const int4 l4 = *(const int4*)(labels + idx);
+            const float4* fp = (const float4*)(feat + idx * 3);
+            const float4 fa = fp[0], fb = fp[1], fc = fp[2];
+            int m[4] = {l4.x, l4.y, l4.z, l4.w};
+            const float f[12] = {fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
+                                 fb.z, fb.w, fc.x, fc.y, fc.z, fc.w};
 #pragma unroll
-        for (int c = 0; c < MOM_CH; ++c) acc[o][c] = 0.0f;
-
-    for (int p = tid; p < step * step; p += MOM_THREADS) {
-        const int y = ty * step + p / step, x = tx * step + p % step;
-        if (y >= height || x >= width) continue;
-        const size_t idx = (size_t)y * width + x;
-        int l = labels[idx];
-        {
-            const int o = offset_code(l, y, x, gw, step);
-            const int nl = (o >= 0 && l < k) ? donor[l] : -1;
-            if (nl >= 0 && abs(nl / gw - ty) <= 1 && abs(nl % gw - tx) <= 1)
-                l = nl;
-            merged[idx] = l;
-        }
-        const int o = offset_code(l, y, x, gw, step);
-        if (o < 0) continue;
-        float v[MOM_CH];
+            for (int j = 0; j < 4; ++j)
+                if (xq + j >= x0 && xq + j < x1)
+                    m[j] = moments_pixel(m[j], f[3 * j], f[3 * j + 1],
+                                         f[3 * j + 2], y, xq + j, donor, k,
+                                         ty, tx, gw, mine);
+            if (xq >= x0 && xq + 4 <= x1) {
+                *(int4*)(merged + idx) = make_int4(m[0], m[1], m[2], m[3]);
+            } else {
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            const float f = feat[idx * 3 + c];
-            v[c] = f;
-            v[3 + c] = __fmul_rn(f, f);
-        }
-        v[6] = 1.0f;
-        v[7] = (float)y;
-        v[8] = (float)x;
-#pragma unroll
-        for (int oi = 0; oi < NOFF; ++oi) {
-            if (oi == o) {
-#pragma unroll
-                for (int c = 0; c < MOM_CH; ++c)
-                    acc[oi][c] = __fadd_rn(acc[oi][c], v[c]);
+                for (int j = 0; j < 4; ++j)
+                    if (xq + j >= x0 && xq + j < x1) merged[idx + j] = m[j];
             }
         }
-    }
-
-    const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-    for (int o = 0; o < NOFF; ++o) {
-#pragma unroll
-        for (int c = 0; c < MOM_CH; ++c) {
-            float s = acc[o][c];
-#pragma unroll
-            for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(FULL, s, m);
-            if (lane == 0) red[warp][o * MOM_CH + c] = s;
+    } else {
+        const int w = x1 - x0, n = (y1 - y0) * w;
+        for (int i = tid; i < n; i += MOM_THREADS) {
+            const int r = i / w, y = y0 + r, x = x0 + i - r * w;
+            const size_t idx = (size_t)y * width + x;
+            merged[idx] = moments_pixel(labels[idx], feat[idx * 3],
+                                        feat[idx * 3 + 1], feat[idx * 3 + 2],
+                                        y, x, donor, k, ty, tx, gw, mine);
         }
     }
     __syncthreads();
+    // each (offset, channel) reduced by one warp in a fixed order: warp w
+    // takes channels w, w + MOM_WARPS, ...; each lane first adds its values
+    // of every channel, then the channels' shuffle trees run side by side
+    constexpr int MOM_WARPS = MOM_THREADS / 32;
+    constexpr int PER_WARP = (NOFF * MOM_CH + MOM_WARPS - 1) / MOM_WARPS;
+    const int warp = tid / 32, lane = tid % 32;
+    float s[PER_WARP];
+#pragma unroll
+    for (int i = 0; i < PER_WARP; ++i) {
+        const int j = warp + i * MOM_WARPS;
+        s[i] = 0.0f;
+        if (j >= NOFF * MOM_CH) continue;
+#pragma unroll
+        for (int r = 0; r < MOM_THREADS; r += 32)
+            s[i] = __fadd_rn(s[i], acc[j * MOM_THREADS + lane + r]);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1)
+#pragma unroll
+        for (int i = 0; i < PER_WARP; ++i)
+            s[i] = __fadd_rn(s[i], __shfl_xor_sync(FULL, s[i], m));
     float* out = partials + ((size_t)ty * gw + tx) * NOFF * MOM_CH;
-    for (int j = tid; j < NOFF * MOM_CH; j += MOM_THREADS) {
-        float s = red[0][j];
-        for (int wi = 1; wi < MOM_THREADS / 32; ++wi) s += red[wi][j];
-        out[j] = s;
+#pragma unroll
+    for (int i = 0; i < PER_WARP; ++i) {
+        const int j = warp + i * MOM_WARPS;
+        if (lane == 0 && j < NOFF * MOM_CH) out[j] = s[i];
     }
 }
 
@@ -504,11 +567,22 @@ extern "C" int grid_moments(const void* feat, const void* labels,
 
 extern "C" int grid_moments_apply(const void* feat, const void* labels,
                                   const void* donor, void* merged,
-                                  void* partials, int height, int width,
-                                  int gh, int gw, int step, void* stream) {
+                                  void* partials, void* out, int height,
+                                  int width, int gh, int gw, int step,
+                                  int donor64, void* stream) {
     dim3 grid(gw, gh);
-    grid_moments_kernel<<<grid, MOM_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)feat, (const int*)labels, (const int*)donor,
-        (int*)merged, (float*)partials, height, width, gh, gw, step);
-    return (int)cudaGetLastError();
+    cudaStream_t st = (cudaStream_t)stream;
+    const bool quad = width % 4 == 0
+        && (((uintptr_t)feat | (uintptr_t)labels | (uintptr_t)merged) & 15) == 0;
+    if (donor64)
+        grid_moments_kernel<<<grid, MOM_THREADS, 0, st>>>(
+            (const float*)feat, (const int*)labels, (const long long*)donor,
+            (int*)merged, (float*)partials, height, width, gh, gw, step,
+            quad);
+    else
+        grid_moments_kernel<<<grid, MOM_THREADS, 0, st>>>(
+            (const float*)feat, (const int*)labels, (const int*)donor,
+            (int*)merged, (float*)partials, height, width, gh, gw, step,
+            quad);
+    return route(partials, out, gh, gw, MOM_CH, st);
 }

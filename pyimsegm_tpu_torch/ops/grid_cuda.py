@@ -30,7 +30,7 @@ def _lib():
         'grid_lookup': [v, v, v] + [i] * 6 + [v],
         'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
         'grid_pair_count': [v, v, v] + [i] * 5 + [v],
-        'grid_moments_apply': [v] * 5 + [i] * 5 + [v],
+        'grid_moments_apply': [v] * 6 + [i] * 6 + [v],
         'grid_moments': [v] * 4 + [i] * 6 + [v],
     })
 
@@ -344,14 +344,18 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
                       cfg.step)
         LAUNCHES['grid_moments'] += 1
         return labels, out
-    partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, 9),
-                           dtype=torch.float32, device=dev)
-    donor = _build.require(donor.to(torch.int32).contiguous(), 'donor',
-                           torch.int32, (cfg.n_segments,))
+    if donor.dtype != torch.int64:
+        donor = donor.to(torch.int32)
+    donor = _build.require(donor.contiguous(), 'donor', donor.dtype,
+                           (cfg.n_segments,))
     merged = torch.empty_like(labels)
+    partials = labels.new_empty((cfg.grid_h, cfg.grid_w, 9, 9),
+                                dtype=torch.float32)
+    out = labels.new_empty((cfg.n_segments, 9), dtype=torch.float32)
     _build.launch(_lib().grid_moments_apply, 'grid_moments_apply', labels,
                   feat.data_ptr(), labels.data_ptr(), donor.data_ptr(),
-                  merged.data_ptr(), partials.data_ptr(), h, w, cfg.grid_h,
-                  cfg.grid_w, cfg.step)
+                  merged.data_ptr(), partials.data_ptr(), out.data_ptr(), h,
+                  w, cfg.grid_h, cfg.grid_w, cfg.step,
+                  int(donor.dtype == torch.int64))
     LAUNCHES['grid_moments_apply'] += 1
-    return merged, _route_moments(partials)
+    return merged, out

@@ -11,12 +11,14 @@ Replaces the SLIC kernels of ``pyimsegm_tpu.ops.slic_pallas``
   with the cluster's colour normaliser M), and the block writes the labels,
   or per-(tile, offset) partial sums [L, a, b, y, x, count] (+ [v, v^2] of a
   feature image; + the largest dc2 in SLICO mode), or both;
-* ``slic_update`` — one thread per seed: route the 9 offset partials
-  (:func:`combine_sums`), divide, keep the centre of an empty cluster; in
-  SLICO mode also M = max(routed largest dc2, 1).
+* ``slic_schedule`` — the whole update schedule (row 2) in one cooperative
+  launch: each round assigns and pools every tile and updates its centres
+  (route the 9 offset partials as :func:`combine_sums` does, divide, keep
+  the centre of an empty cluster; in SLICO mode also M = max(routed largest
+  dc2, 1)), with one grid barrier per round.
 
-:func:`slic_multi_update` is a host loop of n_upd x (:func:`slic_update`,
-the centre update);
+:func:`slic_multi_update` is one ``slic_schedule`` call, counted once per
+schedule;
 :func:`slic_update_labels` is one assign_pool with labels and partials (and
 features); :func:`slic_assign` writes labels only, :func:`slic_update`
 partials only.  Each wrapper launches the kernels for CUDA tensors and runs
@@ -37,7 +39,7 @@ from pyimsegm_tpu_torch.ops.slic import (
 
 OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
 #: kernel launches in this process, per wrapper (the multi-updates count
-#: their centre updates; their partials passes count as ``slic_update``)
+#: one per schedule)
 LAUNCHES = {'slic_multi_update': 0, 'slic_multi_update_slico': 0,
             'slic_update_labels': 0, 'slic_assign': 0, 'slic_assign_slico': 0,
             'slic_update': 0}
@@ -48,7 +50,7 @@ def _lib():
     v, i, f = _build.VOIDP, _build.INT, _build.FLOAT
     return _build.load('slic', {
         'slic_assign_pool': [v] * 5 + [f, f] + [i] * 6 + [v],
-        'slic_update': [v, v, i, i, i, v],
+        'slic_schedule': [v] * 4 + [f] * 3 + [i] * 7 + [v],
     })
 
 
@@ -221,9 +223,9 @@ def _launch_assign_pool(lab_chw, centers, feat, labels, partials, sw, m2,
 
 def slic_multi_update(lab_chw, centers, compactness, cfg: SlicConfig, n_upd,
                       slico=False):
-    """Run ``n_upd`` assign + update rounds; returns new centres.  Each
-    round is one partials-only pass (:func:`slic_update`) and one launch of
-    the centre update, counted here.
+    """Run ``n_upd`` assign + update rounds; returns new centres.  On the
+    card the whole schedule is one cooperative launch (``slic_schedule``),
+    counted here once; a launch the card refuses raises.
 
     :param lab_chw: (3, pad_h, pad_w) bf16 Lab planes
     :param centers: (gh, gw, 5) f32 [l, a, b, y, x]
@@ -237,20 +239,21 @@ def slic_multi_update(lab_chw, centers, compactness, cfg: SlicConfig, n_upd,
     if not lab_chw.is_cuda:
         return _slic_multi_update_plain(lab_chw, centers, compactness, cfg,
                                         n_upd, slico)
-    if slico:
-        centers = _init_slico(centers, compactness)
-    centers = centers.to(torch.float32).contiguous().clone()
-    _check_inputs(lab_chw, centers, cfg, slico)
-    key = 'slic_multi_update_slico' if slico else 'slic_multi_update'
-    with torch.cuda.device(lab_chw.device):
-        for _ in range(n_upd):
-            partials = slic_update(lab_chw, centers, compactness, cfg, slico)
-            err = _lib().slic_update(partials.data_ptr(), centers.data_ptr(),
-                                     cfg.grid_h, cfg.grid_w, int(slico),
-                                     _build.stream_ptr(lab_chw))
-            _build.check(err, 'slic_update')
-            LAUNCHES[key] += 1
-    return centers
+    sw, m2 = slic_weights(compactness, cfg)
+    centers = centers[..., :5].to(torch.float32).contiguous()
+    _check_inputs(lab_chw, centers, cfg)
+    nc, pch = (6, 7) if slico else (5, 6)
+    k = cfg.n_segments
+    out = centers.new_empty((cfg.grid_h, cfg.grid_w, nc))
+    scratch = centers.new_empty((2 * k * (nc + 9 * pch),))
+    _build.launch(_lib().slic_schedule, 'slic_schedule', lab_chw,
+                  lab_chw.data_ptr(), centers.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), ctypes.c_float(sw), ctypes.c_float(m2),
+                  ctypes.c_float(float(np.float32(compactness) ** 2)),
+                  cfg.height, cfg.width, cfg.grid_h, cfg.grid_w, cfg.step,
+                  max(int(n_upd), 0), int(slico))
+    LAUNCHES['slic_multi_update_slico' if slico else 'slic_multi_update'] += 1
+    return out
 
 
 def slic_update_labels(lab_chw, centers, compactness, cfg: SlicConfig,

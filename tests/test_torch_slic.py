@@ -313,3 +313,77 @@ def test_slico_multi_update_twin_matches_pallas_interpret(shape):
         slic_cuda.slic_multi_update(lab_t, torch.as_tensor(np.array(cen0_j)),
                                     m, tcfg, n_upd=0, slico=True)[..., 5],
         torch.full((cfg.grid_h, cfg.grid_w), float(np.float32(m) ** 2)))
+
+
+#: the bench geometry cut so that the width is not a multiple of 4 and the
+#: last tile row and column are partial, at the bench's sp_size
+ODD, SP_ODD = (883, 1197), 35
+#: the seed moved off the image's colours: it wins no pixel, so its
+#: cluster stays empty and keeps its centre
+EMPTY_SEED = (10, 10)
+
+
+@pytest.fixture(scope='module')
+def odd_scene():
+    img = _image(ODD, seed=31)
+    cfg = jslic.slic_config(*ODD, SP_ODD)
+    lab_j, cen0_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    cen0 = np.array(cen0_j)
+    cen0[EMPTY_SEED + (0,)] = 1000.0            # L far beyond the image's
+    lab_t = torch.as_tensor(np.array(lab_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    return lab_j, lab_t, cen0, cfg
+
+
+@pytest.mark.parametrize('n_upd', [0, 1, 9])
+@pytest.mark.parametrize('slico', [False, True], ids=['slic', 'slico'])
+def test_slic_schedule_twin_matches_pallas_interpret_odd(odd_scene, n_upd,
+                                                         slico):
+    """Row 2's schedule twin against ``slic_multi_update_pallas`` at the odd
+    geometry, from seeds of which one wins no pixel.  No round: the seeds
+    themselves (SLICO: M = m**2).  After the rounds the empty cluster keeps
+    its centre in both (SLICO: M = 1).  The Pallas kernel scores in
+    dot-product form, so near-tie pixels flip: after one round the centres
+    agree within 0.1 and M within 1e-3 relative, and the labels of a final
+    assignment from each side's centres within the repo's Pallas-vs-XLA bar
+    (0.999 after one round, 0.995 after nine); after nine rounds the flips
+    have moved centres by at most 0.5 (SLICO, whose M follows one pixel's
+    dc2: 2.0)."""
+    from pyimsegm_tpu.ops import slic_pallas
+    lab_j, lab_t, cen0, cfg = odd_scene
+    m = jslic.compactness_from_regul(SP_ODD, 0.2)
+    sw2 = (1.0 / jnp.float32(cfg.step) ** 2 if slico
+           else (jnp.float32(m) / cfg.step) ** 2)
+    kw = dict(slico=True, init_m2=jnp.float32(m) ** 2) if slico else {}
+    patch, calls = _interpret(slic_pallas)
+    with patch:
+        cen_j = np.asarray(slic_pallas.slic_multi_update_pallas(
+            lab_j, jnp.asarray(cen0), sw2, cfg, n_upd=n_upd, **kw))
+        lb_j = np.asarray(slic_pallas.slic_assign_pallas(
+            lab_j, jnp.asarray(cen_j), sw2, cfg, slico=slico))
+    tcfg = tslic.slic_config(*ODD, SP_ODD)
+    cen_t = slic_cuda.slic_multi_update(lab_t, torch.as_tensor(cen0), m, tcfg,
+                                        n_upd=n_upd, slico=slico).numpy()
+    assert cen_t.shape == cen_j.shape == (cfg.grid_h, cfg.grid_w,
+                                          6 if slico else 5)
+    if n_upd == 0:
+        np.testing.assert_array_equal(cen_t, cen_j)
+        np.testing.assert_array_equal(cen_t[..., :5], cen0)
+        return
+    assert calls
+    for cen in (cen_t, cen_j):
+        np.testing.assert_array_equal(cen[EMPTY_SEED][:5], cen0[EMPTY_SEED])
+        if slico:
+            assert cen[EMPTY_SEED][5] == 1.0
+    lb_t = slic_cuda.slic_assign(lab_t, torch.as_tensor(cen_t), m, tcfg,
+                                 slico=slico).numpy()
+    if n_upd == 1:
+        np.testing.assert_allclose(cen_t[..., :5], cen_j[..., :5], atol=0.1)
+        if slico:
+            np.testing.assert_allclose(cen_t[..., 5], cen_j[..., 5],
+                                       rtol=1e-3)
+        assert (lb_t == lb_j).mean() >= 0.999
+    else:
+        np.testing.assert_allclose(cen_t[..., :5], cen_j[..., :5],
+                                   atol=2.0 if slico else 0.5)
+        assert (lb_t == lb_j).mean() >= 0.995

@@ -41,11 +41,11 @@ the enforcement); its stages (upload, slic, enforce, geometry, features,
 predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
 ranges, read as for ``--path 3d``.
 
-``--path kernels`` measures kernel rows 9 and 12 as the paths call them
-(``chip_smoke.measure_rows_9_12``: call ms, device ms and CUDA kernel
-launches per call, on the bench labels of image 0 and of the noise image),
-with the package of the checkout at ``--root`` (this one by default), so
-that one call on the card can measure two checkouts in turns.
+``--path kernels`` measures kernel rows 2 (plain and SLICO), 8, 9 and 12
+as the paths call them (``chip_smoke.measure_path_kernels``: call ms,
+device ms and CUDA kernel launches per call, on image 0 and on the first
+noise image), with the package of the checkout at ``--root`` (this one by
+default), so that one call on the card can measure two checkouts in turns.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
@@ -350,7 +350,7 @@ def main():
         chip_smoke = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(chip_smoke)
         print('package of %s' % os.path.abspath(args.root))
-        chip_smoke.measure_rows_9_12(torch, torch.as_tensor(
+        chip_smoke.measure_path_kernels(torch, torch.as_tensor(
             sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
             device='cuda'))
         return
