@@ -23,10 +23,13 @@ Phases (any failure raises and exits non-zero):
    883x1197 (the width not a multiple of 4, the last tile row and column
    partial), from seeds of which one wins no pixel, whose empty cluster must
    keep its centre; every row 2 call must be one C call of the wrapper;
-   then, for rows 2, 8, 9 and 12 as the paths call them, the call ms, the
+   row 3 writes labels, partials and their routed per-seed sums (routed
+   sums within the partials' tolerance, at most 2 CUDA kernels per call);
+   then, for rows 2-5, 8, 9, 12 and 15 as the paths call them (row 3 with
+   its routing, and the bench path's whole SLIC stage), the call ms, the
    device ms and the CUDA kernels per call from ``torch.profiler`` on the
-   labels of image 0 and of the noise image, row 9 at C = 1 and 4 beside
-   ``table[index]`` (``measure_path_kernels``);
+   labels of image 0 and of the noise image and on the 3D workload, row 9
+   at C = 1 and 4 beside ``table[index]`` (``measure_path_kernels``);
 4. the ``connectivity=False`` path: three synthetic 884x1200 images through
    ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
    with the GMM class model of ``tests/data/torch_port_fixture.npz``; each
@@ -63,15 +66,21 @@ Phases (any failure raises and exits non-zero):
 9. the 3D gray-volume path at the repo's 3D workload (48x640x768, spacing
    (4, 1, 1), sp_size 15, regul 0.2, gc_regul 0.1, 2 classes): the 3D SLIC
    labels pass (exact) and partials pass (rtol 1e-5) against their twins
-   on the same centres, the whole ``slic3d_iterate`` against its twin on
-   the structured volume of ``sample_gray_volume_3d`` (>= 0.999 of labels
-   equal) and on ``bench_all.py``'s noise volume (reported); then
+   on the same centres, the whole ``slic3d_iterate`` (one cooperative
+   launch, one CUDA kernel per schedule) against its twin on the structured
+   volume of ``sample_gray_volume_3d`` (>= 0.999 of labels equal) and on
+   ``bench_all.py``'s noise volume (reported), each schedule run twice with
+   equal labels; the passes and the schedule also on ``CASES_3D`` (50
+   tiles, under one wave of co-resident blocks; a shape no multiple of the
+   steps with one seed forced empty, which must stay empty; tiles of more
+   rows than a block has threads); then
    ``pipe_gray3d_slic_features_model_graphcut`` on the structured volume
    against ``tests/data/torch_port_fixture_3d.npz`` (SLIC labels of the
    stored slices >= 0.999 equal, segmentation ARS >= 0.98; the supervoxels
    whose voxel sets JAX's labelling has too, by the fixture's digest, at
    least ``SAME_SETS_3D`` of all, and their standardised features within
-   the ``*_3D`` bars below; the card fit's weighted mean log-likelihood,
+   the ``*_3D`` bars below; one ``slic3d_iterate`` launch per volume and no
+   standalone pass; the card fit's weighted mean log-likelihood,
    on the JAX features and on the card's own, within 1e-3 relative of the
    JAX fit's on the same features), the edge count against the
    reference's 8K capacity
@@ -213,25 +222,50 @@ def _profiled(torch, fn, reps=5, tries=3):
     return float('nan'), float('nan')
 
 
+def _final_pass(slic_cuda, lab_chw, centers, m, cfg, image):
+    """Row 3 as the bench path runs it, the routed per-seed sums out: the
+    final pass with the (H, W, 3) image and its route; with a package whose
+    pass takes a zero-padded (3, pad_h, pad_w) copy of the image and returns
+    partials only, that staging and ``combine_sums`` too."""
+    import inspect
+    import torch
+    if 'feat' in inspect.signature(slic_cuda.slic_update_labels).parameters:
+        return slic_cuda.slic_update_labels(lab_chw, centers, m, cfg,
+                                            feat=image)[2]
+    feat_chw = torch.zeros((3, cfg.pad_h, cfg.pad_w), dtype=torch.float32,
+                           device=image.device)
+    feat_chw[:, :cfg.height, :cfg.width] = image.permute(2, 0, 1)
+    return slic_cuda.combine_sums(slic_cuda.slic_update_labels(
+        lab_chw, centers, m, cfg, feat_chw)[1])
+
+
 def measure_path_kernels(torch, img):
-    """Rows 2, 8, 9 and 12 as the paths call them
-    (``ops.slic_cuda.slic_multi_update``, ``ops.grid_cuda.grid_moments_apply``
-    with the min-size donor table, ``ops.grid.grid_lookup``,
-    ``ops.enforce_cuda.enforce_fused``) on image 0 and ``bench.py``'s first
-    noise image (rows 8, 9 and 12 on the SLIC kernels' labels): per call the
-    call ms (CUDA events around REPS calls, as ``_time_ms``), the device ms
-    and the CUDA kernel launches (``_profiled``); row 2 plain and SLICO; row
-    9 at C = 1 (the min-size merge's int32 donor table, and f32), 3 and 4,
-    beside ``table[index]``.  Prints one ``path_kernels`` JSON line and
-    returns its dict."""
-    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda, slic_cuda
+    """Rows 2, 3, 4, 5, 8, 9, 12 and 15 as the paths call them
+    (``ops.slic_cuda.slic_multi_update``, row 3 with its routing as
+    ``_final_pass`` runs it, ``slic_assign`` plain and SLICO,
+    ``slic_update``, ``ops.grid_cuda.grid_moments_apply`` with the min-size
+    donor table, ``ops.grid.grid_lookup``, ``ops.enforce_cuda.enforce_fused``,
+    and the whole SLIC stage of the bench path,
+    ``slic_segment_with_features``) on image 0 and ``bench.py``'s first noise
+    image (rows 8, 9 and 12 on the SLIC kernels' labels), and row 15's
+    schedule and its two passes at the 3D workload: per call the call ms
+    (CUDA events around REPS calls, as ``_time_ms``), the device ms and the
+    CUDA kernel launches (``_profiled``); row 9 at C = 1 (the min-size
+    merge's int32 donor table, and f32), 3 and 4, beside ``table[index]``.
+    Prints one ``path_kernels`` JSON line and returns its dict."""
+    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, slic3d,
+                                        slic3d_cuda, slic_cuda)
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
     cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
     m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
     n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
     noise = torch.as_tensor(np.random.default_rng(0).random(
         CROP + (3,), dtype=np.float32), device=img.device)
+
+    def timed(fn):
+        return (_time_ms(fn), *_profiled(torch, fn))
     out = {}
     rng = np.random.default_rng(4)
     for name, image in (('image0', img), ('noise', noise)):
@@ -278,7 +312,31 @@ def measure_path_kernels(torch, img):
                                                         cfg)),
             *_profiled(torch, lambda: enforce_cuda.enforce_fused(
                 labels, centers, cfg)))
+        cen = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd)
+        cen_s = slic_cuda.slic_multi_update(lab_chw, centers0, m, cfg, n_upd,
+                                            slico=True)
+        row['slic_update_labels_routed'] = timed(
+            lambda: _final_pass(slic_cuda, lab_chw, cen, m, cfg, image))
+        row['slic_assign'] = timed(
+            lambda: slic_cuda.slic_assign(lab_chw, cen, m, cfg))
+        row['slic_assign_slico'] = timed(
+            lambda: slic_cuda.slic_assign(lab_chw, cen_s, m, cfg, slico=True))
+        row['slic_update'] = timed(
+            lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg))
+        row['slic_stage'] = timed(
+            lambda: slic_ops.slic_segment_with_features(image, image, cfg, m))
         out[name] = row
+    cfg3 = slic3d.slic3d_config(SHAPE_3D, SP_3D, SPACING_3D)
+    m3 = slic_ops.compactness_from_regul(SP_3D, REGUL_3D)
+    vol_p, c0 = slic3d._prep3d(torch.as_tensor(
+        sample_gray_volume_3d(SHAPE_3D)[0], device=img.device), cfg3)
+    out['volume'] = {
+        'slic3d_iterate': timed(lambda: slic3d_cuda.slic3d_iterate(
+            vol_p, c0, m3, cfg3, slic_ops.DEFAULT_SLIC_ITERS)),
+        'slic3d_labels': timed(lambda: slic3d_cuda.slic3d_labels(
+            vol_p, c0, m3, cfg3)),
+        'slic3d_partials': timed(lambda: slic3d_cuda.slic3d_partials(
+            vol_p, c0, m3, cfg3))}
     print('path_kernels (call ms, device ms, kernel launches per call) %s'
           % json.dumps(out), flush=True)
     return out
@@ -303,13 +361,18 @@ def _bound(nbytes, ops):
 
 
 def _record(name, source, replaces, err, kernel, plain_ms, agreement,
-            nbytes, ops, library_ms=None):
+            nbytes, ops, library_ms=None, max_kernels=None):
     """A kernel's record: ``kernel`` is one call of its wrapper, timed as
     ``_time_ms`` times it (ms) and by ``_profiled`` (device ms, CUDA kernels
-    per call; printed beside the rest)."""
+    per call; printed beside the rest).  With ``max_kernels`` a profile
+    that counts more CUDA kernels per call fails (a profile that dropped
+    events counts fewer)."""
     import torch
     ms = _time_ms(kernel)
     device_ms, per_call = _profiled(torch, kernel)
+    if max_kernels is not None and per_call > max_kernels:
+        raise AssertionError('%s: %g CUDA kernels per call, expected %d'
+                             % (name, per_call, max_kernels))
     bound_ms, bound_by = _bound(nbytes, ops)
     print('kernel %-24s %s  max_abs_err %.3g  kernel %.4f ms  device %.4f '
           'ms in %g CUDA kernel(s)  plain %.4f ms  bound %.4f ms (%s)  '
@@ -374,37 +437,40 @@ def kernel_phases(torch, img):
         # distances and 6 pooled sums
         ppx * 6 + 2 * k * 5 * 4, n_upd * ppx * (9 * SLIC_OPS_2D + 6)))
 
-    feat_chw = torch.zeros((3, cfg.pad_h, cfg.pad_w), dtype=torch.float32,
-                           device=img.device)
-    feat_chw[:, :cfg.height, :cfg.width] = img.permute(2, 0, 1)
-    lb_k, part_k = slic_cuda.slic_update_labels(lab_chw, cen_k, m, cfg,
-                                                feat_chw)
-    lb_p, part_p = slic_cuda._slic_update_labels_plain(lab_chw, cen_k, m, cfg,
-                                                       feat_chw)
+    lb_k, part_k, sums_k = slic_cuda.slic_update_labels(lab_chw, cen_k, m,
+                                                        cfg, feat=img)
+    lb_p, part_p, sums_p = slic_cuda._slic_update_labels_plain(
+        lab_chw, cen_k, m, cfg, feat=img)
     torch.cuda.synchronize()
     lab_eq = float((lb_k == lb_p).float().mean())
     # partial sums are added in another order than the plain twin's: rtol
     # 1e-5, plus 1e-5 of the channel's largest partial for the signed Lab
-    # a/b sums, whose relative error is unbounded where they cancel
-    diff = (part_k - part_p).abs()
-    scale = part_p.abs().amax(dim=(0, 1, 2), keepdim=True)
-    ok = diff <= 1e-5 * part_p.abs() + 1e-5 * scale
-    err = float(diff.max())
-    if lab_eq < 0.999 or not bool(ok.all()):
-        raise AssertionError('slic_update_labels: labels %.6f equal, '
-                             'partials max diff %g' % (lab_eq, err))
+    # a/b sums, whose relative error is unbounded where they cancel; the
+    # routed sums are held to the same tolerance
+    err = 0.0
+    for got, want in ((part_k, part_p), (sums_k, sums_p)):
+        diff = (got - want).abs()
+        scale = want.abs().reshape(-1, want.shape[-1]).amax(dim=0)
+        err = max(err, float(diff.max()))
+        if lab_eq < 0.999 or not bool(
+                (diff <= 1e-5 * want.abs() + 1e-5 * scale).all()):
+            raise AssertionError('slic_update_labels: labels %.6f equal, '
+                                 'partials / routed sums max diff %g'
+                                 % (lab_eq, err))
     records.append(_record(
         'slic_update_labels', 'pyimsegm_tpu_torch/csrc/slic.cu',
         'pyimsegm_tpu/ops/slic_pallas.py:573', err,
-        lambda: slic_cuda.slic_update_labels(
-            lab_chw, cen_k, m, cfg, feat_chw),
+        lambda: slic_cuda.slic_update_labels(lab_chw, cen_k, m, cfg,
+                                             feat=img),
         _time_ms(lambda: slic_cuda._slic_update_labels_plain(
-            lab_chw, cen_k, m, cfg, feat_chw)),
-        'labels equal %.6f, partials within rtol 1e-5' % lab_eq,
-        # bf16 Lab + f32 feature image in, i32 labels + partials out; 9
-        # distances, 3 squares and 12 pooled sums per pixel
-        ppx * (6 + 12 + 4) + k * 9 * 12 * 4,
-        ppx * (9 * SLIC_OPS_2D + 3 + 12)))
+            lab_chw, cen_k, m, cfg, feat=img)),
+        'labels equal %.6f, partials and routed sums within rtol 1e-5 '
+        '(pass + route: at most 2 CUDA kernels per call)' % lab_eq,
+        # bf16 Lab + f32 (H, W, 3) feature image in, i32 labels, partials
+        # and routed sums out; per pixel 9 distances, 3 squares and 12
+        # pooled sums, per seed and channel 9 routed adds
+        ppx * (6 + 4) + px * 12 + k * 9 * 12 * 4 + k * 12 * 4,
+        ppx * (9 * SLIC_OPS_2D + 3 + 12) + k * 12 * 9, max_kernels=2))
 
     labels = lb_k[:cfg.height, :cfg.width].contiguous()
     rng = np.random.default_rng(0)
@@ -460,8 +526,7 @@ def kernel_phases(torch, img):
         # i32 labels in, 9 words per seed out; two neighbour compares per
         # pixel
         px * 4 + k * 9 * 4, px * 2))
-    sums = slic_cuda.combine_sums(part_k)
-    centers = (sums[..., 3:5] / torch.clamp_min(sums[..., 5:6], 1.0)) \
+    centers = (sums_k[..., 3:5] / torch.clamp_min(sums_k[..., 5:6], 1.0)) \
         .reshape(cfg.n_segments, 2)
     records += enforce_phases(torch, img, labels, centers, cfg)
     return records
@@ -892,12 +957,60 @@ def fit_kernel_phases(torch, img):
     return records
 
 
+#: row 15 beyond the 3D workload: at its spacing and sp_size a volume of 50
+#: tiles (under one wave of co-resident blocks), and one whose shape is no
+#: multiple of the steps (4, 15, 15), from seeds of which one (v = 1e6) wins
+#: no voxel, so that its cluster stays empty and keeps its centre; and at
+#: sp_size 30, spacing (1, 1, 1), tiles of 30 x 30 rows of 30 voxels, more
+#: rows than a block has threads: (shape, sp_size, spacing, empty seed)
+CASES_3D = {'one wave': ((8, 64, 66), SP_3D, SPACING_3D, None),
+            'odd': ((46, 200, 234), SP_3D, SPACING_3D, (1, 3, 4)),
+            'chunked': ((40, 90, 96), 30, (1, 1, 1), None)}
+
+
+def _check_passes_3d(torch, vol_p, centers, m, cfg, where):
+    """Row 15's labels pass (exact) and partials pass (rtol 1e-5 plus 1e-5
+    of the channel's largest partial) against their twins on the same
+    centres; returns (largest label id difference, partials max diff)."""
+    from pyimsegm_tpu_torch.ops import slic3d_cuda
+    lb_k = slic3d_cuda.slic3d_labels(vol_p, centers, m, cfg)
+    lb_p = slic3d_cuda._slic3d_labels_plain(vol_p, centers, m, cfg)
+    part_k = slic3d_cuda.slic3d_partials(vol_p, centers, m, cfg)
+    part_p = slic3d_cuda._slic3d_partials_plain(vol_p, centers, m, cfg)
+    torch.cuda.synchronize()
+    if not torch.equal(lb_k, lb_p):
+        raise AssertionError('slic3d_labels at %s: %d labels differ'
+                             % (where, int((lb_k != lb_p).sum())))
+    diff = (part_k - part_p).abs()
+    scale = part_p.abs().amax(dim=(0, 1, 2, 3), keepdim=True)
+    if not bool((diff <= 1e-5 * part_p.abs() + 1e-5 * scale).all()):
+        raise AssertionError('slic3d_partials at %s: max diff %g'
+                             % (where, float(diff.max())))
+    return float((lb_k - lb_p).abs().max()), float(diff.max())
+
+
+def _iterate_vs_twin(torch, vp, cc, m, cfg, n_iter):
+    """(kernel labels, twin labels) of the whole schedule; the schedule run
+    twice must give the same labels."""
+    from pyimsegm_tpu_torch.ops import slic3d_cuda
+    lk = slic3d_cuda.slic3d_iterate(vp, cc, m, cfg, n_iter)
+    again = slic3d_cuda.slic3d_iterate(vp, cc, m, cfg, n_iter)
+    lp = slic3d_cuda._slic3d_iterate_plain(vp, cc, m, cfg, n_iter)
+    torch.cuda.synchronize()
+    if not torch.equal(lk, again):
+        raise AssertionError('slic3d_iterate: two runs differ in %d voxels'
+                             % int((lk != again).sum()))
+    return lk, lp
+
+
 def kernel_phases_3d(torch, vol, noise):
     """Row 15's two passes against their twins on the same centres (the
     seeds, and the centres after one round), and the whole schedule against
-    its twin on the structured and the noise volume, at the 3D workload."""
+    its twin on the structured and the noise volume, at the 3D workload;
+    the passes and the schedule also on CASES_3D."""
     from pyimsegm_tpu_torch.ops import graph, slic3d, slic3d_cuda
     from pyimsegm_tpu_torch.ops.slic import compactness_from_regul
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
     cfg = slic3d.slic3d_config(SHAPE_3D, SP_3D, SPACING_3D)
     m = compactness_from_regul(SP_3D, REGUL_3D)
     vol_p, c0 = slic3d._prep3d(vol, cfg)
@@ -906,32 +1019,47 @@ def kernel_phases_3d(torch, vol, noise):
     records = []
     n_vox, pvox, k = int(np.prod(SHAPE_3D)), int(np.prod(cfg.pad)), \
         cfg.n_segments
+    n_iter = 10
     err, err_lb = 0.0, 0.0
     for cen in (c0, c1):
-        lb_k = slic3d_cuda.slic3d_labels(vol_p, cen, m, cfg)
-        lb_p = slic3d_cuda._slic3d_labels_plain(vol_p, cen, m, cfg)
-        part_k = slic3d_cuda.slic3d_partials(vol_p, cen, m, cfg)
-        part_p = slic3d_cuda._slic3d_partials_plain(vol_p, cen, m, cfg)
-        torch.cuda.synchronize()
-        if not torch.equal(lb_k, lb_p):
-            raise AssertionError('slic3d_labels: %d labels differ'
-                                 % int((lb_k != lb_p).sum()))
-        err_lb = max(err_lb, float((lb_k - lb_p).abs().max()))
-        diff = (part_k - part_p).abs()
-        scale = part_p.abs().amax(dim=(0, 1, 2, 3), keepdim=True)
-        err = max(err, float(diff.max()))
-        if not bool((diff <= 1e-5 * part_p.abs() + 1e-5 * scale).all()):
-            raise AssertionError('slic3d_partials: max diff %g'
-                                 % float(diff.max()))
+        e_lb, e = _check_passes_3d(torch, vol_p, cen, m, cfg, '%dx%dx%d'
+                                   % SHAPE_3D)
+        err_lb, err = max(err_lb, e_lb), max(err, e)
+    for name, (shape, sp, spacing, empty) in CASES_3D.items():
+        c = slic3d.slic3d_config(shape, sp, spacing)
+        m_c = compactness_from_regul(sp, REGUL_3D)
+        vp, cc = slic3d._prep3d(torch.as_tensor(
+            sample_gray_volume_3d(shape, rand_seed=2)[0], device=DEVICE), c)
+        if empty is not None:
+            cc = cc.clone()
+            cc[empty + (0,)] = 1e6                # v far beyond the volume's
+        where = '%s %dx%dx%d (steps %s, %d tiles)' % (
+            (name,) + shape + (c.steps, c.n_segments))
+        e_lb, e = _check_passes_3d(torch, vp, cc, m_c, c, where)
+        err_lb, err = max(err_lb, e_lb), max(err, e)
+        lk, lp = _iterate_vs_twin(torch, vp, cc, m_c, c, n_iter)
+        eq = float((lk == lp).float().mean())
+        kept = True
+        if empty is not None:
+            eid = (empty[0] * c.grid[1] + empty[1]) * c.grid[2] + empty[2]
+            kept = not bool((lk == eid).any()) and not bool((lp == eid).any())
+        print('slic3d at %s: passes exact / within rtol 1e-5, schedule labels '
+              'equal %.6f (>= 0.999, %d voxels differ), two runs equal%s'
+              % (where, eq, int((lk != lp).sum()),
+                 '' if empty is None else ', empty cluster %s kept empty: %s'
+                 % (empty, kept)), flush=True)
+        if eq < 0.999 or not kept:
+            raise AssertionError('slic3d_iterate disagrees at %s' % where)
     records.append(_record(
         'slic3d_labels', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
         'pyimsegm_tpu/ops/slic3d_pallas.py:183', err_lb,
         lambda: slic3d_cuda.slic3d_labels(vol_p, c1, m, cfg),
         _time_ms(lambda: slic3d_cuda._slic3d_labels_plain(vol_p, c1, m, cfg),
                  reps=3),
-        'labels exact (seeds and centres after one round)',
+        'labels exact (seeds and centres after one round; on CASES_3D '
+        'too)',
         # f32 padded volume in, i32 labels out; 27 distances per voxel
-        pvox * (4 + 4) + k * 16, pvox * 27 * SLIC_OPS_3D))
+        pvox * (4 + 4) + k * 16, pvox * 27 * SLIC_OPS_3D, max_kernels=1))
     records.append(_record(
         'slic3d_partials', 'pyimsegm_tpu_torch/csrc/slic3d.cu',
         'pyimsegm_tpu/ops/slic3d_pallas.py:183', err,
@@ -942,17 +1070,14 @@ def kernel_phases_3d(torch, vol, noise):
         # f32 padded volume in, (K, 27, 5) partials out; 27 distances per
         # voxel and 5 pooled sums per valid voxel
         pvox * 4 + k * 16 + k * 135 * 4,
-        pvox * 27 * SLIC_OPS_3D + n_vox * 5))
+        pvox * 27 * SLIC_OPS_3D + n_vox * 5, max_kernels=1))
 
-    n_iter = 10
     agree, n_diff = {}, {}
     err = 0.0
     z, h, w = SHAPE_3D
     for name, v in (('structured', vol), ('noise', noise)):
         vp, cc = slic3d._prep3d(v, cfg)
-        lk = slic3d_cuda.slic3d_iterate(vp, cc, m, cfg, n_iter)
-        lp = slic3d_cuda._slic3d_iterate_plain(vp, cc, m, cfg, n_iter)
-        torch.cuda.synchronize()
+        lk, lp = _iterate_vs_twin(torch, vp, cc, m, cfg, n_iter)
         agree[name] = float((lk == lp).float().mean())
         n_diff[name] = int((lk != lp).sum())
         # the largest difference of two label ids, over both volumes
@@ -961,7 +1086,7 @@ def kernel_phases_3d(torch, vol, noise):
             graph.adjacency3d_counts(lk[:z, :h, :w], cfg))), flush=True)
     print('slic3d_iterate vs twin, labels equal: structured %.6f (%d voxels '
           'differ; >= 0.999), noise %.6f (%d voxels differ; reported), '
-          'largest label id difference %d'
+          'largest label id difference %d; two runs of each equal'
           % (agree['structured'], n_diff['structured'], agree['noise'],
              n_diff['noise'], err), flush=True)
     if agree['structured'] < 0.999:
@@ -973,13 +1098,14 @@ def kernel_phases_3d(torch, vol, noise):
         _time_ms(lambda: slic3d_cuda._slic3d_iterate_plain(vol_p, c0, m, cfg,
                                                            n_iter), reps=1),
         'labels equal %.6f (structured) / %.6f (noise), %d / %d voxels '
-        'differ' % (agree['structured'], agree['noise'],
-                    n_diff['structured'], n_diff['noise']),
+        'differ; one CUDA kernel per schedule'
+        % (agree['structured'], agree['noise'], n_diff['structured'],
+           n_diff['noise']),
         # f32 padded volume + seeds in, i32 labels out; 9 partials passes,
         # 9 updates (27 x 5 adds + 4 divisions per seed) and a labels pass
         pvox * (4 + 4) + k * 16,
         n_iter * pvox * 27 * SLIC_OPS_3D + (n_iter - 1) * (
-            n_vox * 5 + k * (135 + 4))))
+            n_vox * 5 + k * (135 + 4)), max_kernels=1))
     return records
 
 
@@ -1000,7 +1126,11 @@ def path_gray3d(torch, vol, fixture):
             sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D, debug_visual=debug)
 
     debug = {}
-    segm, launches = _drive('3D path', PATH_3D, lambda: run(debug))
+    segm, launches = _drive('3D path', PATH_3D, lambda: run(debug),
+                            forbidden=PASSES_3D)
+    if launches['slic3d_iterate'] != 1:
+        raise AssertionError('3D path: %d SLIC schedules for one volume'
+                             % launches['slic3d_iterate'])
     if segm.shape != SHAPE_3D or segm.min() < 0 \
             or segm.max() >= NB_CLASSES_3D:
         raise AssertionError('3D path: bad segmentation %s [%d, %d]'
@@ -1097,7 +1227,10 @@ PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_assign',
             'enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_reduce',
             'grid_lookup', 'grid_adjacency_presence',
             'slic_multi_update_slico', 'slic_assign_slico')
-PATH_3D = ('slic3d_partials', 'slic3d_iterate', 'slic3d_labels')
+#: the 3D pipe runs one schedule a volume; the standalone passes, the same
+#: kernel, are held against their twins in kernel_phases_3d
+PATH_3D = ('slic3d_iterate',)
+PASSES_3D = ('slic3d_labels', 'slic3d_partials')
 
 
 def _drive(name, kernels, fn, forbidden=()):
@@ -1731,7 +1864,7 @@ def main():
             else sup['grid_moments'] if name.startswith('grid_moments_f')
             else bench[name] if name in PATH_BENCH else
             op[name] if name in PATH_OP else
-            gray3d[name] if name in PATH_3D else fit[name])
+            gray3d[name] if name in PATH_3D + PASSES_3D else fit[name])
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -5,8 +5,8 @@
 //     update rounds, here slic_schedule_kernel, one cooperative launch for
 //     the whole schedule, in plain or SLICO mode;
 //   slic_update_labels_pallas (_slic_pass_kernel with labels and partials):
-//     the final assignment, here one slic_assign_pool with labels and,
-//     optionally, the colour moments of a feature image;
+//     the final assignment, here one slic_assign_pool with labels, the
+//     colour moments of a feature image and the routed per-seed sums;
 //   slic_assign_pallas (_slic_pass_kernel, labels only, plain or SLICO):
 //     slic_assign_pool with no partials;
 //   slic_update_pallas (_slic_pass_kernel, partials only): slic_assign_pool
@@ -24,17 +24,19 @@
 // it is exact), and an update sets M = max(max dc2 over the 9 routed
 // offsets, 1).
 //
-// slic_assign_pool_kernel (rows 3, 4, 5).  Bound: device memory and issue
-// rate.  A pass reads 6 B/px of bf16 Lab (plus 12 B/px of f32 feature image
+// slic_pass_kernel (rows 3, 4, 5).  Bound: device memory and issue rate.
+// A pass reads 6 B/px of bf16 Lab (plus 12 B/px of the f32 feature image
 // and 4 B/px of written labels in the final pass) and evaluates 9 candidate
 // distances (~17 flops each) per pixel with candidate(), the same distance
-// as the schedule's.  One block per seed tile (step x step pixels); the 3x3
-// neighbour centres sit in shared memory; each thread
-// walks the tile's pixels with a block stride and keeps 9 x CH running sums
-// in registers (the offset index unrolled); at the end of the tile the sums
-// are reduced with warp shuffles and then across warps in shared memory in a
-// fixed order, and written as per-(tile, offset) partials: no global
-// atomics, so a run is deterministic.
+// as the schedule's.  One block per seed tile (step x step pixels) runs the
+// schedule's tile body, assign_pool_tile: the 3x3 neighbour centres in
+// registers, pixels walked by (row, column) increments, per-thread sums in
+// shared memory indexed by the winning offset, each (offset, channel)
+// reduced by one warp in a fixed order into per-(tile, offset) partials.
+// The final pass (row 3) reads the (H, W, 3) feature image as it is, where
+// the pixel lies in the image, and a second launch of the same C call
+// (slic_route_kernel) routes the partials to per-seed sums in the order of
+// combine_sums.  No global atomics, so a run is deterministic.
 //
 // slic_schedule_kernel (row 2).  Bound: operations, 9 candidate distances
 // per pixel and round (the 6.7 MB of bf16 Lab at 884x1200 stay in the 50 MB
@@ -67,8 +69,6 @@
 namespace cg = cooperative_groups;
 
 #define NOFF 9
-#define NTHREADS 256
-#define NWARPS (NTHREADS / 32)
 
 // Candidate o of a pixel against the best so far, with the centre c = (l,
 // a, b, max(M, 1e-6)) and p = (y, x); a NaN l never wins.  The reference
@@ -102,34 +102,181 @@ __device__ __forceinline__ void candidate(
     }
 }
 
-// CH pooled sum channels: 0 (labels only), 6 ([l, a, b, y, x, count]) or 12
-// (+ [v, v^2] of a 3-channel feature image).  SLICO adds one max channel
-// (the largest dc2) after the sums, so a partial holds CH + SLICO floats.
+// One assignment of tile t (step x step pixels) by T threads: each pixel's
+// first-best of the 9 candidates in cen (l, a, b, max(M, 1e-6), y, x), its
+// label when labels != null, and with CH > 0 its pooled sums: per-thread
+// sums in acc[channel][thread] (channel o * CH + c; in SLICO mode NOFF * CH
+// + o holds the largest dc2), then each channel reduced by one warp into
+// part (tile t's 9 x PCH partials).  CH pooled sum channels: 0 (labels
+// only), 6 ([l, a, b, y, x, count]) or 12 (+ [v, v^2] of the (H, W, 3)
+// feature image feat, read where the pixel lies in the image).  acc is all
+// zero on entry and is left all zero.  A is any args struct with lab, sw,
+// m2, height, width, gh, gw and step.
+template <int T, int CH, bool SLICO>
+struct Pool {
+    static constexpr int PCH = CH > 0 ? CH + (SLICO ? 1 : 0) : 0;
+    static constexpr int NACC = NOFF * PCH;          // per-thread sums
+    static constexpr int WARPS = T / 32;
+    static constexpr int PER_WARP = (NACC + WARPS - 1) / WARPS;
+    // channels whose shuffle trees run side by side (registers)
+    static constexpr int CHUNK = PER_WARP <= 32 ? PER_WARP : 27;
+    static_assert(T % 32 == 0, "whole warps");
+};
+
+template <int T, int CH, bool SLICO, bool PRUNE, class A>
+__device__ __forceinline__ void assign_pool_tile(
+        const A& a, int t, const float (*cen)[8], float* acc, float* part,
+        const float* feat, int* labels) {
+    using P = Pool<T, CH, SLICO>;
+    const int tid = threadIdx.x, ty = t / a.gw, tx = t - ty * a.gw;
+    const int step = a.step, pw = a.gw * step;
+    const size_t plane = (size_t)a.gh * step * pw;
+    // pixel tid + k * T of the tile, walked as (row, column)
+    const int drow = T / step, dcol = T - drow * step;
+    int row = tid / step, col = tid - row * step;
+    float* mine = acc + tid;
+    // the 9 candidates in registers for the whole tile
+    float4 cc[NOFF];
+    float2 cp[NOFF];
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) {
+        cc[o] = *(const float4*)cen[o];
+        cp[o] = *(const float2*)(cen[o] + 4);
+    }
+    while (row < step) {
+        const int y = ty * step + row, x = tx * step + col;
+        col += dcol;
+        row += drow;
+        if (col >= step) { col -= step; ++row; }
+        const size_t idx = (size_t)y * pw + x;
+        const float l0 = __bfloat162float(a.lab[idx]);
+        const float l1 = __bfloat162float(a.lab[plane + idx]);
+        const float l2 = __bfloat162float(a.lab[2 * plane + idx]);
+        const float fy = (float)y, fx = (float)x;
+        float best_d = 1e10f, best_dc2 = 0.0f;
+        int best_o = 0;
+        // with PRUNE the tile's own seed first: its distance bounds the
+        // others'
+        if (PRUNE)
+            candidate<SLICO, true>(cc[4], cp[4], 4, l0, l1, l2, fy, fx, a.sw,
+                                   a.m2, false, best_d, best_o, best_dc2);
+#pragma unroll
+        for (int o = 0; o < NOFF; ++o)
+            if (!PRUNE || o != 4)
+                candidate<SLICO, PRUNE>(cc[o], cp[o], o, l0, l1, l2, fy, fx,
+                                        a.sw, a.m2, PRUNE, best_d, best_o,
+                                        best_dc2);
+        if (labels != nullptr)
+            labels[idx] = (ty + best_o / 3 - 1) * a.gw + (tx + best_o % 3 - 1);
+        if constexpr (CH > 0) {
+            if (y < a.height && x < a.width) {      // pad pixels add nothing
+                float* s = mine + best_o * CH * T;
+                s[0] = __fadd_rn(s[0], l0);
+                s[T] = __fadd_rn(s[T], l1);
+                s[2 * T] = __fadd_rn(s[2 * T], l2);
+                s[3 * T] = __fadd_rn(s[3 * T], fy);
+                s[4 * T] = __fadd_rn(s[4 * T], fx);
+                s[5 * T] = __fadd_rn(s[5 * T], 1.0f);
+                if constexpr (CH == 12) {
+                    const float* f = feat + ((size_t)y * a.width + x) * 3;
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        const float v = f[c];
+                        s[(6 + c) * T] = __fadd_rn(s[(6 + c) * T], v);
+                        s[(9 + c) * T] = __fadd_rn(s[(9 + c) * T],
+                                                   __fmul_rn(v, v));
+                    }
+                }
+                if (SLICO) {
+                    float* m = mine + (NOFF * CH + best_o) * T;
+                    *m = fmaxf(*m, best_dc2);
+                }
+            }
+        }
+    }
+    if constexpr (CH > 0) {
+        __syncthreads();
+        // warp w reduces channels w, w + WARPS, ...: each lane first adds
+        // its T / 32 values of every channel (and zeroes them), then the
+        // shuffle trees of CHUNK channels run side by side
+        const int warp = tid / 32, lane = tid % 32;
+        float* out = part + (size_t)t * P::NACC;
+#pragma unroll
+        for (int i0 = 0; i0 < P::PER_WARP; i0 += P::CHUNK) {
+            float s[P::CHUNK];
+#pragma unroll
+            for (int i = 0; i < P::CHUNK; ++i) {
+                const int k = warp + (i0 + i) * P::WARPS;
+                s[i] = 0.0f;
+                if (i0 + i >= P::PER_WARP || k >= P::NACC) continue;
+                const bool is_max = SLICO && k >= NOFF * CH;
+                float* ch = acc + k * T + lane;
+#pragma unroll
+                for (int j = 0; j < T; j += 32) {
+                    s[i] = is_max ? fmaxf(s[i], ch[j]) : __fadd_rn(s[i], ch[j]);
+                    ch[j] = 0.0f;
+                }
+            }
+#pragma unroll
+            for (int m = 16; m > 0; m >>= 1)
+#pragma unroll
+                for (int i = 0; i < P::CHUNK; ++i) {
+                    const bool is_max =
+                        SLICO && warp + (i0 + i) * P::WARPS >= NOFF * CH;
+                    const float v = __shfl_xor_sync(0xffffffffu, s[i], m);
+                    s[i] = is_max ? fmaxf(s[i], v) : __fadd_rn(s[i], v);
+                }
+#pragma unroll
+            for (int i = 0; i < P::CHUNK; ++i) {
+                const int k = warp + (i0 + i) * P::WARPS;
+                if (lane != 0 || i0 + i >= P::PER_WARP || k >= P::NACC)
+                    continue;
+                out[k >= NOFF * CH ? (k - NOFF * CH) * P::PCH + CH
+                                   : (k / CH) * P::PCH + k % CH] = s[i];
+            }
+        }
+    }
+}
+
+// ---------------------------------------------------- assignment pass ---
+
+// Block size per mode of the single pass: T_FEAT threads with the 12
+// feature-moment channels, T_PLAIN otherwise (chosen by same-call A/B runs
+// on the card, PERF.md).
 template <int CH, bool SLICO>
-__global__ void __launch_bounds__(NTHREADS)
-slic_assign_pool_kernel(const __nv_bfloat16* __restrict__ lab,  // (3, ph, pw)
-                        const float* __restrict__ centers,      // (gh, gw, NC)
-                        const float* __restrict__ feat,         // (3, ph, pw) or null
-                        int* __restrict__ labels,               // (ph, pw) or null
-                        float* __restrict__ partials,           // (gh, gw, 9, PCH)
-                        float sw, float m2, int height, int width,
-                        int gh, int gw, int step) {
+struct Pass {
+    static constexpr int T_FEAT = 64;
+    static constexpr int T_PLAIN = 128;
+    static constexpr int THREADS = CH == 12 ? T_FEAT : T_PLAIN;
+};
+
+struct PassArgs {
+    const __nv_bfloat16* lab;    // (3, ph, pw)
+    const float* centers;        // (gh, gw, NC)
+    const float* feat;           // (height, width, 3) or null
+    int* labels;                 // (ph, pw) or null
+    float* part;                 // (gh, gw, 9, PCH) or null
+    float sw, m2;
+    int height, width, gh, gw, step;
+};
+
+// One block per seed tile: the 3x3 neighbour centres staged in shared
+// memory (an out-of-grid neighbour gets a NaN l, which never wins), then
+// assign_pool_tile.
+template <int CH, bool SLICO>
+__global__ void __launch_bounds__(Pass<CH, SLICO>::THREADS)
+slic_pass_kernel(PassArgs a) {
+    constexpr int T = Pass<CH, SLICO>::THREADS;
     constexpr int NC = SLICO ? 6 : 5;                // centre columns
-    constexpr bool POOL = CH > 0;
-    constexpr int PCH = CH + (SLICO && POOL ? 1 : 0);
-    constexpr int ACH = POOL ? CH : 1;               // register array extent
-    // (l, a, b, max(M, 1e-6), y, x) as candidate() takes them; an
-    // out-of-grid neighbour has a NaN l
+    using P = Pool<T, CH, SLICO>;
+    __shared__ float acc[P::NACC > 0 ? P::NACC * T : 1];
     __shared__ __align__(16) float cen[NOFF][8];
-    __shared__ float red[NWARPS][NOFF * (PCH > 0 ? PCH : 1)];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    const int tid = threadIdx.x;
-    const int pw = gw * step;
-    const size_t plane = (size_t)gh * step * pw;
+    const int t = blockIdx.x, tid = threadIdx.x;
+    const int ty = t / a.gw, tx = t - ty * a.gw;
     if (tid < NOFF) {
         const int sy = ty + tid / 3 - 1, sx = tx + tid % 3 - 1;
-        const bool ok = sy >= 0 && sy < gh && sx >= 0 && sx < gw;
-        const float* c = centers + (ok ? ((size_t)sy * gw + sx) * NC : 0);
+        const bool ok = sy >= 0 && sy < a.gh && sx >= 0 && sx < a.gw;
+        const float* c = a.centers + (ok ? ((size_t)sy * a.gw + sx) * NC : 0);
         cen[tid][0] = ok ? c[0] : __int_as_float(0x7fc00000);
         cen[tid][1] = ok ? c[1] : 0.0f;
         cen[tid][2] = ok ? c[2] : 0.0f;
@@ -137,126 +284,81 @@ slic_assign_pool_kernel(const __nv_bfloat16* __restrict__ lab,  // (3, ph, pw)
         cen[tid][4] = ok ? c[3] : 0.0f;
         cen[tid][5] = ok ? c[4] : 0.0f;
     }
+    for (int k = 0; k < P::NACC; ++k) acc[k * T + tid] = 0.0f;
     __syncthreads();
+    assign_pool_tile<T, CH, SLICO, false>(a, t, cen, acc, a.part, a.feat,
+                                          a.labels);
+}
 
-    float acc[NOFF][ACH];
-    float mx[NOFF];
+// One thread per (seed, channel): the 9 offset partials of the sum
+// channels routed to their seed in the order of combine_sums (offsets
+// added from 0.0f with __fadd_rn; an offset whose tile lies off the grid
+// adds nothing).
+__global__ void slic_route_kernel(const float* __restrict__ part,
+                                  float* __restrict__ sums, int gh, int gw,
+                                  int pch, int ch) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= gh * gw * ch) return;
+    const int s = i / ch, c = i - s * ch, sy = s / gw, sx = s - sy * gw;
+    float sum = 0.0f;
 #pragma unroll
     for (int o = 0; o < NOFF; ++o) {
-        mx[o] = 0.0f;
-#pragma unroll
-        for (int c = 0; c < ACH; ++c) acc[o][c] = 0.0f;
+        // pixels of tile (sy - di, sx - dj) that chose offset o
+        const int py = sy - (o / 3 - 1), px = sx - (o % 3 - 1);
+        if (py < 0 || py >= gh || px < 0 || px >= gw) continue;
+        sum = __fadd_rn(sum, part[(((size_t)py * gw + px) * NOFF + o) * pch + c]);
     }
-
-    const int npix = step * step;
-    for (int p = tid; p < npix; p += NTHREADS) {
-        const int y = ty * step + p / step, x = tx * step + p % step;
-        const size_t idx = (size_t)y * pw + x;
-        const float l0 = __bfloat162float(lab[idx]);
-        const float l1 = __bfloat162float(lab[plane + idx]);
-        const float l2 = __bfloat162float(lab[2 * plane + idx]);
-        const float fy = (float)y, fx = (float)x;
-        float best_d = 1e10f, best_dc2 = 0.0f;
-        int best_o = 0;
-#pragma unroll
-        for (int o = 0; o < NOFF; ++o)
-            candidate<SLICO, false>(*(const float4*)cen[o],
-                                    *(const float2*)(cen[o] + 4), o, l0, l1,
-                                    l2, fy, fx, sw, m2, false, best_d, best_o,
-                                    best_dc2);
-        if (labels != nullptr)
-            labels[idx] = (ty + best_o / 3 - 1) * gw + (tx + best_o % 3 - 1);
-        if constexpr (POOL) {
-            if (y >= height || x >= width) continue;   // pad pixels add nothing
-            float v[ACH];
-            v[0] = l0; v[1] = l1; v[2] = l2; v[3] = fy; v[4] = fx; v[5] = 1.0f;
-            if constexpr (CH == 12) {
-#pragma unroll
-                for (int c = 0; c < 3; ++c) {
-                    float f = feat[c * plane + idx];
-                    v[6 + c] = f;
-                    v[9 + c] = __fmul_rn(f, f);
-                }
-            }
-#pragma unroll
-            for (int o = 0; o < NOFF; ++o) {
-                if (o == best_o) {
-#pragma unroll
-                    for (int c = 0; c < CH; ++c) acc[o][c] = __fadd_rn(acc[o][c], v[c]);
-                    if constexpr (SLICO) mx[o] = fmaxf(mx[o], best_dc2);
-                }
-            }
-        }
-    }
-    if constexpr (POOL) {
-        const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-        for (int o = 0; o < NOFF; ++o) {
-#pragma unroll
-            for (int c = 0; c < CH; ++c) {
-                float s = acc[o][c];
-#pragma unroll
-                for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
-                if (lane == 0) red[warp][o * PCH + c] = s;
-            }
-            if constexpr (SLICO) {
-                float s = mx[o];
-#pragma unroll
-                for (int m = 16; m > 0; m >>= 1)
-                    s = fmaxf(s, __shfl_xor_sync(0xffffffffu, s, m));
-                if (lane == 0) red[warp][o * PCH + CH] = s;
-            }
-        }
-        __syncthreads();
-        float* out = partials + ((size_t)ty * gw + tx) * NOFF * PCH;
-        for (int k = tid; k < NOFF * PCH; k += NTHREADS) {
-            const bool is_max = SLICO && (k % PCH) == CH;
-            float s = red[0][k];
-            for (int wi = 1; wi < NWARPS; ++wi)
-                s = is_max ? fmaxf(s, red[wi][k]) : s + red[wi][k];
-            out[k] = s;
-        }
-    }
+    sums[i] = sum;
 }
 
 template <int CH, bool SLICO>
-static void launch_assign_pool(dim3 grid, cudaStream_t st, const void* lab,
-                               const void* centers, const void* feat,
-                               void* labels, void* partials, float sw, float m2,
-                               int height, int width, int gh, int gw, int step) {
-    slic_assign_pool_kernel<CH, SLICO><<<grid, NTHREADS, 0, st>>>(
-        (const __nv_bfloat16*)lab, (const float*)centers, (const float*)feat,
-        (int*)labels, (float*)partials, sw, m2, height, width, gh, gw, step);
+static void launch_pass(const PassArgs& a, cudaStream_t st) {
+    slic_pass_kernel<CH, SLICO><<<a.gh * a.gw, Pass<CH, SLICO>::THREADS, 0, st>>>(a);
 }
 
 // partials == nullptr: labels only.  feat != nullptr: 12 pooled channels
 // (plain mode only).  slico != 0: centres (gh, gw, 6), partials 7 channels.
+// sums != nullptr (with partials, plain mode): a second launch routes the
+// partials to (gh, gw, 6|12) per-seed sums.
 extern "C" int slic_assign_pool(const void* lab, const void* centers,
                                 const void* feat, void* labels, void* partials,
-                                float sw, float m2, int height, int width,
-                                int gh, int gw, int step, int slico,
+                                void* sums, float sw, float m2, int height,
+                                int width, int gh, int gw, int step, int slico,
                                 void* stream) {
-    dim3 grid(gw, gh);
     cudaStream_t st = (cudaStream_t)stream;
     if (partials == nullptr && labels == nullptr) return (int)cudaErrorInvalidValue;
-    if (slico && feat != nullptr) return (int)cudaErrorInvalidValue;
+    if (slico && (feat != nullptr || sums != nullptr)) return (int)cudaErrorInvalidValue;
+    if (sums != nullptr && partials == nullptr) return (int)cudaErrorInvalidValue;
+    PassArgs a;
+    a.lab = (const __nv_bfloat16*)lab;
+    a.centers = (const float*)centers;
+    a.feat = (const float*)feat;
+    a.labels = (int*)labels;
+    a.part = (float*)partials;
+    a.sw = sw;
+    a.m2 = m2;
+    a.height = height;
+    a.width = width;
+    a.gh = gh;
+    a.gw = gw;
+    a.step = step;
+    int ch = 6;
     if (slico) {
-        if (partials == nullptr)
-            launch_assign_pool<0, true>(grid, st, lab, centers, nullptr, labels,
-                                        nullptr, sw, m2, height, width, gh, gw, step);
-        else
-            launch_assign_pool<6, true>(grid, st, lab, centers, nullptr, labels,
-                                        partials, sw, m2, height, width, gh, gw, step);
+        if (partials == nullptr) launch_pass<0, true>(a, st);
+        else launch_pass<6, true>(a, st);
     } else if (partials == nullptr) {
-        launch_assign_pool<0, false>(grid, st, lab, centers, nullptr, labels,
-                                     nullptr, sw, m2, height, width, gh, gw, step);
+        launch_pass<0, false>(a, st);
     } else if (feat != nullptr) {
-        launch_assign_pool<12, false>(grid, st, lab, centers, feat, labels,
-                                      partials, sw, m2, height, width, gh, gw, step);
+        ch = 12;
+        launch_pass<12, false>(a, st);
     } else {
-        launch_assign_pool<6, false>(grid, st, lab, centers, nullptr, labels,
-                                     partials, sw, m2, height, width, gh, gw, step);
+        launch_pass<6, false>(a, st);
     }
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || sums == nullptr) return (int)err;
+    const int n = gh * gw * ch;
+    slic_route_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        (const float*)partials, (float*)sums, gh, gw, ch, ch);
     return (int)cudaGetLastError();
 }
 
@@ -277,8 +379,6 @@ struct Sched {
     static constexpr int NACC = NOFF * PCH;          // per-thread sums
     static constexpr int T = SLICO ? 64 : 128;
     static constexpr int MIN_BLOCKS = 7;
-    static constexpr int WARPS = T / 32;
-    static constexpr int PER_WARP = (NACC + WARPS - 1) / WARPS;
     static constexpr bool PRUNE = SLICO;
     // neighbour_centres gives each (neighbour, channel) its own thread
     static_assert(T >= NOFF * PCH, "a block must cover 9 x PCH channels");
@@ -364,105 +464,6 @@ __device__ __forceinline__ void neighbour_centres(
     __syncthreads();
 }
 
-// One partials-only assignment of tile t into part: per-thread sums in
-// acc[channel][thread] (channel o * NSUM + c; in SLICO mode 54 + o holds the
-// largest dc2), then each channel reduced by one warp.  acc is all zero on
-// entry and is left all zero.
-template <bool SLICO>
-__device__ __forceinline__ void assign_pool_tile(
-        const ScheduleArgs& a, int t, const float (*cen)[8],
-        float* acc, float* part) {
-    using S = Sched<SLICO>;
-    constexpr int T = S::T;
-    const int tid = threadIdx.x, ty = t / a.gw, tx = t - ty * a.gw;
-    const int step = a.step, pw = a.gw * step;
-    const size_t plane = (size_t)a.gh * step * pw;
-    // pixel tid + k * T of the tile, walked as (row, column)
-    const int drow = T / step, dcol = T - drow * step;
-    int row = tid / step, col = tid - row * step;
-    float* mine = acc + tid;
-    // the 9 candidates in registers for the whole tile
-    float4 cc[NOFF];
-    float2 cp[NOFF];
-#pragma unroll
-    for (int o = 0; o < NOFF; ++o) {
-        cc[o] = *(const float4*)cen[o];
-        cp[o] = *(const float2*)(cen[o] + 4);
-    }
-    while (row < step) {
-        const int y = ty * step + row, x = tx * step + col;
-        col += dcol;
-        row += drow;
-        if (col >= step) { col -= step; ++row; }
-        const size_t idx = (size_t)y * pw + x;
-        const float l0 = __bfloat162float(a.lab[idx]);
-        const float l1 = __bfloat162float(a.lab[plane + idx]);
-        const float l2 = __bfloat162float(a.lab[2 * plane + idx]);
-        const float fy = (float)y, fx = (float)x;
-        float best_d = 1e10f, best_dc2 = 0.0f;
-        int best_o = 0;
-        // with PRUNE the tile's own seed first: its distance bounds the
-        // others'
-        if (S::PRUNE)
-            candidate<SLICO, true>(cc[4], cp[4], 4, l0, l1, l2, fy, fx, a.sw,
-                                   a.m2, false, best_d, best_o, best_dc2);
-#pragma unroll
-        for (int o = 0; o < NOFF; ++o)
-            if (!S::PRUNE || o != 4)
-                candidate<SLICO, S::PRUNE>(cc[o], cp[o], o, l0, l1, l2, fy,
-                                           fx, a.sw, a.m2, S::PRUNE, best_d,
-                                           best_o, best_dc2);
-        if (y < a.height && x < a.width) {          // pad pixels add nothing
-            float* s = mine + best_o * NSUM * T;
-            s[0] = __fadd_rn(s[0], l0);
-            s[T] = __fadd_rn(s[T], l1);
-            s[2 * T] = __fadd_rn(s[2 * T], l2);
-            s[3 * T] = __fadd_rn(s[3 * T], fy);
-            s[4 * T] = __fadd_rn(s[4 * T], fx);
-            s[5 * T] = __fadd_rn(s[5 * T], 1.0f);
-            if (SLICO) {
-                float* m = mine + (NOFF * NSUM + best_o) * T;
-                *m = fmaxf(*m, best_dc2);
-            }
-        }
-    }
-    __syncthreads();
-    // warp w reduces channels w, w + WARPS, ...: each lane first adds its
-    // T / 32 values of every channel (and zeroes them), then the channels'
-    // shuffle trees run side by side
-    const int warp = tid / 32, lane = tid % 32;
-    float s[S::PER_WARP];
-#pragma unroll
-    for (int i = 0; i < S::PER_WARP; ++i) {
-        const int k = warp + i * S::WARPS;
-        s[i] = 0.0f;
-        if (k >= S::NACC) continue;
-        const bool is_max = SLICO && k >= NOFF * NSUM;
-        float* ch = acc + k * T + lane;
-#pragma unroll
-        for (int j = 0; j < T; j += 32) {
-            s[i] = is_max ? fmaxf(s[i], ch[j]) : __fadd_rn(s[i], ch[j]);
-            ch[j] = 0.0f;
-        }
-    }
-#pragma unroll
-    for (int m = 16; m > 0; m >>= 1)
-#pragma unroll
-        for (int i = 0; i < S::PER_WARP; ++i) {
-            const bool is_max = SLICO && warp + i * S::WARPS >= NOFF * NSUM;
-            const float v = __shfl_xor_sync(0xffffffffu, s[i], m);
-            s[i] = is_max ? fmaxf(s[i], v) : __fadd_rn(s[i], v);
-        }
-    float* out = part + (size_t)t * NOFF * S::PCH;
-#pragma unroll
-    for (int i = 0; i < S::PER_WARP; ++i) {
-        const int k = warp + i * S::WARPS;
-        if (lane != 0 || k >= S::NACC) continue;
-        out[k >= NOFF * NSUM ? (k - NOFF * NSUM) * S::PCH + NSUM
-                             : (k / NSUM) * S::PCH + k % NSUM] = s[i];
-    }
-}
-
 template <bool SLICO>
 __global__ void __launch_bounds__(Sched<SLICO>::T, Sched<SLICO>::MIN_BLOCKS)
 slic_schedule_kernel(ScheduleArgs a) {
@@ -479,7 +480,8 @@ slic_schedule_kernel(ScheduleArgs a) {
         for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
             neighbour_centres<SLICO>(a, r, t, a.cen + (r & 1) * n_cen, false,
                                      red, cen);
-            assign_pool_tile<SLICO>(a, t, cen, acc, a.part + (r & 1) * n_part);
+            assign_pool_tile<S::T, NSUM, SLICO, S::PRUNE>(
+                a, t, cen, acc, a.part + (r & 1) * n_part, nullptr, nullptr);
         }
         grid.sync();
     }

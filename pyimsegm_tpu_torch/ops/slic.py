@@ -269,25 +269,18 @@ def _slic_segment_geom_cuda(image, cfg: SlicConfig, compactness,
                             n_iter=DEFAULT_SLIC_ITERS, feat_image=None):
     """SLIC through the kernels: blur_lab, n_iter-1 assign + update rounds,
     then one final assignment that also pools geometry (and the colour
-    moments of ``feat_image``).
+    moments of ``feat_image``) and routes them to per-seed sums.
 
     :returns: (labels (H, W) i32, counts (K,), centres (K, 2)[, moment sums
         (K, 6)])
     """
-    from pyimsegm_tpu_torch.ops.slic_cuda import (
-        combine_sums, slic_multi_update, slic_update_labels)
+    from pyimsegm_tpu_torch.ops.slic_cuda import (slic_multi_update,
+                                                  slic_update_labels)
     lab_chw, centers0 = _prepare_chw(image, cfg)
-    feat_chw = None
-    if feat_image is not None:
-        feat = feat_image.to(torch.float32).permute(2, 0, 1)
-        feat_chw = torch.zeros((3, cfg.pad_h, cfg.pad_w), dtype=torch.float32,
-                               device=feat.device)
-        feat_chw[:, :cfg.height, :cfg.width] = feat
     centers = slic_multi_update(lab_chw, centers0, compactness, cfg,
                                 n_upd=max(n_iter - 1, 0))
-    labels, partials = slic_update_labels(lab_chw, centers, compactness, cfg,
-                                          feat_chw=feat_chw)
-    sums = combine_sums(partials)                    # (gh, gw, 6|12)
+    labels, _, sums = slic_update_labels(lab_chw, centers, compactness, cfg,
+                                         feat=feat_image)   # (gh, gw, 6|12)
     k = cfg.n_segments
     counts = sums[..., 5].reshape(k)
     cent = (sums[..., 3:5] / torch.clamp_min(sums[..., 5:6], 1.0)).reshape(k, 2)

@@ -1,19 +1,20 @@
-"""3D SLIC assignment + pooling and centre update: CUDA kernels and twins.
+"""3D SLIC assignment + pooling and centre update: CUDA kernel and twins.
 
 Replaces ``slic3d_iterate_pallas`` of ``pyimsegm_tpu.ops.slic3d_pallas``
-with the two kernels of ``csrc/slic3d.cu``:
+with the one cooperative kernel of ``csrc/slic3d.cu`` (``slic3d_run``): a
+grid of as many blocks as the card holds co-resident strides over the seed
+tiles; each voxel takes the first best of its 27 candidate seeds
+(lexicographic ``(dz, dy, dx)`` order) under ``d = dc2 + ds2 * sw * m2``,
+and a tile writes either the labels of its voxels or per-(tile, offset)
+partial sums [v, z, y, x, count] over the valid voxels.  Between two
+partials passes, behind grid barriers, one thread per seed routes the 27
+offset partials (:func:`combine_sums3d`'s order), divides, and keeps the
+centre of an empty cluster.
 
-* ``slic3d_pass`` -- one block per seed tile: each voxel takes the first
-  best of its 27 candidate seeds (lexicographic ``(dz, dy, dx)`` order)
-  under ``d = dc2 + ds2 * sw * m2``, and the block writes either the labels
-  of its voxels or per-(tile, offset) partial sums [v, z, y, x, count] over
-  the valid voxels;
-* ``slic3d_update`` -- one thread per seed: route the 27 offset partials
-  (:func:`combine_sums3d`), divide, keep the centre of an empty cluster.
-
-:func:`slic3d_iterate` runs n_iter - 1 rounds of (:func:`slic3d_partials`,
-the centre update) and a last :func:`slic3d_labels`.  Each wrapper launches
-its kernel for CUDA tensors and runs the plain twin (``_assign3d_plain``,
+:func:`slic3d_iterate` is the whole schedule (n_iter - 1 rounds and the
+labels pass) in one launch; :func:`slic3d_labels` and
+:func:`slic3d_partials` are single passes of the same kernel.  Each wrapper
+launches it for CUDA tensors and runs the plain twin (``_assign3d_plain``,
 ``_pool3d_plain``, ``_update3d_plain``) for CPU tensors.
 """
 
@@ -27,8 +28,7 @@ from pyimsegm_tpu_torch.ops.slic3d import (
     OFFSETS3, Slic3DConfig, _shift3d, _upsample3d, slic3d_weights)
 
 #: kernel launches in this process, per wrapper (``slic3d_iterate`` counts
-#: its centre updates; its passes count as ``slic3d_partials`` and
-#: ``slic3d_labels``)
+#: one per schedule)
 LAUNCHES = {'slic3d_labels': 0, 'slic3d_partials': 0, 'slic3d_iterate': 0}
 _BIG = 1e10
 
@@ -37,8 +37,7 @@ _BIG = 1e10
 def _lib():
     v, i, f = _build.VOIDP, _build.INT, _build.FLOAT
     return _build.load('slic3d', {
-        'slic3d_pass': [v] * 4 + [f] * 5 + [i] * 9 + [v],
-        'slic3d_update': [v, v, i, i, i, v],
+        'slic3d_run': [v] * 5 + [f] * 5 + [i] * 10 + [v],
     })
 
 
@@ -157,21 +156,32 @@ def _slic3d_iterate_plain(vol_p, centers0, compactness, cfg, n_iter):
 
 # ---------------------------------------------------------------- kernels ---
 
+def _centers(centers):
+    """f32 contiguous centres on a 16-byte boundary (the kernel reads each
+    centre as one float4)."""
+    centers = centers.to(torch.float32).contiguous()
+    return centers.clone() if centers.data_ptr() % 16 else centers
+
+
 def _check_inputs(vol_p, centers, cfg):
     _build.require(vol_p, 'vol_p', torch.float32, cfg.pad)
     _build.require(centers, 'centers', torch.float32, cfg.grid + (4,))
 
 
-def _launch_pass(vol_p, centers, labels, partials, compactness,
-                 cfg: Slic3DConfig):
+def _run(vol_p, seeds, work, labels, partials, compactness,
+         cfg: Slic3DConfig, n_upd=0):
     (sp_z, sp_y, sp_x), sw, m2 = slic3d_weights(compactness, cfg)
     ptr = (lambda t: None if t is None else t.data_ptr())
     f = ctypes.c_float
-    err = _lib().slic3d_pass(
-        vol_p.data_ptr(), centers.data_ptr(), ptr(labels), ptr(partials),
-        f(sp_z), f(sp_y), f(sp_x), f(sw), f(m2), *cfg.shape, *cfg.grid,
-        *cfg.steps, _build.stream_ptr(vol_p))
-    _build.check(err, 'slic3d_pass')
+    _build.launch(_lib().slic3d_run, 'slic3d_run', vol_p, vol_p.data_ptr(),
+                  seeds.data_ptr(), ptr(work), ptr(labels), ptr(partials),
+                  f(sp_z), f(sp_y), f(sp_x), f(sw), f(m2), *cfg.shape,
+                  *cfg.grid, *cfg.steps, int(n_upd))
+
+
+def _partials_like(vol_p, cfg):
+    return torch.empty(cfg.grid + (len(OFFSETS3), 5), dtype=torch.float32,
+                       device=vol_p.device)
 
 
 def slic3d_labels(vol_p, centers, compactness, cfg: Slic3DConfig):
@@ -183,11 +193,10 @@ def slic3d_labels(vol_p, centers, compactness, cfg: Slic3DConfig):
     """
     if not vol_p.is_cuda:
         return _slic3d_labels_plain(vol_p, centers, compactness, cfg)
-    centers = centers.to(torch.float32).contiguous()
+    centers = _centers(centers)
     _check_inputs(vol_p, centers, cfg)
     labels = torch.empty(cfg.pad, dtype=torch.int32, device=vol_p.device)
-    with torch.cuda.device(vol_p.device):
-        _launch_pass(vol_p, centers, labels, None, compactness, cfg)
+    _run(vol_p, centers, None, labels, None, compactness, cfg)
     LAUNCHES['slic3d_labels'] += 1
     return labels
 
@@ -200,33 +209,30 @@ def slic3d_partials(vol_p, centers, compactness, cfg: Slic3DConfig):
     """
     if not vol_p.is_cuda:
         return _slic3d_partials_plain(vol_p, centers, compactness, cfg)
-    centers = centers.to(torch.float32).contiguous()
+    centers = _centers(centers)
     _check_inputs(vol_p, centers, cfg)
-    partials = torch.empty(cfg.grid + (len(OFFSETS3), 5), dtype=torch.float32,
-                           device=vol_p.device)
-    with torch.cuda.device(vol_p.device):
-        _launch_pass(vol_p, centers, None, partials, compactness, cfg)
+    partials = _partials_like(vol_p, cfg)
+    _run(vol_p, centers, None, None, partials, compactness, cfg)
     LAUNCHES['slic3d_partials'] += 1
     return partials
 
 
 def slic3d_iterate(vol_p, centers0, compactness, cfg: Slic3DConfig, n_iter):
     """The whole SLIC schedule: n_iter - 1 rounds of a partials pass and a
-    centre update (one launch each, no host synchronisation), then a labels
-    pass.  Each centre update is counted here.
+    centre update, then a labels pass, in one cooperative launch (counted
+    here once); a launch the card refuses raises.
 
     :returns: (pad_z, pad_h, pad_w) int32 labels
     """
     if not vol_p.is_cuda:
         return _slic3d_iterate_plain(vol_p, centers0, compactness, cfg,
                                      n_iter)
-    centers = centers0.to(torch.float32).contiguous().clone()
-    _check_inputs(vol_p, centers, cfg)
-    with torch.cuda.device(vol_p.device):
-        for _ in range(max(n_iter - 1, 0)):
-            partials = slic3d_partials(vol_p, centers, compactness, cfg)
-            err = _lib().slic3d_update(partials.data_ptr(), centers.data_ptr(),
-                                       *cfg.grid, _build.stream_ptr(vol_p))
-            _build.check(err, 'slic3d_update')
-            LAUNCHES['slic3d_iterate'] += 1
-    return slic3d_labels(vol_p, centers, compactness, cfg)
+    centers0 = _centers(centers0)
+    _check_inputs(vol_p, centers0, cfg)
+    n_upd = max(n_iter - 1, 0)
+    labels = torch.empty(cfg.pad, dtype=torch.int32, device=vol_p.device)
+    work = torch.empty_like(centers0) if n_upd else None
+    partials = _partials_like(vol_p, cfg) if n_upd else None
+    _run(vol_p, centers0, work, labels, partials, compactness, cfg, n_upd)
+    LAUNCHES['slic3d_iterate'] += 1
+    return labels

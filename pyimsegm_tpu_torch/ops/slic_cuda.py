@@ -10,7 +10,9 @@ Replaces the SLIC kernels of ``pyimsegm_tpu.ops.slic_pallas``
   ``d = dc2 + (ds2 * sw) * m2`` (SLICO: ``dc2 / max(M, 1e-6) + ds2 * sw``
   with the cluster's colour normaliser M), and the block writes the labels,
   or per-(tile, offset) partial sums [L, a, b, y, x, count] (+ [v, v^2] of a
-  feature image; + the largest dc2 in SLICO mode), or both;
+  feature image; + the largest dc2 in SLICO mode), or both; for the final
+  assignment a second launch routes the partials to per-seed sums in
+  :func:`combine_sums`'s order;
 * ``slic_schedule`` — the whole update schedule (row 2) in one cooperative
   launch: each round assigns and pools every tile and updates its centres
   (route the 9 offset partials as :func:`combine_sums` does, divide, keep
@@ -19,10 +21,10 @@ Replaces the SLIC kernels of ``pyimsegm_tpu.ops.slic_pallas``
 
 :func:`slic_multi_update` is one ``slic_schedule`` call, counted once per
 schedule;
-:func:`slic_update_labels` is one assign_pool with labels and partials (and
-features); :func:`slic_assign` writes labels only, :func:`slic_update`
-partials only.  Each wrapper launches the kernels for CUDA tensors and runs
-the plain twins (``_assign_plain``, ``_pool_plain``,
+:func:`slic_update_labels` is one assign_pool with labels, partials (and
+features) and the routed sums; :func:`slic_assign` writes labels only,
+:func:`slic_update` partials only.  Each wrapper launches the kernels for
+CUDA tensors and runs the plain twins (``_assign_plain``, ``_pool_plain``,
 ``_update_centers_plain``) for CPU tensors.
 """
 
@@ -49,7 +51,7 @@ LAUNCHES = {'slic_multi_update': 0, 'slic_multi_update_slico': 0,
 def _lib():
     v, i, f = _build.VOIDP, _build.INT, _build.FLOAT
     return _build.load('slic', {
-        'slic_assign_pool': [v] * 5 + [f, f] + [i] * 6 + [v],
+        'slic_assign_pool': [v] * 6 + [f, f] + [i] * 6 + [v],
         'slic_schedule': [v] * 4 + [f] * 3 + [i] * 7 + [v],
     })
 
@@ -117,11 +119,10 @@ def _assign_plain(lab_p, centers, sw, m2, cfg: SlicConfig, slico=False):
     return labels.to(torch.int32), best_o, best_dc2
 
 
-def _pool_plain(lab_p, best_o, cfg: SlicConfig, feat_chw=None,
-                best_dc2=None):
-    """Per-(tile, offset) sums of [L, a, b, y, x, 1] (+ [v, v^2]) over the
-    valid pixels, and with ``best_dc2`` (SLICO) the largest dc2 as a last
-    channel: (gh, gw, 9, 6|7|12) f32."""
+def _pool_plain(lab_p, best_o, cfg: SlicConfig, feat=None, best_dc2=None):
+    """Per-(tile, offset) sums of [L, a, b, y, x, 1] (+ [v, v^2] of the
+    (H, W, 3) image ``feat``) over the valid pixels, and with ``best_dc2``
+    (SLICO) the largest dc2 as a last channel: (gh, gw, 9, 6|7|12) f32."""
     gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
     dev = best_o.device
     hp, wp = cfg.pad_h, cfg.pad_w
@@ -130,7 +131,9 @@ def _pool_plain(lab_p, best_o, cfg: SlicConfig, feat_chw=None,
                             indexing='ij')
     chans = [lab_p[0].float(), lab_p[1].float(), lab_p[2].float(), py, px,
              torch.ones_like(py)]
-    if feat_chw is not None:
+    if feat is not None:
+        feat_chw = torch.zeros((3, hp, wp), dtype=torch.float32, device=dev)
+        feat_chw[:, :cfg.height, :cfg.width] = feat.permute(2, 0, 1)
         chans += [feat_chw[c] for c in range(3)]
         chans += [feat_chw[c] * feat_chw[c] for c in range(3)]
     data = torch.stack(chans, dim=-1)
@@ -184,10 +187,11 @@ def _slic_multi_update_plain(lab_chw, centers, compactness, cfg, n_upd,
 
 
 def _slic_update_labels_plain(lab_chw, centers, compactness, cfg,
-                              feat_chw=None):
+                              feat=None):
     sw, m2 = slic_weights(compactness, cfg)
     labels, best_o, _ = _assign_plain(lab_chw, centers, sw, m2, cfg)
-    return labels, _pool_plain(lab_chw, best_o, cfg, feat_chw)
+    partials = _pool_plain(lab_chw, best_o, cfg, feat)
+    return labels, partials, combine_sums(partials)
 
 
 def _slic_assign_plain(lab_chw, centers, compactness, cfg, slico=False):
@@ -211,14 +215,13 @@ def _check_inputs(lab_chw, centers, cfg, slico=False):
 
 
 def _launch_assign_pool(lab_chw, centers, feat, labels, partials, sw, m2,
-                        cfg: SlicConfig, slico=False):
+                        cfg: SlicConfig, slico=False, sums=None):
     ptr = (lambda t: None if t is None else t.data_ptr())
-    err = _lib().slic_assign_pool(
-        lab_chw.data_ptr(), centers.data_ptr(), ptr(feat), ptr(labels),
-        ptr(partials), ctypes.c_float(sw), ctypes.c_float(m2),
-        cfg.height, cfg.width, cfg.grid_h, cfg.grid_w, cfg.step, int(slico),
-        _build.stream_ptr(lab_chw))
-    _build.check(err, 'slic_assign_pool')
+    _build.launch(_lib().slic_assign_pool, 'slic_assign_pool', lab_chw,
+                  lab_chw.data_ptr(), centers.data_ptr(), ptr(feat),
+                  ptr(labels), ptr(partials), ptr(sums), ctypes.c_float(sw),
+                  ctypes.c_float(m2), cfg.height, cfg.width, cfg.grid_h,
+                  cfg.grid_w, cfg.step, int(slico))
 
 
 def slic_multi_update(lab_chw, centers, compactness, cfg: SlicConfig, n_upd,
@@ -257,32 +260,38 @@ def slic_multi_update(lab_chw, centers, compactness, cfg: SlicConfig, n_upd,
 
 
 def slic_update_labels(lab_chw, centers, compactness, cfg: SlicConfig,
-                       feat_chw=None):
-    """Final assignment: labels and partials from one pass, optionally with
-    the colour moments of ``feat_chw`` ((3, pad_h, pad_w) f32, zero pad).
+                       feat=None):
+    """Final assignment: labels, partials and their per-seed sums from one
+    C call (the pass and the route), optionally with the colour moments of
+    ``feat``.
 
-    :returns: (labels (pad_h, pad_w) int32, partials (gh, gw, 9, 6|12) f32)
+    :param feat: (H, W, 3) image whose [v, v^2] are pooled too, or None
+    :returns: (labels (pad_h, pad_w) int32, partials (gh, gw, 9, 6|12) f32,
+        per-seed sums (gh, gw, 6|12) f32 routed as :func:`combine_sums`
+        does: [L, a, b, y, x, count(, v0, v1, v2, v0^2, v1^2, v2^2)])
     """
     if not lab_chw.is_cuda:
         return _slic_update_labels_plain(lab_chw, centers, compactness, cfg,
-                                         feat_chw)
+                                         feat)
     sw, m2 = slic_weights(compactness, cfg)
     centers = centers.to(torch.float32).contiguous()
     _check_inputs(lab_chw, centers, cfg)
     ch = 6
-    if feat_chw is not None:
+    if feat is not None:
         ch = 12
-        _build.require(feat_chw, 'feat_chw', torch.float32,
-                       (3, cfg.pad_h, cfg.pad_w))
+        feat = feat.to(torch.float32).contiguous()
+        _build.require(feat, 'feat', torch.float32,
+                       (cfg.height, cfg.width, 3))
     dev = lab_chw.device
     labels = torch.empty((cfg.pad_h, cfg.pad_w), dtype=torch.int32, device=dev)
     partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, ch),
                            dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        _launch_assign_pool(lab_chw, centers, feat_chw, labels, partials, sw,
-                            m2, cfg)
+    sums = torch.empty((cfg.grid_h, cfg.grid_w, ch), dtype=torch.float32,
+                       device=dev)
+    _launch_assign_pool(lab_chw, centers, feat, labels, partials, sw, m2, cfg,
+                        sums=sums)
     LAUNCHES['slic_update_labels'] += 1
-    return labels, partials
+    return labels, partials, sums
 
 
 def slic_assign(lab_chw, centers, compactness, cfg: SlicConfig, slico=False):
@@ -299,9 +308,8 @@ def slic_assign(lab_chw, centers, compactness, cfg: SlicConfig, slico=False):
     _check_inputs(lab_chw, centers, cfg, slico)
     labels = torch.empty((cfg.pad_h, cfg.pad_w), dtype=torch.int32,
                          device=lab_chw.device)
-    with torch.cuda.device(lab_chw.device):
-        _launch_assign_pool(lab_chw, centers, None, labels, None, sw, m2, cfg,
-                            slico)
+    _launch_assign_pool(lab_chw, centers, None, labels, None, sw, m2, cfg,
+                        slico)
     LAUNCHES['slic_assign_slico' if slico else 'slic_assign'] += 1
     return labels
 
@@ -321,9 +329,8 @@ def slic_update(lab_chw, centers, compactness, cfg: SlicConfig, slico=False):
     _check_inputs(lab_chw, centers, cfg, slico)
     partials = torch.empty((cfg.grid_h, cfg.grid_w, 9, 7 if slico else 6),
                            dtype=torch.float32, device=lab_chw.device)
-    with torch.cuda.device(lab_chw.device):
-        _launch_assign_pool(lab_chw, centers, None, None, partials, sw, m2,
-                            cfg, slico)
+    _launch_assign_pool(lab_chw, centers, None, None, partials, sw, m2, cfg,
+                        slico)
     LAUNCHES['slic_update'] += 1
     return partials
 

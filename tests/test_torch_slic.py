@@ -165,12 +165,12 @@ def test_slic_kernel_twins_match_pallas_interpret(shape):
     cen_t = slic_cuda.slic_multi_update(
         lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=9)
     np.testing.assert_allclose(cen_t.numpy(), np.asarray(cen_j), atol=0.1)
-    lb_chain, _ = slic_cuda.slic_update_labels(lab_t, cen_t, m, tcfg)
+    lb_chain = slic_cuda.slic_update_labels(lab_t, cen_t, m, tcfg)[0]
     assert (lb_chain.numpy() == np.asarray(lb_j)).mean() >= 0.995
 
-    lb_t, part_t = slic_cuda.slic_update_labels(
+    lb_t, part_t, _ = slic_cuda.slic_update_labels(
         lab_t, torch.as_tensor(np.array(cen_j)), m, tcfg,
-        feat_chw=torch.as_tensor(feat))
+        feat=torch.as_tensor(img))
     assert lb_t.dtype == torch.int32
     assert (lb_t.numpy() == np.asarray(lb_j)).mean() >= 0.999
     assert part_t.shape == part_j.shape
@@ -187,6 +187,44 @@ def test_combine_sums_matches_jax():
         np.asarray(slic_pallas.combine_sums(jnp.asarray(parts))))
 
 
+#: an odd shape at an odd step: the last tile row and column partial
+ROUTE_SHAPE, ROUTE_SP = (83, 117), 13
+
+
+def test_update_labels_routed_sums_match_pallas_interpret():
+    """Row 3's routed per-seed sums: the twin's equal ``combine_sums`` of its
+    own partials, and JAX's ``slic_pallas.combine_sums`` of the partials of
+    ``slic_update_labels_pallas`` in interpret mode from the same centres
+    (rtol 1e-5 plus 1e-5 of the channel's largest sum: the partials are
+    pooled in another order)."""
+    from pyimsegm_tpu.ops import slic_pallas
+    img = _image(ROUTE_SHAPE, seed=37)
+    cfg = jslic.slic_config(*ROUTE_SHAPE, ROUTE_SP)
+    m = jslic.compactness_from_regul(ROUTE_SP, 0.2)
+    lab_j, cen0_j = jslic._prepare_chw(jnp.asarray(img), cfg)
+    tcfg = tslic.slic_config(*ROUTE_SHAPE, ROUTE_SP)
+    lab_t = torch.as_tensor(np.array(lab_j.astype(jnp.float32))).to(
+        torch.bfloat16)
+    cen = slic_cuda.slic_multi_update(
+        lab_t, torch.as_tensor(np.array(cen0_j)), m, tcfg, n_upd=3)
+    feat = np.zeros((3, cfg.pad_h, cfg.pad_w), np.float32)
+    feat[:, :ROUTE_SHAPE[0], :ROUTE_SHAPE[1]] = img.transpose(2, 0, 1)
+    patch, calls = _interpret(slic_pallas)
+    with patch:
+        _, part_j = slic_pallas.slic_update_labels_pallas(
+            lab_j, jnp.asarray(cen.numpy()), (jnp.float32(m) / cfg.step) ** 2,
+            cfg, feat_chw=jnp.asarray(feat))
+    assert calls
+    want = np.asarray(slic_pallas.combine_sums(part_j))
+    _, part_t, sums = slic_cuda.slic_update_labels(
+        lab_t, cen, m, tcfg, feat=torch.as_tensor(img))
+    assert tuple(sums.shape) == (cfg.grid_h, cfg.grid_w, 12)
+    assert torch.equal(sums, slic_cuda.combine_sums(part_t))
+    got = sums.numpy()
+    scale = np.abs(want).max(axis=(0, 1), keepdims=True)
+    assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-5 * scale).all()
+
+
 @pytest.mark.parametrize('shape', SHAPES)
 def test_update_labels_twin_pools_its_own_assignment(shape):
     """The final-pass partials are the per-(tile, offset) sums over exactly
@@ -195,10 +233,10 @@ def test_update_labels_twin_pools_its_own_assignment(shape):
     cfg = tslic.slic_config(*shape, SP)
     m = tslic.compactness_from_regul(SP, 0.2)
     lab, cen0 = tslic._prepare_chw(torch.as_tensor(img), cfg)
-    feat = torch.zeros((3, cfg.pad_h, cfg.pad_w))
-    feat[:, :shape[0], :shape[1]] = torch.as_tensor(img).permute(2, 0, 1)
-    labels, part = slic_cuda.slic_update_labels(lab, cen0, m, cfg, feat)
+    labels, part, routed = slic_cuda.slic_update_labels(
+        lab, cen0, m, cfg, torch.as_tensor(img))
     sums = slic_cuda.combine_sums(part).reshape(cfg.n_segments, 12)
+    assert torch.equal(routed.reshape(cfg.n_segments, 12), sums)
     lab_c = labels[:shape[0], :shape[1]].long().reshape(-1)
     counts = torch.bincount(lab_c, minlength=cfg.n_segments).float()
     np.testing.assert_array_equal(sums[:, 5].numpy(), counts.numpy())

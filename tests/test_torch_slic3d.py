@@ -194,3 +194,94 @@ def test_segment_slic_img3d_gray_matches_jax():
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tsp.segment_slic_img3d_gray(vol, sp_size=8)
 
+
+
+#: a shape that is no multiple of the steps (4, 8, 8) in any axis, and the
+#: seed given a value far beyond the volume's, so that no voxel takes it
+ODD_SHAPE, EMPTY_SEED = (10, 45, 63), (1, 2, 3)
+
+
+def _interpret_calls(sp3):
+    """A pallas_call that runs in interpret mode and counts its calls."""
+    from jax.experimental import pallas as pl
+    orig_call = pl.pallas_call
+    n_calls = [0]
+
+    def interpret_call(*a, **k):
+        n_calls[0] += 1
+        return orig_call(*a, **dict(k, interpret=True))
+
+    jax.clear_caches()
+    return mock.patch.object(sp3.pl, 'pallas_call', interpret_call), n_calls
+
+
+def test_pallas_iterate_interpret_empty_cluster_odd_shape():
+    """``slic3d_iterate_pallas`` in interpret mode against the port's twin at
+    an odd shape, from seeds of which one (v = 1e6) wins no voxel: its
+    cluster stays empty through every round in both (it keeps its centre),
+    and the labels agree on >= 0.99 of the voxels (the kernel's dot-product
+    scoring is not the XLA path's)."""
+    from pyimsegm_tpu.ops import slic3d_pallas as sp3
+    vol = _volume(ODD_SHAPE, seed=11)
+    cj, ct, m = _configs(8, (2, 1, 1), shape=ODD_SHAPE)
+    assert all(d % s for d, s in zip(ODD_SHAPE, ct.steps))
+    vp_j, _valid, c0_j, sw = jslic3d._prep3d(jnp.asarray(vol), cj)
+    c0 = np.array(c0_j)
+    c0[EMPTY_SEED + (0,)] = 1e6
+    scales = jnp.asarray(cj.spacing, jnp.float32) * jnp.sqrt(
+        sw * jnp.float32(m) ** 2)
+    patch, n_calls = _interpret_calls(sp3)
+    with patch:
+        lp = np.asarray(sp3.slic3d_iterate_pallas(vp_j, jnp.asarray(c0),
+                                                  scales, cj, 10))
+    assert n_calls[0] > 0
+    vp_t, _ = tslic3d._prep3d(torch.as_tensor(vol), ct)
+    lt = slic3d_cuda.slic3d_iterate(vp_t, torch.as_tensor(c0), m, ct,
+                                    10).numpy()[:10, :45, :63]
+    gz, gy, gx = ct.grid
+    empty = (EMPTY_SEED[0] * gy + EMPTY_SEED[1]) * gx + EMPTY_SEED[2]
+    assert not (lt == empty).any() and not (lp == empty).any()
+    assert (lp == lt).mean() >= 0.99
+
+
+def test_combine_sums3d_matches_jax_combine_order():
+    """The twin's update (``combine_sums3d``, then the division) equals the
+    centres that ``slic3d_iterate_pallas`` makes from the same partials with
+    its own ``combine``, bit for bit: the 27 offsets are added in the same
+    order.  The passes are replaced by stubs that return the partials and
+    record the centres of the labels pass."""
+    from pyimsegm_tpu.ops import slic3d_pallas as sp3
+    cj, ct, _ = _configs(8, (2, 1, 1), shape=ODD_SHAPE)
+    gz, gy, gx = ct.grid
+    rng = np.random.default_rng(12)
+    part = rng.normal(size=(gz, gy, gx, 27, 5)).astype(np.float32)
+    part[..., 4] = rng.integers(0, 4, size=part.shape[:4])
+    for o, off in enumerate(tslic3d.OFFSETS3):    # seed EMPTY_SEED: empty
+        tile = tuple(e - d for e, d in zip(EMPTY_SEED, off))
+        if all(0 <= i < n for i, n in zip(tile, ct.grid)):
+            part[tile + (o,)] = 0.0
+    part[..., :4] *= rng.random(size=part.shape[:4] + (1,)) > 0.2
+    c0 = rng.normal(size=(gz, gy, gx, 4)).astype(np.float32)
+    # (gz, gy, gx, 27, 8) -> the kernel's (gz, gy, 216, gx) layout
+    part8 = np.concatenate([part, np.zeros(part.shape[:4] + (3,),
+                                           np.float32)], axis=-1)
+    laid = part8.transpose(0, 1, 3, 4, 2).reshape(gz, gy, 216, gx)
+    seen = []
+
+    def stub(vol4, centers, scales, cfg, want_labels):
+        if not want_labels:
+            return jnp.asarray(laid)
+        seen.append(np.asarray(centers))
+        return jnp.zeros((gz, gy, ct.steps[0] * ct.steps[1], cfg.pad[2]),
+                         jnp.int32)
+
+    vp = jnp.zeros(cj.pad, jnp.float32)
+    with mock.patch.object(sp3, '_pass3d', stub):
+        sp3.slic3d_iterate_pallas(vp, jnp.asarray(c0), jnp.ones(3), cj, 2)
+    want = seen[0]
+    got = slic3d_cuda._update3d_plain(torch.as_tensor(part),
+                                      torch.as_tensor(c0)).numpy()
+    np.testing.assert_array_equal(got, want)
+    sums = slic3d_cuda.combine_sums3d(torch.as_tensor(part)).numpy()
+    assert sums[EMPTY_SEED][4] == 0 and (sums[..., 4] > 0).any()
+    np.testing.assert_array_equal(got[EMPTY_SEED], c0[EMPTY_SEED])

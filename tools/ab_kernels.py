@@ -1,4 +1,4 @@
-"""Same-call A/B of build variants of kernel rows 2 and 8.
+"""Same-call A/B of build variants of kernel rows 2, 3-5, 8 and 15.
 
 A variant is ``base`` (the source as it is) or ``KEY=V+KEY=V``: each KEY
 names a constant of the kernel's source, and the variant is built from a
@@ -16,6 +16,24 @@ term when its spatial term alone exceeds the best).  On the bench geometry
 it times one 9-round schedule of each variant, plain and SLICO, and holds
 its centres against the plain twin (within 1e-3).
 
+``--kernel assign`` (rows 3-5, the single assignment pass of
+``csrc/slic.cu``): the members of ``Pass<CH, SLICO>``, ``T_FEAT`` (block
+size with the 12 feature-moment channels, row 3) and ``T_PLAIN`` (the other
+modes).  On the bench geometry, for image 0 and the first noise image, from
+the centres of a 9-round schedule, it times row 3 (labels, partials with
+the image's moments and the routed sums: pass + route), row 4 (labels
+only) and row 5 (partials only), holding labels exact and partials and sums
+within rtol 1e-5 + 1e-5 x channel max against the plain twin.
+
+``--kernel slic3d`` (row 15, the cooperative 3D SLIC of
+``csrc/slic3d.cu``): the members of ``Cfg3``, ``THREADS`` (``T``) and
+``MIN_BLOCKS``.  At the 3D workload (48x640x768, spacing
+(4, 1, 1), sp_size 15, regul 0.2) on the structured volume of
+``sample_gray_volume_3d``, it times the 10-iteration schedule, the labels
+pass and the partials pass, holding the passes to their twins (labels
+exact, partials within rtol 1e-5 + 1e-5 x channel max) and the schedule's
+labels to the twin's (>= 0.999).
+
 ``--kernel moments`` (row 8, the donor apply + moments of
 ``csrc/grid.cu``): ``MOM_THREADS`` (block size).  It times
 ``grid_moments_apply`` on the enforced SLIC kernels' labels of image 0 with
@@ -23,14 +41,23 @@ the min-size donor table of the bench path, and with a donor table of
 random seeds within one grid cell (most pixels merge), holding merged
 labels exact and sums within rtol 1e-5 against the plain twin.
 
+``--kernel slic3d --probe`` measures where row 15's pass spends a tile
+instead: a copy whose blocks add, per work item, the ``clock64`` cycles of
+each phase (waiting for the item's copies, building the tile's tables,
+evaluating the voxels, storing the labels or reducing the sums) to device
+counters, read after one labels pass and one partials pass; and a
+timing-only copy that
+evaluates 1 of the 27 candidates (its labels are wrong), timed in turns
+with the source as it is.
+
 Each variant is built with ``nvcc -Xptxas -v``, all started together, and
 its registers and spills are printed.  Times: CUDA events around 20 calls,
 variants in turns (in order, then reversed).
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/ab_kernels.py --kernel schedule|moments \\
-        [--variants base,PRUNE=1,...]
+    python3 tools/ab_kernels.py --kernel schedule|moments|assign|slic3d \\
+        [--variants base,PRUNE=1,...] [--probe]
 """
 
 import argparse
@@ -54,10 +81,48 @@ KERNELS = {
                  'MIN_BLOCKS_SLICO=8'),
     'moments': ('grid', 'grid_moments_kernel',
                 'base,MOM_THREADS=64,MOM_THREADS=128'),
+    'assign': ('slic', 'slic_pass_kernel',
+               'base,T_FEAT=32,T_PLAIN=64,T_FEAT=32+T_PLAIN=64'),
+    'slic3d': ('slic3d', 'slic3d_kernel',
+               'base,THREADS=64,MIN_BLOCKS=8'),
 }
+#: plain members of a struct, by key: (source file, member)
+MEMBERS = {'assign': {'T_FEAT': 'T_FEAT', 'T_PLAIN': 'T_PLAIN'},
+           'slic3d': {'THREADS': 'T', 'MIN_BLOCKS': 'MIN_BLOCKS'}}
 #: the schedule's keys: member of Sched<SLICO>, by key without _SLICO
 SCHED_MEMBERS = {'THREADS': 'T', 'MIN_BLOCKS': 'MIN_BLOCKS',
                  'PRUNE': 'PRUNE'}
+
+
+#: row 15's probe copies: (text of the source, replacement) edits, by name
+_PHASE = ('atomicAdd(&probe[%d], (unsigned long long)(t%d - t%d));')
+PROBES = {
+    'one_candidate': [('if (o < NOFF)', 'if (o < 1)')],
+    'phases': [
+        ('struct Smem3 {', '__device__ unsigned long long probe[5];\n'
+         'extern "C" int slic3d_probe(void* out, int reset) {\n'
+         '    static const unsigned long long zero[5] = {0, 0, 0, 0, 0};\n'
+         '    return (int)(reset ? cudaMemcpyToSymbol(probe, zero, 40)\n'
+         '                       : cudaMemcpyFromSymbol(out, probe, 40));\n'
+         '}\n\nstruct Smem3 {'),
+        ('    while (t < n_tiles) {\n',
+         '    while (t < n_tiles) {\n        long long t0 = clock64();\n'),
+        ('        copy_wait_prior();\n        __syncthreads();\n',
+         '        copy_wait_prior();\n        __syncthreads();\n'
+         '        long long t1 = clock64(), t2 = t1;\n'),
+        ('            build_tables(a, m, t, b);\n            __syncthreads();\n',
+         '            build_tables(a, m, t, b);\n            __syncthreads();\n'
+         '            t2 = clock64();\n'),
+        ('        __syncthreads();\n        if (!POOL) {\n',
+         '        __syncthreads();\n        long long t3 = clock64();\n'
+         '        if (!POOL) {\n'),
+        ('        t = tn;\n        r0 = rn;\n',
+         '        long long t4 = clock64();\n        if (tid == 0) {\n'
+         + ''.join('            ' + _PHASE % (i, i + 1, i) + '\n'
+                   for i in range(4))
+         + '            atomicAdd(&probe[4], 1ull);\n        }\n'
+         '        t = tn;\n        r0 = rn;\n')],
+}
 
 
 def _sub_once(pattern, repl, text, key):
@@ -72,11 +137,27 @@ def _variant_source(kernel, variant, text):
     """The source text of ``variant``."""
     if variant == 'base':
         return text
+    if variant in PROBES:
+        for old, new in PROBES[variant]:
+            if text.count(old) != 1:
+                raise SystemExit('ab_kernels: probe %s: %d places found for '
+                                 '%r, need 1' % (variant, text.count(old),
+                                                 old))
+            text = text.replace(old, new)
+        return text
     sets = dict(kv.split('=') for kv in variant.split('+'))
     if kernel == 'moments':
         for key, v in sets.items():
             text = _sub_once(r'#define %s \S+' % re.escape(key),
                              '#define %s %s' % (key, v), text, key)
+        return text
+    if kernel in MEMBERS:
+        for key, v in sets.items():
+            if key not in MEMBERS[kernel]:
+                raise SystemExit('ab_kernels: unknown key %s' % key)
+            text = _sub_once(
+                r'(static constexpr \w+ %s = )[^;]+;' % MEMBERS[kernel][key],
+                r'\g<1>%s;' % v, text, key)
         return text
     for key, member in SCHED_MEMBERS.items():
         plain, slico = sets.pop(key, None), sets.pop(key + '_SLICO', None)
@@ -267,6 +348,142 @@ def _moments(torch, libs, build):
                   flush=True)
 
 
+def _sums_ok(got, want):
+    """rtol 1e-5 plus 1e-5 of the channel's largest value."""
+    diff = (got - want).abs()
+    scale = want.abs().reshape(-1, want.shape[-1]).amax(dim=0)
+    return bool((diff <= 1e-5 * want.abs() + 1e-5 * scale).all())
+
+
+def _assign(torch, libs, build):
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.ops import slic_cuda
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    sw, m2 = slic_ops.slic_weights(m, cfg)
+    n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
+    gh, gw = cfg.grid_h, cfg.grid_w
+    images = {
+        'image0': sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
+        'noise': np.random.default_rng(0).random(CROP + (3,),
+                                                 dtype=np.float32)}
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.slic_assign_pool.argtypes = ([build.VOIDP] * 6 + [build.FLOAT] * 2
+                                         + [build.INT] * 6 + [build.VOIDP])
+        dll.slic_assign_pool.restype = ctypes.c_int
+        dlls[v] = dll
+    for name, image in images.items():
+        img = torch.as_tensor(image, device='cuda')
+        lab, cen0 = slic_ops._prepare_chw(img, cfg)
+        cen = slic_cuda.slic_multi_update(lab, cen0, m, cfg, n_upd)
+        lb_w, part_w, sums_w = slic_cuda._slic_update_labels_plain(
+            lab, cen, m, cfg, feat=img)
+        part6_w = slic_cuda._slic_update_plain(lab, cen, m, cfg)
+        labels = torch.empty((cfg.pad_h, cfg.pad_w), dtype=torch.int32,
+                             device='cuda')
+        part = torch.empty((gh, gw, 9, 12), device='cuda')
+        part6 = torch.empty((gh, gw, 9, 6), device='cuda')
+        sums = torch.empty((gh, gw, 12), device='cuda')
+        modes = {
+            'row3': (img, labels, part, sums, lambda: (
+                torch.equal(labels, lb_w) and _sums_ok(part, part_w)
+                and _sums_ok(sums, sums_w))),
+            'row4': (None, labels, None, None,
+                     lambda: torch.equal(labels, lb_w)),
+            'row5': (None, None, part6, None,
+                     lambda: _sums_ok(part6, part6_w))}
+        for mode, (feat, lbl, prt, sms, ok) in modes.items():
+            def call(dll, feat=feat, lbl=lbl, prt=prt, sms=sms):
+                ptr = (lambda t: None if t is None else t.data_ptr())
+                return lambda: build.check(dll.slic_assign_pool(
+                    lab.data_ptr(), cen.data_ptr(), ptr(feat), ptr(lbl),
+                    ptr(prt), ptr(sms), sw, m2, cfg.height, cfg.width, gh, gw,
+                    cfg.step, 0, build.stream_ptr(lab)), 'slic_assign_pool')
+
+            def check(v, ok=ok, mode=mode):
+                if not ok():
+                    raise AssertionError('%s %s %s: differs from the twin'
+                                         % (v, name, mode))
+            times = _in_turns(torch, {v: call(d) for v, d in dlls.items()},
+                              check)
+            print('%s %s ms per call (in turns): %s'
+                  % (name, mode, json.dumps(times)), flush=True)
+            for v, dll in dlls.items():
+                print('%s %s %s device us per CUDA kernel (torch.profiler, 5 '
+                      'calls): %s' % (name, mode, v, json.dumps(_kernel_us(
+                          torch, call(dll)))), flush=True)
+
+
+def _slic3d(torch, libs, build):
+    from pyimsegm_tpu_torch.ops import slic3d, slic3d_cuda
+    from pyimsegm_tpu_torch.ops.slic import compactness_from_regul
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
+    shape, spacing, sp = (48, 640, 768), (4, 1, 1), 15
+    cfg = slic3d.slic3d_config(shape, sp, spacing)
+    m = compactness_from_regul(sp, 0.2)
+    (sp_z, sp_y, sp_x), sw, m2 = slic3d.slic3d_weights(m, cfg)
+    vol_p, c0 = slic3d._prep3d(torch.as_tensor(
+        sample_gray_volume_3d(shape)[0], device='cuda'), cfg)
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.slic3d_run.argtypes = ([build.VOIDP] * 5 + [build.FLOAT] * 5
+                                   + [build.INT] * 10 + [build.VOIDP])
+        dll.slic3d_run.restype = ctypes.c_int
+        dlls[v] = dll
+    lb_w = slic3d_cuda._slic3d_labels_plain(vol_p, c0, m, cfg)
+    part_w = slic3d_cuda._slic3d_partials_plain(vol_p, c0, m, cfg)
+    it_w = slic3d_cuda._slic3d_iterate_plain(vol_p, c0, m, cfg, 10)
+    labels = torch.empty(cfg.pad, dtype=torch.int32, device='cuda')
+    part = torch.empty(cfg.grid + (27, 5), device='cuda')
+    work = torch.empty_like(c0)
+    modes = {'schedule': (work, labels, part, 9, lambda: float(
+                 (labels == it_w).float().mean()) >= 0.999),
+             'labels': (None, labels, None, 0,
+                        lambda: torch.equal(labels, lb_w)),
+             'partials': (None, None, part, 0,
+                          lambda: _sums_ok(part, part_w))}
+    for mode, (wk, lbl, prt, n_upd, ok) in modes.items():
+        def call(dll, wk=wk, lbl=lbl, prt=prt, n_upd=n_upd):
+            ptr = (lambda t: None if t is None else t.data_ptr())
+            return lambda: build.check(dll.slic3d_run(
+                vol_p.data_ptr(), c0.data_ptr(), ptr(wk), ptr(lbl), ptr(prt),
+                sp_z, sp_y, sp_x, sw, m2, *cfg.shape, *cfg.grid, *cfg.steps,
+                n_upd, build.stream_ptr(vol_p)), 'slic3d_run')
+
+        def check(v, ok=ok, mode=mode):
+            if v not in PROBES and not ok():
+                raise AssertionError('%s %s: differs from the twin'
+                                     % (v, mode))
+        times = _in_turns(torch, {v: call(d) for v, d in dlls.items()
+                                  if v != 'phases'}, check)
+        print('3D %s ms per call (in turns): %s' % (mode, json.dumps(times)),
+              flush=True)
+        if 'phases' in dlls and n_upd == 0:
+            dll = dlls['phases']
+            dll.slic3d_probe.argtypes = [build.VOIDP, build.INT]
+            dll.slic3d_probe.restype = ctypes.c_int
+            counts = np.zeros(5, np.uint64)
+            call(dll)()
+            torch.cuda.synchronize()
+            build.check(dll.slic3d_probe(None, 1), 'slic3d_probe')
+            call(dll)()
+            torch.cuda.synchronize()
+            build.check(dll.slic3d_probe(counts.ctypes.data, 0),
+                        'slic3d_probe')
+            cycles = counts[:4].astype(np.float64)
+            print('3D %s pass: clock64 cycles per work item (wait for the '
+                  'copies, tables, evaluate, store or reduce) %s, shares %s, '
+                  'over %d '
+                  'items' % (mode, [round(c / counts[4], 1) for c in cycles],
+                             [round(c / cycles.sum(), 3) for c in cycles],
+                             int(counts[4])), flush=True)
+
+
 def _kernel_us(torch, fn, reps=5):
     """{CUDA kernel name: mean device us per call} over ``reps`` calls."""
     from torch.profiler import ProfilerActivity, profile
@@ -291,6 +508,9 @@ def main():
                         default='schedule')
     parser.add_argument('--variants', default=None,
                         help='comma-separated variants')
+    parser.add_argument('--probe', action='store_true',
+                        help='slic3d only: the phase and one-candidate '
+                             'probes')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -301,10 +521,15 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     variants = (args.variants or KERNELS[args.kernel][2]).split(',')
+    if args.probe:
+        if args.kernel != 'slic3d':
+            raise SystemExit('ab_kernels: --probe is for --kernel slic3d')
+        variants = ['base'] + list(PROBES)
     libs = _build(args.kernel, variants)
     for v, (_, info) in libs.items():
         print('variant %s: %s' % (v, ' | '.join(info)), flush=True)
-    (_schedule if args.kernel == 'schedule' else _moments)(torch, libs, build)
+    {'schedule': _schedule, 'moments': _moments, 'assign': _assign,
+     'slic3d': _slic3d}[args.kernel](torch, libs, build)
 
 
 if __name__ == '__main__':

@@ -41,11 +41,14 @@ the enforcement); its stages (upload, slic, enforce, geometry, features,
 predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
 ranges, read as for ``--path 3d``.
 
-``--path kernels`` measures kernel rows 2 (plain and SLICO), 8, 9 and 12
-as the paths call them (``chip_smoke.measure_path_kernels``: call ms,
-device ms and CUDA kernel launches per call, on image 0 and on the first
-noise image), with the package of the checkout at ``--root`` (this one by
-default), so that one call on the card can measure two checkouts in turns.
+``--path kernels`` measures kernel rows 2 (plain and SLICO), 3 (with its
+routing to per-seed sums), 4 (plain and SLICO), 5, 8, 9 and 12 and the
+bench path's whole SLIC stage as the paths call them, on image 0 and on the
+first noise image, and row 15 (the 10-iteration schedule and its two
+passes) at the 3D workload (``chip_smoke.measure_path_kernels``: call ms,
+device ms and CUDA kernel launches per call), with the package of the
+checkout at ``--root`` (this one by default), so that one call on the card
+can measure two checkouts in turns.
 
 Run from the root of a checkout on a machine with a CUDA card::
 
