@@ -25,11 +25,13 @@ Phases (any failure raises and exits non-zero):
    keep its centre; every row 2 call must be one C call of the wrapper;
    row 3 writes labels, partials and their routed per-seed sums (routed
    sums within the partials' tolerance, at most 2 CUDA kernels per call);
-   then, for rows 2-5, 8, 9, 12 and 15 as the paths call them (row 3 with
-   its routing, and the bench path's whole SLIC stage), the call ms, the
+   then, for rows 2-9, 12 and 15 as the paths call them (row 3 with its
+   routing, and the bench path's whole SLIC stage), the call ms, the
    device ms and the CUDA kernels per call from ``torch.profiler`` on the
    labels of image 0 and of the noise image and on the 3D workload, row 9
-   at C = 1 and 4 beside ``table[index]`` (``measure_path_kernels``);
+   at C = 1 and 4 beside ``table[index]``, rows 6 (F = 7 f32 and bf16,
+   F = 4 f32, F = 30 bf16) and 7 (F = 3, 18, 60) on image 0
+   (``measure_path_kernels``);
 4. the ``connectivity=False`` path: three synthetic 884x1200 images through
    ``segment_color2d_slic_features_model_graphcut(..., connectivity=False)``
    with the GMM class model of ``tests/data/torch_port_fixture.npz``; each
@@ -50,8 +52,16 @@ Phases (any failure raises and exits non-zero):
 7. the kernels of the fit path against their twins: the labels-only
    assignment, plain and SLICO (labels exact), the partials-only pass
    (rtol 1e-5), the SLICO multi-update (centres and colour normalisers),
-   and the grid reduce at F = 3, 7, 15, 40 on f32 and bf16 data (rtol 1e-5
-   plus 1e-5 of the channel's largest sum);
+   and the grid reduce at F = 3, 4, 7, 15, 30, 40 on f32 and bf16 data
+   (rtol 1e-5 plus 1e-5 of the channel's largest sum, at most 2 CUDA
+   kernels a call);
+   then rows 6 and 7 (``reduce_phases``) at 884x1200 and at ODD, on the
+   SLIC kernels' labels and on damaged ones (-2 holes, ids outside their
+   window, ids >= K inside and beyond the windows), row 6 at F = 1, 3, 4,
+   5, 7, 15, 30, 40, 61 in f32 and bf16, row 7 at F = 1, 3, 5, 18, 60,
+   61, both also beyond one block's channels (F = 129 at 4-byte loads, row
+   6 at 258 and both at 260 at 8- and 16-byte loads: two channel ranges),
+   each call twice with equal bits, within the same bar;
 8. the fit path: image 0 through
    ``pipe_color2d_slic_features_model_graphcut`` with the full colour
    feature set (mean, std, energy, median, meanGrad), a GMM fitted on the
@@ -107,11 +117,11 @@ Phases (any failure raises and exits non-zero):
    ms per tile and MPix/s.
 
 Every path is driven with the launch counts set to 0 just before it and
-read just after.  The second-to-last line is the kernels' JSON record, the
-last line ``{"ok": true, "device": {...}}``.  Each kernel's record holds its
-bound: the larger of the bytes it must move (each input read once, each
-output written once) over 3.35 TB/s and the f32 operations it does on this
-run's inputs (counted per element as stated where the record is made, no
+read just after (rows 6 and 7 also counted by F).  The second-to-last
+line is the kernels' JSON record, the last line ``{"ok": true, "device":
+{...}}``.  Each kernel's record holds its bound: the larger of the bytes it
+must move (each input read once, each output written once) over 3.35 TB/s
+and the f32 operations it does on this run's inputs (counted per element as stated where the record is made, no
 FMA) over 67 TFLOP/s, the H100 SXM data-sheet peaks at 700 W; and, where
 one PyTorch call computes the same function, that call's time (row 8:
 the sum of its two, the guarded ``donor[labels]`` and the ``index_add_`` of
@@ -201,11 +211,14 @@ def _profiled(torch, fn, reps=5, tries=3):
     torch.profiler over ``reps`` warm calls: the durations of the device
     events (kernels and copies) summed, and the count of kernel events,
     each over ``reps``.  The profiler now and then drops events, so a
-    profile that recorded no kernel is taken again; after ``tries`` such
-    profiles the result is (nan, nan), not measured."""
+    profile that recorded no kernel, or a count of kernels that ``reps``
+    calls cannot make (every wrapper launches a fixed number), is taken
+    again; after ``tries`` profiles with no kernel the result is (nan,
+    nan), not measured, and a fractional count stands as measured."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    out = float('nan'), float('nan')
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -217,9 +230,11 @@ def _profiled(torch, fn, reps=5, tries=3):
         kernels = [e for e in device
                    if not e.name.startswith(('Memcpy', 'Memset'))]
         if kernels:
-            return (sum(e.time_range.elapsed_us() for e in device) / 1e3
-                    / reps, len(kernels) / reps)
-    return float('nan'), float('nan')
+            out = (sum(e.time_range.elapsed_us() for e in device) / 1e3
+                   / reps, len(kernels) / reps)
+            if len(kernels) % reps == 0:
+                break
+    return out
 
 
 def _final_pass(slic_cuda, lab_chw, centers, m, cfg, image):
@@ -251,7 +266,9 @@ def measure_path_kernels(torch, img):
     schedule and its two passes at the 3D workload: per call the call ms
     (CUDA events around REPS calls, as ``_time_ms``), the device ms and the
     CUDA kernel launches (``_profiled``); row 9 at C = 1 (the min-size
-    merge's int32 donor table, and f32), 3 and 4, beside ``table[index]``.
+    merge's int32 donor table, and f32), 3 and 4, beside ``table[index]``;
+    rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30 bf16) and 7 (F = 3, 18,
+    60) on the SLIC labels of image 0 (``_reduce_rows``).
     Prints one ``path_kernels`` JSON line and returns its dict."""
     from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, slic3d,
                                         slic3d_cuda, slic_cuda)
@@ -325,6 +342,8 @@ def measure_path_kernels(torch, img):
             lambda: slic_cuda.slic_update(lab_chw, cen, m, cfg))
         row['slic_stage'] = timed(
             lambda: slic_ops.slic_segment_with_features(image, image, cfg, m))
+        if name == 'image0':
+            row.update(_reduce_rows(torch, grid_cuda, labels, cfg, timed))
         out[name] = row
     cfg3 = slic3d.slic3d_config(SHAPE_3D, SP_3D, SPACING_3D)
     m3 = slic_ops.compactness_from_regul(SP_3D, REGUL_3D)
@@ -339,6 +358,26 @@ def measure_path_kernels(torch, img):
             vol_p, c0, m3, cfg3))}
     print('path_kernels (call ms, device ms, kernel launches per call) %s'
           % json.dumps(out), flush=True)
+    return out
+
+
+def _reduce_rows(torch, grid_cuda, labels, cfg, timed):
+    """Rows 6 (F = 7 f32 and bf16, and the paths' F = 4 f32 and 30 bf16)
+    and 7 (F = 3, 18, 60) on ``labels``, each ``timed``, keyed by row and
+    F."""
+    rng = np.random.default_rng(3)
+    out = {}
+    for f, dtype in ((7, torch.float32), (7, torch.bfloat16),
+                     (4, torch.float32), (30, torch.bfloat16)):
+        data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
+            np.float32), device=labels.device).to(dtype)
+        out['grid_reduce_f%d_%s' % (f, str(dtype).split('.')[-1])] = timed(
+            lambda: grid_cuda.grid_reduce(data, labels, cfg))
+    for f in (3, 18, 60):
+        data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
+            np.float32), device=labels.device)
+        out['grid_moments_f%d' % f] = timed(
+            lambda: grid_cuda.grid_moments_apply(data, labels, None, cfg))
     return out
 
 
@@ -834,7 +873,7 @@ def enforce_phases(torch, img, labels, centers, cfg):
         # per pixel
         px * (12 + 4) + k * 9 * 4, px * (3 + 9),
         _time_ms(lambda: torch.zeros((k, 9), device=img.device).index_add_(
-            0, flat, moment_data))))
+            0, flat, moment_data)), max_kernels=2))
     return records
 
 
@@ -919,7 +958,7 @@ def fit_kernel_phases(torch, img):
     flat = labels.reshape(-1).long()
     rng = np.random.default_rng(2)
     err, times = 0.0, {}
-    for f in (3, 7, 15, 40):
+    for f in (3, 4, 7, 15, 30, 40):
         data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
             np.float32), device=img.device)
         for dtype in (torch.float32, torch.bfloat16):
@@ -948,12 +987,12 @@ def fit_kernel_phases(torch, img):
         'pyimsegm_tpu/ops/grid_pallas.py:106', err,
         lambda: grid_cuda.grid_reduce(data7_f, labels, cfg),
         times[(7, torch.float32)][1],
-        'sums within rtol 1e-5 at F = 3, 7, 15, 40, f32 and bf16 (times: '
-        'F=7 f32)',
+        'sums within rtol 1e-5 at F = 3, 4, 7, 15, 30, 40, f32 and bf16 '
+        '(times: F=7 f32)',
         # F = 7 f32 data + i32 labels in, (K, 7) sums out; 7 adds per pixel
         px * (28 + 4) + k * 28, px * 7,
         _time_ms(lambda: torch.zeros((k, 7), device=img.device).index_add_(
-            0, flat, data7))))
+            0, flat, data7)), max_kernels=2))
     return records
 
 
@@ -1210,8 +1249,9 @@ def _counters():
 
 
 def _reset_counters():
-    from pyimsegm_tpu_torch.ops import prep_cuda
+    from pyimsegm_tpu_torch.ops import grid_cuda, prep_cuda
     prep_cuda.LAUNCHES = 0
+    grid_cuda.LAUNCHES_BY_F.clear()
     for counts in _tables():
         for key in counts:
             counts[key] = 0
@@ -1238,10 +1278,12 @@ def _drive(name, kernels, fn, forbidden=()):
     unless each of ``kernels`` launched and none of ``forbidden`` did.
     Returns (fn's result, counts)."""
     import torch
+    from pyimsegm_tpu_torch.ops import grid_cuda
     torch.cuda.synchronize()
     _reset_counters()
     out = fn()
     launches = _counters()
+    by_f = dict(grid_cuda.LAUNCHES_BY_F)
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError('%s: kernels not launched: %s' % (name, missing))
@@ -1251,6 +1293,9 @@ def _drive(name, kernels, fn, forbidden=()):
                              % (name, extra))
     print('%s launches: %s' % (name, json.dumps(
         {k: launches[k] for k in kernels})), flush=True)
+    if by_f:
+        print('%s rows 6 / 7 launches by F: %s' % (name, json.dumps(by_f)),
+              flush=True)
     return out, launches
 
 
@@ -1619,8 +1664,92 @@ def row7_phases(torch, img):
             # and 2F+3 sums per pixel
             px * (4 * f + 4) + k * (2 * f + 3) * 4, px * (3 * f + 3),
             _time_ms(lambda: torch.zeros((k, 2 * f + 3), device=DEVICE)
-                     .index_add_(0, flat, stacked))))
+                     .index_add_(0, flat, stacked)), max_kernels=2))
     return records
+
+
+#: F of rows 6 and 7 held against their twins by reduce_phases: the paths'
+#: (row 6: the colour stacks' 3, 4 and 7 and config 2's tLBP 30, which
+#: loads 2 channels a thread; row 7: the colour 3 and the battery stacks'
+#: 18 and 60), 1, 5 and 61 (one channel a thread, odd widths, an odd F
+#: beyond 60), 15 and 40, and two channel ranges: 129 at 1 channel a
+#: thread, 258 at 2 and 260 at 4
+REDUCE_F = {'grid_reduce': (1, 3, 4, 5, 7, 15, 30, 40, 61, 129, 258, 260),
+            'grid_moments': (1, 3, 5, 18, 60, 61, 129, 260)}
+
+
+def _damaged_labels(torch, labels, cfg, seed):
+    """``labels`` with 1 pixel in 50 damaged: -2 holes, ids outside their
+    pixel's 3x3 window, ids >= K beyond every window; and the last two rows
+    set to ids >= K inside their tiles' windows (whose sums route off the
+    grid)."""
+    rng = np.random.default_rng(seed)
+    bad = labels.cpu().numpy().copy()
+    flat = bad.reshape(-1)
+    idx = rng.choice(flat.size, flat.size // 50, replace=False)
+    q = len(idx) // 3
+    flat[idx[:q]] = -2
+    flat[idx[q:2 * q]] = (flat[idx[q:2 * q]] + 3 * cfg.grid_w + 3) \
+        % cfg.n_segments
+    flat[idx[2 * q:]] = 2 ** 31 - 1 - rng.integers(0, 5, len(idx) - 2 * q)
+    bad[-2:] = cfg.n_segments + np.arange(bad.shape[1])[None] // cfg.step
+    return torch.as_tensor(bad, device=labels.device)
+
+
+def reduce_phases(torch):
+    """Rows 6 and 7 against their twins (``_sums_agree``) on the SLIC
+    kernels' labels of image 0 at CROP and at ODD, each also damaged
+    (``_damaged_labels``), at every F of REDUCE_F (row 6 on f32 and bf16
+    data); every call twice, with equal bits."""
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    rng = np.random.default_rng(6)
+    for shape in (CROP, ODD):
+        img = torch.as_tensor(sample_color_image_rand_segment(
+            shape, 3, rand_seed=0)[0], device=DEVICE)
+        cfg = slic_ops.slic_config(shape[0], shape[1], SP_SIZE)
+        m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+        labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
+        labels = labels.contiguous()
+        for kind, lab in (('SLIC', labels),
+                          ('damaged', _damaged_labels(torch, labels, cfg, 1))):
+            cases = [('grid_reduce', f, dtype)
+                     for f in REDUCE_F['grid_reduce']
+                     for dtype in (torch.float32, torch.bfloat16)]
+            cases += [('grid_moments', f, torch.float32)
+                      for f in REDUCE_F['grid_moments']]
+            bad = []
+            for name, f, dtype in cases:
+                data = torch.as_tensor(rng.normal(size=shape + (f,)).astype(
+                    np.float32), device=DEVICE).to(dtype)
+                if name == 'grid_reduce':
+                    got, again = (grid_cuda.grid_reduce(data, lab, cfg)
+                                  for _ in range(2))
+                    want = grid_cuda._grid_reduce_plain(data, lab, cfg)
+                else:
+                    got, again = (grid_cuda.grid_moments_apply(
+                        data, lab, None, cfg)[1] for _ in range(2))
+                    want = grid_cuda._grid_moments_apply_plain(
+                        data, lab, None, cfg)[1]
+                torch.cuda.synchronize()
+                ok, diff = _sums_agree(got, want)
+                if not (ok and torch.equal(got, again)):
+                    bad.append('%s F=%d %s (max diff %g, two runs equal %s)'
+                               % (name, f, dtype, diff,
+                                  torch.equal(got, again)))
+            print('rows 6 / 7 at %dx%d on %s labels: %d calls (row 6 F %s, '
+                  'f32 and bf16; row 7 F %s) within rtol 1e-5 + 1e-5 x '
+                  'channel max of their twins, each run twice with equal '
+                  'bits: %s'
+                  % (shape[0], shape[1], kind, len(cases),
+                     REDUCE_F['grid_reduce'], REDUCE_F['grid_moments'],
+                     'yes' if not bad else 'NO: ' + '; '.join(bad)),
+                  flush=True)
+            if bad:
+                raise AssertionError('rows 6 / 7 disagree at %s on %s '
+                                     'labels' % (shape, kind))
 
 
 def _fixture_suffix(fixture, suffix):
@@ -1834,6 +1963,7 @@ def main():
     odd_geometry_phases(torch)
     measure_path_kernels(torch, img)
     records += fit_kernel_phases(torch, img)
+    reduce_phases(torch)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])
     bench = path_bench(torch, model, images, fixtures[1])

@@ -46,17 +46,29 @@
 // deterministic.  Where the width allows, a thread reads 4-pixel quads (16
 // B of labels, 48 B of features) and stores the merged labels as one
 // 16-byte vector.  The route kernel below then adds the 9 partials of each
-// seed, so the call is two launches and no torch routing.  The reduce reads 4F (2F for
-// bf16) + 4 B per pixel once per chunk of 8 channels (the labels again per
-// chunk; F is 1-40 on the paths) and keeps 9 x 8 register sums per thread,
-// reduced in the same fixed order; a second tiny kernel, one thread per
-// (seed, channel), routes the 9 partials to their seeds in the order of
-// combine_sums, so the call is two launches and no torch routing.  The
-// donor-less moments (row 7) are that reduce over the 2F + 3 virtual
-// channels [f, f^2, 1, y, x], made per pixel as a chunk reads them, so the
-// stacked (H, W, 2F+3) tensor never exists in device memory; each chunk
-// reads the features it needs again (about twice 4F B per pixel in all,
-// F = 3, 18 or 60 on the paths).  The TPU kernels' selector
+// seed, so the call is two launches and no torch routing.  The reduce
+// (rows 6 and 7) must read 4F (2F for bf16) + 4 B per pixel, and does so
+// once (up to 128 channels, 256 at VEC 2 or 4; wider data goes in channel
+// ranges, a grid row each, and each range reads the labels again): one
+// block per tile turns the tile's labels into a byte map of
+// offset codes in shared memory (no division per pixel: the tile's row and
+// column come from the block, the label's window offset from three
+// subtractions), then thread t owns VEC = 4, 2 or 1 neighbouring channels
+// (16-, 8- or 4-byte loads, as F and the alignment allow) and walks the
+// tile's pixels ng apart, so that neighbouring threads read neighbouring
+// words of the (H, W, F) rows; each thread loads 8 pixels (4 at VEC = 2)
+// before it adds them (staging rows through shared memory with cp.async
+// measured slower: its per-band barriers left the loads idle).  Row 7 takes
+// [f, f^2] from the same loaded value and [1, y, x] from the code map and
+// the pixel's row and column (warp ballots and integer reduces into
+// per-warp sums: exact, no atomics).  A thread adds into
+// registers while its pixels keep one code and flushes into per-thread
+// shared slots indexed by the code when it changes (no 9-way predication
+// per value, no float atomics); teams of lanes then reduce the slots in a
+// fixed order, so two runs give equal bits.  At F = 60 that is ~6 issued
+// instructions per value, under the byte bound.  The route kernel, one
+// thread per (seed, channel), adds the 9 partials of each seed in the order
+// of combine_sums: two launches a call.  The TPU kernels' selector
 // matmuls, lo/hi field packing and OR trees exist only for the TPU and are
 // not carried over.
 // Labels below 0 (the -2 of the image edge and the pad) are tested before any
@@ -67,8 +79,22 @@
 #include <cuda_bf16.h>
 
 #define NOFF 9
-#define RED_THREADS 256
-#define RED_CHUNK 8
+// rows 6 and 7: block threads (half where a thread loads 4 channels; a
+// block takes at most threads x channels-a-thread channels), blocks an SM
+// must hold (the 910 tiles of 884x1200 at sp_size 35 in one wave), pixels a
+// thread loads before it adds them (16 for one sum a pixel, 8 for f and
+// f^2 or 4 channels, 4 at 2 channels, where 8 spill at the register cap;
+// same-call A/Bs, PERF.md), labels a block reads before it codes them,
+// bytes of the code map, and the largest seed step row 7 takes (its
+// integer sums of tile rows and columns stay below 2^32; row 6 takes a step
+// up to RED_CODES, where a band of the map still holds a tile row)
+#define RED_THREADS 128
+#define RED_MIN_BLOCKS 8
+#define RED_UNROLL(NV, VEC) \
+    ((VEC) == 2 ? 4 : (NV) == 1 && (VEC) == 1 ? 16 : 8)
+#define RED_LABELS_STEP 512
+#define RED_CODES 16384
+#define RED_MAX_STEP 1024
 #define ADJ_THREADS 256
 #define NCH 25
 // row 8's block size, chosen by a same-call A/B on the card against 64 and
@@ -361,94 +387,283 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
     }
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Channel c of pixel idx of (H, W, F) data.
-template <typename T>
-struct DataChannels {
-    const T* __restrict__ data;
-    int f;
-    __device__ __forceinline__ float operator()(size_t idx, int c, int,
-                                                int) const {
-        return to_f32(data[idx * f + c]);
+// Rows 6 and 7: the reduce.  Offset code 0..8 of label l in the 3x3 seed
+// window whose top-left seed is base = (ty - 1) * gw + tx - 1, -1 where l is
+// negative or outside the window.  No division: the window's three seed rows
+// are three runs of labels gw apart; oxlo / oxhi drop the window columns off
+// the grid's sides, where l - base would wrap into the next seed row.  A
+// label >= K in the window keeps its code (the route drops it), as the twin.
+__device__ __forceinline__ int window_code(int l, int base, int gw, int oxlo,
+                                           int oxhi) {
+    if (l < 0 || l > base + 2 * gw + 2) return -1;
+    const int d = l - base;
+#pragma unroll
+    for (int oy = 0; oy < 3; ++oy) {
+        const int ox = d - oy * gw;
+        if (ox >= oxlo && ox <= oxhi) return oy * 3 + ox;
     }
-};
+    return -1;
+}
 
-// Virtual channel c of [f, f^2, 1, y, x] of (H, W, F) f32 features: the
-// squares rounded on their own, as the twin's feat * feat.
-struct MomentChannels {
-    const float* __restrict__ feat;
-    int f;
-    __device__ __forceinline__ float operator()(size_t idx, int c, int y,
-                                                int x) const {
-        if (c < f) return feat[idx * f + c];
-        if (c < 2 * f) {
-            const float v = feat[idx * f + c - f];
-            return __fmul_rn(v, v);
+// Row 7's [count, sum dy, sum dx] of a warp's pixels, per offset code
+// present among them (dy, dx: the pixel's row and column in its tile): a
+// ballot and two integer reduces per code, added by lane 0 into the warp's
+// own sums (integers: exact, no atomics).  Every lane of the warp calls it.
+__device__ __forceinline__ void add_geometry(int o, int dy, int dx, int lane,
+                                             unsigned int* mine) {
+    unsigned int present = __reduce_or_sync(FULL, o >= 0 ? 1u << o : 0u);
+    while (present) {
+        const int oi = __ffs(present) - 1;
+        present &= present - 1;
+        const bool hit = o == oi;
+        const unsigned int cnt = __popc(__ballot_sync(FULL, hit));
+        const unsigned int sy = __reduce_add_sync(FULL, hit ? (unsigned)dy : 0u);
+        const unsigned int sx = __reduce_add_sync(FULL, hit ? (unsigned)dx : 0u);
+        if (lane == 0) {
+            mine[oi * 3] += cnt;
+            mine[oi * 3 + 1] += sy;
+            mine[oi * 3 + 2] += sx;
         }
-        return c == 2 * f ? 1.0f : c == 2 * f + 1 ? (float)y : (float)x;
     }
-};
+}
 
-// Per-(tile, offset) sums of nch channels, in chunks of RED_CHUNK: 9 x
-// RED_CHUNK register sums per thread, warp shuffles, then a fixed-order sum
-// across warps.  Pixels whose label is negative or outside their 3x3 window
-// add nothing.
-template <typename Src>
-__global__ void __launch_bounds__(RED_THREADS)
-grid_reduce_kernel(Src src,
-                   const int* __restrict__ labels,      // (H, W)
-                   float* __restrict__ partials,        // (gh, gw, 9, nch)
-                   int height, int width, int f, int gw, int step) {
-    __shared__ float red[RED_THREADS / 32][NOFF * RED_CHUNK];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-    const size_t tile = (size_t)ty * gw + tx;
-    for (int c0 = 0; c0 < f; c0 += RED_CHUNK) {
-        float acc[NOFF][RED_CHUNK];
+// VEC neighbouring channels of one pixel as f32: one 4-, 8- or 16-byte
+// load; bf16 widened by its bits (exact).
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float* v) {
+    if constexpr (VEC == 4) {
+        const float4 q = __ldg((const float4*)p);
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else if constexpr (VEC == 2) {
+        const float2 q = __ldg((const float2*)p);
+        v[0] = q.x; v[1] = q.y;
+    } else {
+        v[0] = __ldg(p);
+    }
+}
+
+__device__ __forceinline__ float bf16_lo(unsigned int u) {
+    return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned int u) {
+    return __uint_as_float(u & 0xffff0000u);
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
+                                         float* v) {
+    if constexpr (VEC == 4) {
+        const uint2 q = __ldg((const uint2*)p);
+        v[0] = bf16_lo(q.x); v[1] = bf16_hi(q.x);
+        v[2] = bf16_lo(q.y); v[3] = bf16_hi(q.y);
+    } else if constexpr (VEC == 2) {
+        const unsigned int q = __ldg((const unsigned int*)p);
+        v[0] = bf16_lo(q); v[1] = bf16_hi(q);
+    } else {
+        v[0] = bf16_lo(__ldg((const unsigned short*)p));
+    }
+}
+
+// One round of the data walk: the VEC channels of U pixels ng apart from
+// pixel p of the band (row r, column c of the tile) and their offset codes
+// (-1 past the band's n pixels), loaded before any is added; p, r and c
+// step on to the next round.
+template <int U, int VEC, typename T>
+__device__ __forceinline__ void load_round(const T* __restrict__ row0,
+                                           const signed char* codes,
+                                           float (&v)[U][VEC], int (&o)[U],
+                                           int& p, int& r, int& c, int n,
+                                           int ng, int ddr, int ddc, int tw,
+                                           int width, int f) {
 #pragma unroll
-        for (int o = 0; o < NOFF; ++o)
+    for (int u = 0; u < U; ++u) {
+        o[u] = -1;
+        if (p < n) {
+            load_vec<VEC>(row0 + ((size_t)r * width + c) * f, v[u]);
+            o[u] = codes[p];
+        }
+        p += ng;
+        c += ddc;
+        r += ddr;
+        if (c >= tw) { c -= tw; ++r; }
+    }
+}
+
+// Threads of a reduce block: RED_THREADS, half of it where a thread loads 4
+// channels (F = 60 has 15 threads a pixel there).
+#define RED_NT(VEC) ((VEC) == 4 ? RED_THREADS / 2 : RED_THREADS)
+
+// Per-(tile, offset) sums of the F channels of (H, W, F) data (NV = 1, row
+// 6) or of [f, f^2] plus [1, y, x] (NV = 2, row 7; nch = 2F + 3), one block
+// per tile and range of fr <= NT x VEC channels (blockIdx.y: one range for
+// F <= NT x VEC; range 0 adds row 7's [1, y, x]).  Per band of tile rows
+// (the whole tile where its map fits RED_CODES bytes): every thread turns
+// its labels into codes in a shared byte map (row 7 also adds each warp's
+// count, y and x per code); then thread t owns VEC channels lc.. and walks
+// pixels g, g + ng, ... of the band (g = t / tpp) in rounds of U, each
+// round's loads before its adds (at VEC > 1 issued at the end of the round
+// before), so that a block-step reads ng pixels x fr words, contiguous in
+// the (H, W, F) layout where one range holds all F.
+// A thread adds into registers while its pixels keep one code and flushes
+// them into its slots acc[o][v][j][t] when the code changes; teams of L
+// lanes then add the ng groups' slots of a channel, all 9 x NV sums of a
+// lane side by side, in a fixed order.
+template <typename T, int NV, int VEC>
+__global__ void __launch_bounds__(RED_NT(VEC), RED_MIN_BLOCKS)
+grid_reduce_kernel(const T* __restrict__ data,        // (H, W, F)
+                   const int* __restrict__ labels,    // (H, W)
+                   float* __restrict__ partials,      // (gh, gw, 9, nch)
+                   int height, int width, int f, int fr, int gw,
+                   int step) {
+    constexpr int NT = RED_NT(VEC), NR = NV * VEC;
+    constexpr int U = RED_UNROLL(NV, VEC), UL = RED_LABELS_STEP / NT;
+    __shared__ float acc[NOFF * NR * NT];             // [o][v][j][t]
+    __shared__ unsigned int geo[NT / 32][NOFF * 3];   // [warp][o][n, dy, dx]
+    extern __shared__ signed char codes[];            // a band of the tile
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int tile = blockIdx.x, ty = tile / gw, tx = tile - ty * gw;
+    const int x0 = tx * step, y0 = ty * step;
+    const int tw = min(step, width - x0), th = min(step, height - y0);
+    const int band = min(th, RED_CODES / tw);
+    const int base = (ty - 1) * gw + tx - 1;
+    const int oxlo = tx == 0 ? 1 : 0, oxhi = tx == gw - 1 ? 1 : 2;
+    const int nch = NV == 2 ? 2 * f + 3 : f;
+    const int c0 = blockIdx.y * fr, fc = min(fr, f - c0);   // this range
+    const bool geometry = NV == 2 && blockIdx.y == 0;      // block-uniform
+    float* out = partials + (size_t)tile * NOFF * nch + c0;
+    if (geometry && lane < NOFF * 3) geo[tid / 32][lane] = 0u;
+    const int tpp = fc / VEC, ng = NT * VEC / fc, g = tid / tpp;
+    const T* src = data + c0 + (tid - g * tpp) * VEC;
+    // the code map's walk (pixels tid, tid + NT, ...) and the data walk
+    // (pixels g, g + ng, ...) of a band: row and column stepped, not divided
+    const int cdr = NT / tw, cdc = NT - cdr * tw;
+    const int cr0 = tid / tw, cc0 = tid - cr0 * tw;
+    const int ddr = ng / tw, ddc = ng - ddr * tw;
+    const int dr0 = g / tw, dc0 = g - dr0 * tw;
+    float* mine = acc + tid;
 #pragma unroll
-            for (int c = 0; c < RED_CHUNK; ++c) acc[o][c] = 0.0f;
-        for (int p = tid; p < step * step; p += RED_THREADS) {
-            const int y = ty * step + p / step, x = tx * step + p % step;
-            if (y >= height || x >= width) continue;
-            const size_t idx = (size_t)y * width + x;
-            const int o = offset_code(labels[idx], y, x, gw, step);
-            if (o < 0) continue;
-            float v[RED_CHUNK];
+    for (int i = 0; i < NOFF * NR; ++i) mine[i * NT] = 0.0f;
+    float run[NR];
 #pragma unroll
-            for (int c = 0; c < RED_CHUNK; ++c)
-                v[c] = c0 + c < f ? src(idx, c0 + c, y, x) : 0.0f;
+    for (int i = 0; i < NR; ++i) run[i] = 0.0f;
+    int cur = -1;
+    for (int yb = y0; yb < y0 + th; yb += band) {
+        const int n = min(band, y0 + th - yb) * tw;
+        __syncthreads();                  // the last band's map is read
+        int r = cr0, c = cc0;
+        for (int p0 = 0; p0 < n; p0 += NT * UL) {         // warp-uniform
+            int lab[UL], ys[UL], xs[UL];
 #pragma unroll
-            for (int oi = 0; oi < NOFF; ++oi) {
-                if (oi == o) {
+            for (int u = 0; u < UL; ++u) {
+                ys[u] = yb + r;
+                xs[u] = x0 + c;
+                lab[u] = p0 + u * NT + tid < n
+                    ? labels[(size_t)ys[u] * width + xs[u]] : -1;
+                c += cdc;
+                r += cdr;
+                if (c >= tw) { c -= tw; ++r; }
+            }
 #pragma unroll
-                    for (int c = 0; c < RED_CHUNK; ++c)
-                        acc[oi][c] = __fadd_rn(acc[oi][c], v[c]);
+            for (int u = 0; u < UL; ++u) {
+                const int p = p0 + u * NT + tid;
+                const int o = p < n ? window_code(lab[u], base, gw, oxlo,
+                                                  oxhi) : -1;
+                if (p < n) codes[p] = (signed char)o;
+                if (geometry)
+                    add_geometry(o, ys[u] - y0, xs[u] - x0, lane,
+                                 geo[tid / 32]);
+            }
+        }
+        __syncthreads();                  // the codes are in
+        if (g >= ng) continue;
+        // a round's loads at the top of its step at VEC = 1, at the end of
+        // the step before at VEC > 1: a same-call A/B of the two loops took
+        // 24.9 against 27.9 us at F = 7 f32 and 88.2 against 52.1 at F = 30
+        // bf16 (PERF.md)
+        const T* row0 = src + ((size_t)yb * width + x0) * f;
+        float v[U][VEC];
+        int o[U];
+        int dp = g, dr = dr0, dc = dc0;   // the data walk's next pixel
+        if constexpr (VEC > 1)
+            load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng, ddr,
+                               ddc, tw, width, f);
+        for (int q = g; q < n; q += U * ng) {
+            if constexpr (VEC == 1)
+                load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng, ddr,
+                                   ddc, tw, width, f);
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+                if (o[u] < 0) continue;
+                if (o[u] != cur) {
+                    if (cur >= 0) {
+                        float* s = mine + cur * NR * NT;
+#pragma unroll
+                        for (int i = 0; i < NR; ++i) {
+                            s[i * NT] = __fadd_rn(s[i * NT], run[i]);
+                            run[i] = 0.0f;
+                        }
+                    }
+                    cur = o[u];
+                }
+#pragma unroll
+                for (int j = 0; j < VEC; ++j) {
+                    run[j] = __fadd_rn(run[j], v[u][j]);
+                    if constexpr (NV == 2)
+                        run[VEC + j] = __fadd_rn(
+                            run[VEC + j], __fmul_rn(v[u][j], v[u][j]));
                 }
             }
+            if constexpr (VEC > 1)
+                if (dp < n)
+                    load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng,
+                                       ddr, ddc, tw, width, f);
         }
+    }
+    if (cur >= 0) {
+        float* s = mine + cur * NR * NT;
 #pragma unroll
-        for (int o = 0; o < NOFF; ++o) {
+        for (int i = 0; i < NR; ++i) s[i * NT] = __fadd_rn(s[i * NT], run[i]);
+    }
+    __syncthreads();
+    // channel ch summed over the ng groups by a team of L lanes (as many
+    // lanes as leave a team for every channel, at most 32 and ng): lane li
+    // adds groups li, li + L, ... of all 9 x NV (offset, kind) sums side by
+    // side, then a shuffle tree joins the lanes
+    int L = 1;
+    while (L < 32 && 2 * L <= ng && NT / (2 * L) >= fc) L <<= 1;
+    const int team = tid / L, li = tid & (L - 1), teams = NT / L;
+    for (int ch0 = 0; ch0 < fc; ch0 += teams) {           // warp-uniform
+        const int ch = ch0 + team;
+        float s[NOFF * NV];
 #pragma unroll
-            for (int c = 0; c < RED_CHUNK; ++c) {
-                float s = acc[o][c];
+        for (int k = 0; k < NOFF * NV; ++k) s[k] = 0.0f;
+        if (ch < fc) {
+            const float* col = acc + (ch % VEC) * NT + ch / VEC;
+            for (int gi = li; gi < ng; gi += L)
 #pragma unroll
-                for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(FULL, s, m);
-                if (lane == 0) red[warp][o * RED_CHUNK + c] = s;
-            }
+                for (int k = 0; k < NOFF * NV; ++k)
+                    s[k] = __fadd_rn(s[k], col[k * VEC * NT + gi * tpp]);
         }
-        __syncthreads();
-        for (int k = tid; k < NOFF * RED_CHUNK; k += RED_THREADS) {
-            const int o = k / RED_CHUNK, c = c0 + k % RED_CHUNK;
-            if (c >= f) continue;
-            float s = red[0][k];
-            for (int wi = 1; wi < RED_THREADS / 32; ++wi) s += red[wi][k];
-            partials[(tile * NOFF + o) * f + c] = s;
+        for (int m = L / 2; m > 0; m >>= 1)
+#pragma unroll
+            for (int k = 0; k < NOFF * NV; ++k)
+                s[k] = __fadd_rn(s[k], __shfl_xor_sync(FULL, s[k], m));
+        if (ch < fc && li == 0)
+#pragma unroll
+            for (int k = 0; k < NOFF * NV; ++k)
+                out[(k / NV) * nch + (k % NV) * f + ch] = s[k];
+    }
+    if (geometry && tid < NOFF * 3) {        // the warps' sums, in order
+        unsigned long long sum = 0;
+        for (int w = 0; w < NT / 32; ++w) sum += geo[w][tid];
+        const int k = tid % 3, n = tid - k;
+        if (k > 0) {                       // back to image rows / columns
+            unsigned long long cnt = 0;
+            for (int w = 0; w < NT / 32; ++w) cnt += geo[w][n];
+            sum += cnt * (unsigned long long)(k == 1 ? y0 : x0);
         }
-        __syncthreads();   // red is rewritten by the next chunk
+        out[(tid / 3) * nch + 2 * f + k] = (float)sum;   // c0 = 0
     }
 }
 
@@ -535,20 +750,57 @@ static int route(const void* partials, void* out, int gh, int gw, int f,
     return (int)cudaGetLastError();
 }
 
+// Rows 6 and 7: one block per tile and channel range, VEC channels a thread
+// where F and the data's alignment allow 16- or 8-byte loads; the code map
+// takes a band of at most RED_CODES bytes of the tile.  F above the block's
+// channel slots is split into equal ranges of a multiple of VEC channels,
+// one grid row each (every range re-reads the labels).
+template <typename T, int NV, int VEC>
+static int reduce_vec(const T* data, const int* labels, float* partials,
+                      int height, int width, int f, int gh, int gw, int step,
+                      cudaStream_t st) {
+    constexpr int slots = RED_NT(VEC) * VEC;
+    const int ranges = (f + slots - 1) / slots;
+    const int fr = ((f + ranges - 1) / ranges + VEC - 1) / VEC * VEC;
+    const size_t codes = (size_t)(step * step < RED_CODES ? step * step
+                                                          : RED_CODES);
+    const dim3 grid((unsigned int)gh * gw, (unsigned int)((f + fr - 1) / fr));
+    grid_reduce_kernel<T, NV, VEC><<<grid, RED_NT(VEC), codes, st>>>(
+        data, labels, partials, height, width, f, fr, gw, step);
+    return (int)cudaGetLastError();
+}
+
+template <typename T, int NV>
+static int reduce_launch(const T* data, const int* labels, float* partials,
+                         int height, int width, int f, int gh, int gw,
+                         int step, cudaStream_t st) {
+    if (f < 1 || step > (NV == 2 ? RED_MAX_STEP : RED_CODES))
+        return (int)cudaErrorInvalidValue;
+    const uintptr_t a = (uintptr_t)data;
+    if (f % 4 == 0 && a % (4 * sizeof(T)) == 0)
+        return reduce_vec<T, NV, 4>(data, labels, partials, height, width, f,
+                                    gh, gw, step, st);
+    if (f % 2 == 0 && a % (2 * sizeof(T)) == 0)
+        return reduce_vec<T, NV, 2>(data, labels, partials, height, width, f,
+                                    gh, gw, step, st);
+    return reduce_vec<T, NV, 1>(data, labels, partials, height, width, f, gh,
+                                gw, step, st);
+}
+
 extern "C" int grid_reduce(const void* data, const void* labels,
                            void* partials, void* out, int height, int width,
                            int f, int gh, int gw, int step, int bf16,
                            void* stream) {
-    dim3 grid(gw, gh);
     cudaStream_t st = (cudaStream_t)stream;
-    if (bf16)
-        grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
-            DataChannels<__nv_bfloat16>{(const __nv_bfloat16*)data, f},
-            (const int*)labels, (float*)partials, height, width, f, gw, step);
-    else
-        grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
-            DataChannels<float>{(const float*)data, f}, (const int*)labels,
-            (float*)partials, height, width, f, gw, step);
+    const int err = bf16
+        ? reduce_launch<__nv_bfloat16, 1>((const __nv_bfloat16*)data,
+                                          (const int*)labels,
+                                          (float*)partials, height, width, f,
+                                          gh, gw, step, st)
+        : reduce_launch<float, 1>((const float*)data, (const int*)labels,
+                                  (float*)partials, height, width, f, gh, gw,
+                                  step, st);
+    if (err) return err;
     return route(partials, out, gh, gw, f, st);
 }
 
@@ -556,13 +808,12 @@ extern "C" int grid_reduce(const void* data, const void* labels,
 extern "C" int grid_moments(const void* feat, const void* labels,
                             void* partials, void* out, int height, int width,
                             int f, int gh, int gw, int step, void* stream) {
-    dim3 grid(gw, gh);
     cudaStream_t st = (cudaStream_t)stream;
-    const int nch = 2 * f + 3;
-    grid_reduce_kernel<<<grid, RED_THREADS, 0, st>>>(
-        MomentChannels{(const float*)feat, f}, (const int*)labels,
-        (float*)partials, height, width, nch, gw, step);
-    return route(partials, out, gh, gw, nch, st);
+    const int err = reduce_launch<float, 2>(
+        (const float*)feat, (const int*)labels, (float*)partials, height,
+        width, f, gh, gw, step, st);
+    if (err) return err;
+    return route(partials, out, gh, gw, 2 * f + 3, st);
 }
 
 extern "C" int grid_moments_apply(const void* feat, const void* labels,

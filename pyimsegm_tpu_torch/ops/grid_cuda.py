@@ -20,6 +20,10 @@ from pyimsegm_tpu_torch.ops.slic import SlicConfig
 #: kernel launches in this process, per wrapper
 LAUNCHES = {'grid_reduce': 0, 'grid_lookup': 0, 'grid_adjacency_presence': 0,
             'grid_pair_count': 0, 'grid_moments_apply': 0, 'grid_moments': 0}
+#: the launches of rows 6 and 7 counted by F (and dtype for row 6), beside
+#: their counts in LAUNCHES: {'grid_reduce F=7 float32': n, 'grid_moments
+#: F=60': n, ...}
+LAUNCHES_BY_F = {}
 
 
 @functools.cache
@@ -33,6 +37,10 @@ def _lib():
         'grid_moments_apply': [v] * 6 + [i] * 6 + [v],
         'grid_moments': [v] * 4 + [i] * 6 + [v],
     })
+
+
+def _count_by_f(key):
+    LAUNCHES_BY_F[key] = LAUNCHES_BY_F.get(key, 0) + 1
 
 
 def _tile_index(h, w, step, device):
@@ -100,6 +108,7 @@ def grid_reduce(data, labels, cfg: SlicConfig):
                   out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w, cfg.step,
                   int(data.dtype == torch.bfloat16))
     LAUNCHES['grid_reduce'] += 1
+    _count_by_f('grid_reduce F=%d %s' % (f, str(data.dtype).split('.')[-1]))
     return out
 
 
@@ -343,6 +352,7 @@ def grid_moments_apply(feat, labels, donor, cfg: SlicConfig):
                       out.data_ptr(), h, w, f, cfg.grid_h, cfg.grid_w,
                       cfg.step)
         LAUNCHES['grid_moments'] += 1
+        _count_by_f('grid_moments F=%d' % f)
         return labels, out
     if donor.dtype != torch.int64:
         donor = donor.to(torch.int32)

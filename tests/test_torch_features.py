@@ -201,6 +201,73 @@ def test_grid_reduce_twin_matches_pallas_interpret(scene, f, dtype, damage):
             ).all()
 
 
+#: a non-square shape whose width is not a multiple of 4, with partial last
+#: tiles at SP
+ODD_SHAPE = (57, 74)
+
+
+@pytest.fixture(scope='module')
+def odd_scene():
+    """ODD_SHAPE's synthetic colour image and its JAX SLIC labels."""
+    img = sample_color_image_rand_segment(ODD_SHAPE, 3, rand_seed=5)[0]
+    img = ((img - img.min()) / (img.max() - img.min())).astype(np.float32)
+    cfg = jslic.slic_config(*ODD_SHAPE, SP)
+    labels = np.asarray(jslic._slic_segment_xla(
+        jnp.asarray(img), cfg, jslic.compactness_from_regul(SP, 0.2)))
+    return labels, cfg
+
+
+def _beyond_k(labels, cfg, seed):
+    """Damaged labels (``_damaged``) with ids >= K too: in the last tile
+    row's window (their sums route off the grid) and far beyond it."""
+    bad = _damaged(labels, cfg, seed)
+    rng = np.random.default_rng(seed)
+    flat = bad.reshape(-1)
+    idx = rng.choice(flat.size, flat.size // 50, replace=False)
+    flat[idx[: len(idx) // 2]] = 2 ** 31 - 1
+    flat[idx[len(idx) // 2:]] = cfg.n_segments + 5 * cfg.grid_w
+    cols = np.arange(bad.shape[1]) // cfg.step
+    bad[-2:, :] = cfg.n_segments + cols[None]
+    return bad
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('damage', [False, True], ids=['slic', 'damaged'])
+def test_grid_reduce_twin_odd_shape_matches_pallas_interpret(odd_scene,
+                                                             dtype, damage):
+    """Row 6 at F = 5 on a shape whose width is not a multiple of 4 and
+    whose last tiles are partial, against the Pallas kernel in interpret
+    mode (the damaged labels also hold ids >= K)."""
+    from pyimsegm_tpu.ops import grid_pallas
+    labels, cfg = odd_scene
+    if damage:
+        labels = _beyond_k(labels, cfg, 5)
+    data = np.random.default_rng(5).normal(size=ODD_SHAPE + (5,)).astype(
+        np.float32)
+    jdata = jnp.asarray(data).astype(jnp.dtype(dtype))
+    orig = pl.pallas_call
+    calls = []
+
+    def call(*args, **kwargs):
+        kwargs['interpret'] = True
+        calls.append(1)
+        return orig(*args, **kwargs)
+
+    jax.clear_caches()
+    with mock.patch.object(grid_pallas.pl, 'pallas_call', call):
+        ref = np.asarray(grid_pallas.grid_reduce_pallas(
+            jdata, jnp.asarray(labels), cfg))
+    assert calls
+    tdata = _t(np.asarray(jdata.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    out = grid_cuda.grid_reduce(tdata, _t(labels),
+                                tslic.slic_config(*ODD_SHAPE, SP))
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    scale = np.abs(ref).max(axis=0, keepdims=True)
+    assert (np.abs(out.numpy() - ref) <= 1e-5 * np.abs(ref) + 1e-5 * scale
+            ).all()
+
+
 def test_grid_segment_sum_and_count_match_jax(scene):
     _, labels, cfg = scene
     lab = _damaged(labels, cfg, 7)

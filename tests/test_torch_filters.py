@@ -174,3 +174,31 @@ def test_grid_geometry_moments_battery_stack(scene, f):
     scale = np.abs(want).max(axis=0, keepdims=True)
     np.testing.assert_array_less(np.abs(got.numpy() - want),
                                  1e-5 * np.abs(want) + 1e-5 * scale + 1e-7)
+
+
+@pytest.mark.parametrize('f', [1, 5, 129])
+def test_grid_geometry_moments_damaged_labels(scene, f):
+    """Row 7 on damaged labels: -2 holes, ids outside their pixel's 3x3
+    window, and ids >= K (in the last tile row's window, and far beyond),
+    against the JAX reduce; F = 129 is wider than one block of the card's
+    kernel takes."""
+    _, labels, cfg, tcfg = scene
+    rng = np.random.default_rng(f)
+    bad = labels.copy()
+    flat = bad.reshape(-1)
+    idx = rng.choice(flat.size, flat.size // 25, replace=False)
+    q = len(idx) // 4
+    flat[idx[:q]] = -2
+    flat[idx[q:2 * q]] = (flat[idx[q:2 * q]] + 3 * cfg.grid_w + 3) \
+        % cfg.n_segments
+    flat[idx[2 * q:3 * q]] = 2 ** 31 - 1
+    flat[idx[3 * q:]] = cfg.n_segments + 5 * cfg.grid_w
+    bad[-2:, :] = cfg.n_segments + np.arange(SHAPE[1])[None] // SP
+    data = rng.normal(size=SHAPE + (f,)).astype(np.float32)
+    want = np.asarray(jgrid.grid_geometry_moments(jnp.asarray(data),
+                                                  jnp.asarray(bad), cfg))
+    got = tgrid.grid_geometry_moments(_t(data), _t(bad), tcfg)
+    assert got.shape == (cfg.n_segments, 2 * f + 3)
+    scale = np.abs(want).max(axis=0, keepdims=True)
+    np.testing.assert_array_less(np.abs(got.numpy() - want),
+                                 1e-5 * np.abs(want) + 1e-5 * scale + 1e-7)

@@ -1,9 +1,11 @@
-"""Same-call A/B of build variants of kernel rows 2, 3-5, 8 and 15.
+"""Same-call A/B of build variants of kernel rows 2, 3-5, 6-7, 8 and 15.
 
-A variant is ``base`` (the source as it is) or ``KEY=V+KEY=V``: each KEY
+A variant is ``base`` (the source as it is), ``KEY=V+KEY=V`` (each KEY
 names a constant of the kernel's source, and the variant is built from a
-copy of the source with that constant set to V (the tool fails if the
-constant's definition is not found once).
+copy of the source with that constant set to V; the tool fails if the
+constant's definition is not found once) or the path of a ``.cu`` file,
+built as it is in the source's place (an earlier or an edited copy of the
+source, for a change that no constant names).
 
 ``--kernel schedule`` (row 2, the cooperative SLIC schedule of
 ``pyimsegm_tpu_torch/csrc/slic.cu``): the members of ``Sched<SLICO>``, per
@@ -41,6 +43,15 @@ the min-size donor table of the bench path, and with a donor table of
 random seeds within one grid cell (most pixels merge), holding merged
 labels exact and sums within rtol 1e-5 against the plain twin.
 
+``--kernel reduce`` (rows 6 and 7, the per-superpixel reduce of
+``csrc/grid.cu``): ``RED_THREADS`` (block size), ``RED_MIN_BLOCKS``
+(blocks an SM must hold, which caps the registers) and ``RED_LABELS_STEP``
+(labels a block reads before it codes them).  On the SLIC kernels' labels
+of image 0 at the bench geometry it times row 6 at F = 7 (f32 and bf16),
+the paths' F = 4 (f32) and 30 (bf16), and row 7 at F = 3, 18 and 60,
+holding the sums within rtol 1e-5 + 1e-5 x channel max against the plain
+twins, and prints each variant's device us per CUDA kernel.
+
 ``--kernel slic3d --probe`` measures where row 15's pass spends a tile
 instead: a copy whose blocks add, per work item, the ``clock64`` cycles of
 each phase (waiting for the item's copies, building the tile's tables,
@@ -56,7 +67,7 @@ variants in turns (in order, then reversed).
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/ab_kernels.py --kernel schedule|moments|assign|slic3d \\
+    python3 tools/ab_kernels.py --kernel schedule|moments|assign|slic3d|reduce \\
         [--variants base,PRUNE=1,...] [--probe]
 """
 
@@ -85,6 +96,8 @@ KERNELS = {
                'base,T_FEAT=32,T_PLAIN=64,T_FEAT=32+T_PLAIN=64'),
     'slic3d': ('slic3d', 'slic3d_kernel',
                'base,THREADS=64,MIN_BLOCKS=8'),
+    'reduce': ('grid', 'grid_reduce_kernel',
+               'base,RED_THREADS=64,RED_MIN_BLOCKS=1'),
 }
 #: plain members of a struct, by key: (source file, member)
 MEMBERS = {'assign': {'T_FEAT': 'T_FEAT', 'T_PLAIN': 'T_PLAIN'},
@@ -137,6 +150,9 @@ def _variant_source(kernel, variant, text):
     """The source text of ``variant``."""
     if variant == 'base':
         return text
+    if variant.endswith('.cu'):
+        with open(variant) as f:
+            return f.read()
     if variant in PROBES:
         for old, new in PROBES[variant]:
             if text.count(old) != 1:
@@ -146,7 +162,7 @@ def _variant_source(kernel, variant, text):
             text = text.replace(old, new)
         return text
     sets = dict(kv.split('=') for kv in variant.split('+'))
-    if kernel == 'moments':
+    if kernel in ('moments', 'reduce'):
         for key, v in sets.items():
             text = _sub_once(r'#define %s \S+' % re.escape(key),
                              '#define %s %s' % (key, v), text, key)
@@ -348,6 +364,69 @@ def _moments(torch, libs, build):
                   flush=True)
 
 
+def _reduce(torch, libs, build):
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    img = torch.as_tensor(sample_color_image_rand_segment(
+        CROP, 3, rand_seed=0)[0], device='cuda')
+    labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
+    labels = labels.contiguous()
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.grid_reduce.argtypes = ([build.VOIDP] * 4 + [build.INT] * 7
+                                    + [build.VOIDP])
+        dll.grid_moments.argtypes = ([build.VOIDP] * 4 + [build.INT] * 6
+                                     + [build.VOIDP])
+        dll.grid_reduce.restype = dll.grid_moments.restype = ctypes.c_int
+        dlls[v] = dll
+    rng = np.random.default_rng(3)
+    for row, f, dtype in ((6, 7, torch.float32), (6, 7, torch.bfloat16),
+                          (6, 4, torch.float32), (6, 30, torch.bfloat16),
+                          (7, 3, torch.float32), (7, 18, torch.float32),
+                          (7, 60, torch.float32)):
+        data = torch.as_tensor(rng.normal(size=CROP + (f,)).astype(
+            np.float32), device='cuda').to(dtype)
+        nch = f if row == 6 else 2 * f + 3
+        partials = torch.empty((cfg.n_segments * 9 * nch,), device='cuda')
+        out = torch.empty((cfg.n_segments, nch), device='cuda')
+        if row == 6:
+            want = grid_cuda._grid_reduce_plain(data, labels, cfg)
+        else:
+            want = grid_cuda._grid_moments_apply_plain(data, labels, None,
+                                                       cfg)[1]
+
+        def call(dll, row=row, data=data, f=f, partials=partials, out=out):
+            args = (data.data_ptr(), labels.data_ptr(), partials.data_ptr(),
+                    out.data_ptr(), CROP[0], CROP[1], f, cfg.grid_h,
+                    cfg.grid_w, cfg.step)
+            if row == 6:
+                return lambda: build.check(dll.grid_reduce(
+                    *args, int(data.dtype == torch.bfloat16),
+                    build.stream_ptr(data)), 'grid_reduce')
+            return lambda: build.check(dll.grid_moments(
+                *args, build.stream_ptr(data)), 'grid_moments')
+
+        def check(v, want=want, out=out, key=(row, f)):
+            if not _sums_ok(out, want):
+                raise AssertionError('%s row %d F=%d: differs from the twin'
+                                     % ((v,) + key))
+
+        key = 'row %d F=%d %s' % (row, f, str(dtype).split('.')[-1])
+        times = _in_turns(torch, {v: call(d) for v, d in dlls.items()},
+                          check)
+        print('%s ms per call (in turns): %s' % (key, json.dumps(times)),
+              flush=True)
+        for v, dll in dlls.items():
+            print('%s %s device us per CUDA kernel (torch.profiler, 5 '
+                  'calls): %s' % (key, v, json.dumps(_kernel_us(
+                      torch, call(dll)))), flush=True)
+
+
 def _sums_ok(got, want):
     """rtol 1e-5 plus 1e-5 of the channel's largest value."""
     diff = (got - want).abs()
@@ -529,7 +608,7 @@ def main():
     for v, (_, info) in libs.items():
         print('variant %s: %s' % (v, ' | '.join(info)), flush=True)
     {'schedule': _schedule, 'moments': _moments, 'assign': _assign,
-     'slic3d': _slic3d}[args.kernel](torch, libs, build)
+     'slic3d': _slic3d, 'reduce': _reduce}[args.kernel](torch, libs, build)
 
 
 if __name__ == '__main__':

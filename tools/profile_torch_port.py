@@ -44,11 +44,13 @@ ranges, read as for ``--path 3d``.
 ``--path kernels`` measures kernel rows 2 (plain and SLICO), 3 (with its
 routing to per-seed sums), 4 (plain and SLICO), 5, 8, 9 and 12 and the
 bench path's whole SLIC stage as the paths call them, on image 0 and on the
-first noise image, and row 15 (the 10-iteration schedule and its two
-passes) at the 3D workload (``chip_smoke.measure_path_kernels``: call ms,
-device ms and CUDA kernel launches per call), with the package of the
+first noise image, rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30 bf16) and
+7 (F = 3, 18, 60) on image 0, and row 15 (the 10-iteration schedule and its
+two passes) at the 3D workload (``chip_smoke.measure_path_kernels``: call
+ms, device ms and CUDA kernel launches per call), with the package of the
 checkout at ``--root`` (this one by default), so that one call on the card
-can measure two checkouts in turns.
+can measure two checkouts in turns (``chip_smoke.py`` prints the launches
+of rows 6 and 7 by F on the paths it drives).
 
 Run from the root of a checkout on a machine with a CUDA card::
 
