@@ -14,7 +14,18 @@ Phases (any failure raises and exits non-zero):
 3. for each kernel, at the bench geometry (884x1200, sp_size 35, regul 0.2)
    on the labels the SLIC kernels produce: kernel and plain PyTorch twin on
    the same inputs on the card, agreement within the stated tolerance, and
-   both times; row 9 exact at C = 1 (int32 and f32), 2, 3, 4 and 5 on the
+   both times; row 1 (at most 2 CUDA kernels and no host-to-device copy a
+   call) at 884x1200 and on ``PREP_SHAPES`` (883x1197, widths no multiple
+   of 4 or 32, images smaller than the blur radius, both tiles), on image 0
+   as gray, in 0-255 and with one NaN pixel, and on a constant image (bf16
+   values equal on >= 0.9999 of them, at most 1 ulp, NaN where the twin is
+   NaN), each call twice with equal bits (``prep_phases``); row 10 (at most
+   2 CUDA kernels a call: the pass and its route to per-seed counts and
+   symmetric contacts) exact against its twins, (cnt9, counts9) and the
+   routed triple, on SLIC and enforced labels of image 0 and of the noise
+   image, damaged labels (-1, -2, out of the window, >= K) at 884x1200 and
+   883x1197, and both tiles, each call twice with equal bits
+   (``minsize_count_phases``); row 9 exact at C = 1 (int32 and f32), 2, 3, 4 and 5 on the
    labels and on damaged labels; row 12 exact on the noise image's labels
    and on ``ENFORCE_CASES`` (fragmented noise labels, a tall image, the
    serpentine labels that need more reach sweeps than the cap, which must
@@ -25,8 +36,9 @@ Phases (any failure raises and exits non-zero):
    keep its centre; every row 2 call must be one C call of the wrapper;
    row 3 writes labels, partials and their routed per-seed sums (routed
    sums within the partials' tolerance, at most 2 CUDA kernels per call);
-   then, for rows 2-9, 12 and 15 as the paths call them (row 3 with its
-   routing, and the bench path's whole SLIC stage), the call ms, the
+   then, for rows 1-10, 12 and 15 as the paths call them (row 1 as
+   ``_prepare_chw`` calls it, row 3 with its routing, row 10 as the bench
+   path's ``counts_and_contacts``, and the bench path's whole SLIC stage), the call ms, the
    device ms and the CUDA kernels per call from ``torch.profiler`` on the
    labels of image 0 and of the noise image and on the 3D workload, row 9
    at C = 1 and 4 beside ``table[index]``, rows 6 (F = 7 f32 and bf16,
@@ -189,6 +201,8 @@ TILE_14, TILE_13 = (2048, 3600), (4096, 4096)
 #: scalar path) and the last tile row and column partial; and the seed moved
 #: off the image's colours there, so that it wins no pixel
 ODD, EMPTY_SEED = (883, 1197), (10, 10)
+#: a shape whose last tile row and column are one pixel (at sp_size 35)
+ONE_PX = (71, 106)
 
 
 def _time_ms(fn, reps=REPS):
@@ -237,6 +251,22 @@ def _profiled(torch, fn, reps=5, tries=3):
     return out
 
 
+def _h2d_copies(torch, fn, reps=5):
+    """Host-to-device copies per call of ``fn`` (torch.profiler's ``Memcpy
+    HtoD`` events over ``reps`` warm calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if str(e.device_type).endswith('CUDA')
+               and e.name.startswith('Memcpy HtoD')) / reps
+
+
 def _final_pass(slic_cuda, lab_chw, centers, m, cfg, image):
     """Row 3 as the bench path runs it, the routed per-seed sums out: the
     final pass with the (H, W, 3) image and its route; with a package whose
@@ -255,8 +285,12 @@ def _final_pass(slic_cuda, lab_chw, centers, m, cfg, image):
 
 
 def measure_path_kernels(torch, img):
-    """Rows 2, 3, 4, 5, 8, 9, 12 and 15 as the paths call them
-    (``ops.slic_cuda.slic_multi_update``, row 3 with its routing as
+    """Rows 1, 2, 3, 4, 5, 8, 9, 10, 12 and 15 as the paths call them
+    (``ops.prep_cuda.blur_lab`` as ``_prepare_chw`` calls it, with its
+    host-to-device copies per call; row 10 as
+    ``ops.grid.counts_and_contacts`` on the enforced labels, the bench
+    path's min-size measurement with its routing;
+    ``ops.slic_cuda.slic_multi_update``, row 3 with its routing as
     ``_final_pass`` runs it, ``slic_assign`` plain and SLICO,
     ``slic_update``, ``ops.grid_cuda.grid_moments_apply`` with the min-size
     donor table, ``ops.grid.grid_lookup``, ``ops.enforce_cuda.enforce_fused``,
@@ -270,8 +304,8 @@ def measure_path_kernels(torch, img):
     rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30 bf16) and 7 (F = 3, 18,
     60) on the SLIC labels of image 0 (``_reduce_rows``).
     Prints one ``path_kernels`` JSON line and returns its dict."""
-    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, slic3d,
-                                        slic3d_cuda, slic_cuda)
+    from pyimsegm_tpu_torch.ops import (enforce_cuda, grid_cuda, prep_cuda,
+                                        slic3d, slic3d_cuda, slic_cuda)
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     from pyimsegm_tpu_torch.ops import slic as slic_ops
     from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
@@ -299,6 +333,11 @@ def measure_path_kernels(torch, img):
                 _time_ms(schedule), *_profiled(torch, schedule))
         enf = grid_ops.enforce_grid_connectivity(labels, cfg,
                                                  centers=centers)
+        row['blur_lab'] = timed(lambda: prep_cuda.blur_lab(image))
+        row['blur_lab_h2d_copies'] = _h2d_copies(
+            torch, lambda: prep_cuda.blur_lab(image))
+        row['counts_and_contacts'] = timed(
+            lambda: grid_ops.counts_and_contacts(enf, cfg))
         counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
         donor = grid_ops.donor_chain_table(
             counts, sym25, cfg.grid_h, cfg.grid_w,
@@ -391,6 +430,55 @@ def _bf16_ulps(a, b):
     return (ordered(a) - ordered(b)).abs()
 
 
+def _bf16_agree(torch, got, want):
+    """(share of equal values, largest distance in ulps) of two bf16
+    tensors, a NaN equal to a NaN."""
+    both = torch.isnan(got.float()) & torch.isnan(want.float())
+    ulps = torch.where(both, 0, _bf16_ulps(got, want))
+    return float((ulps == 0).float().mean()), int(ulps.max())
+
+
+def _check_blur_lab(torch, prep_cuda, image, what):
+    """Row 1 on ``image`` twice (equal bits) against its twin (>= 0.9999 of
+    values equal, at most 1 ulp; NaN where the twin is NaN); returns (share
+    equal, largest ulp, largest absolute difference of the finite values)."""
+    out = prep_cuda.blur_lab(image)
+    again = prep_cuda.blur_lab(image)
+    want = prep_cuda._blur_lab_plain(image)
+    torch.cuda.synchronize()
+    equal, ulps = _bf16_agree(torch, out, want)
+    same = torch.equal(out.view(torch.int16), again.view(torch.int16))
+    diff = (out.float() - want.float()).abs()
+    err = float(torch.where(torch.isnan(diff), 0.0, diff).max())
+    print('blur_lab %s: bf16 equal %.6f, max %d ulp, max_abs_err %.3g, '
+          'NaN %d / %d, two calls equal: %s'
+          % (what, equal, ulps, err, int(torch.isnan(out.float()).sum()),
+             int(torch.isnan(want.float()).sum()), same), flush=True)
+    if equal < 0.9999 or ulps > 1 or not same:
+        raise AssertionError('blur_lab %s: %.6f equal, max %d ulp, two calls '
+                             'equal %s' % (what, equal, ulps, same))
+    return equal, ulps, err
+
+
+def _check_pair_count(torch, grid_cuda, labels, cfg, what):
+    """Row 10 on ``labels``: (cnt9, counts9) and the routed triple, each
+    twice with equal bits and exactly equal to the twins."""
+    for name, kernel, plain in (
+            ('grid_pair_count', grid_cuda.grid_pair_count,
+             grid_cuda._grid_pair_count_plain),
+            ('counts_and_contacts', grid_cuda.counts_and_contacts,
+             grid_cuda._counts_and_contacts_plain)):
+        out, again, want = kernel(labels, cfg), kernel(labels, cfg), \
+            plain(labels, cfg)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(out, again, want)):
+            raise AssertionError('%s %s: differs from its twin or between '
+                                 'two calls' % (name, what))
+    print('grid_pair_count %s: (cnt9, counts9) and the routed triple exact, '
+          'two calls equal' % what, flush=True)
+
+
 def _bound(nbytes, ops):
     """(least ms, 'bytes' or 'operations'): the larger of the bytes over
     the memory rate and the f32 operations over the f32 peak."""
@@ -436,24 +524,20 @@ def kernel_phases(torch, img):
     px, ppx, k = CROP[0] * CROP[1], cfg.pad_h * cfg.pad_w, cfg.n_segments
     records = []
 
-    lab_k = prep_cuda.blur_lab(img)
-    lab_p = prep_cuda._blur_lab_plain(img)
-    torch.cuda.synchronize()
-    ulps = _bf16_ulps(lab_k, lab_p)
-    equal = float((ulps == 0).float().mean())
-    err = float((lab_k.float() - lab_p.float()).abs().max())
-    if equal < 0.9999 or int(ulps.max()) > 1:
-        raise AssertionError('blur_lab: %.6f equal, max %d ulp'
-                             % (equal, int(ulps.max())))
+    equal, ulps, err = _check_blur_lab(torch, prep_cuda, img, 'image 0')
+    h2d = _h2d_copies(torch, lambda: prep_cuda.blur_lab(img))
+    print('blur_lab: %g host-to-device copies per call' % h2d, flush=True)
+    if h2d:
+        raise AssertionError('blur_lab copies to the card in its call')
     records.append(_record(
         'blur_lab', 'pyimsegm_tpu_torch/csrc/prep.cu',
         'pyimsegm_tpu/ops/prep_pallas.py:121', err,
         lambda: prep_cuda.blur_lab(img),
         _time_ms(lambda: prep_cuda._blur_lab_plain(img)),
-        'bf16 equal %.6f, max %d ulp' % (equal, int(ulps.max())),
+        'bf16 equal %.6f, max %d ulp' % (equal, ulps),
         # f32 RGB in, bf16 Lab out; per pixel 2 x 3 x 17 blur taps, 6 for
         # the rescale, ~57 for sRGB -> XYZ -> Lab
-        px * (12 + 6), px * (102 + 6 + 57)))
+        px * (12 + 6), px * (102 + 6 + 57), max_kernels=2))
 
     lab_chw, centers0 = slic_ops._prepare_chw(img, cfg)
     n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
@@ -789,21 +873,30 @@ def enforce_phases(torch, img, labels, centers, cfg):
                                                 device=img.device)
                                    for n in CROP], indexing='ij'),
                                  dim=-1).reshape(-1, 2)], dim=-1)
-    cnt_k, c9_k = grid_cuda.grid_pair_count(enf, cfg)
-    cnt_p, c9_p = grid_cuda._grid_pair_count_plain(enf, cfg)
-    torch.cuda.synchronize()
-    if not (torch.equal(cnt_k, cnt_p) and torch.equal(c9_k, c9_p)):
-        raise AssertionError('grid_pair_count differs')
+    noise_enf = enforce_cuda.enforce_fused(noise_labels, noise_centers, cfg)
+    for lab, what in ((labels, 'SLIC labels of image 0'),
+                      (enf, 'enforced labels of image 0'),
+                      (noise_labels, 'SLIC labels of the noise image'),
+                      (noise_enf, 'enforced labels of the noise image')):
+        _check_pair_count(torch, grid_cuda, lab, cfg, what)
+    print('grid_pair_count (cnt9, counts9) alone, enforced labels of image 0: '
+          '%.4f ms, device %.4f ms in %g CUDA kernel(s), bound %.4f ms (%s)'
+          % ((_time_ms(lambda: grid_cuda.grid_pair_count(enf, cfg)),)
+             + _profiled(torch, lambda: grid_cuda.grid_pair_count(enf, cfg))
+             + _bound(px * 4 + k * (225 + 9) * 4, px * 3)), flush=True)
     records.append(_record(
         'grid_pair_count', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:478', 0.0,
-        lambda: grid_cuda.grid_pair_count(enf, cfg),
-        _time_ms(lambda: grid_cuda._grid_pair_count_plain(enf, cfg)),
-        'exact',
-        # i32 labels in, (K, 9, 9) + (K, 9) i32 counts out; two pair
-        # compares and a count per pixel
-        px * 4 + k * 90 * 4, px * 3,
-        _time_ms(lambda: torch.bincount(pair_codes, minlength=k * k))))
+        lambda: grid_cuda.counts_and_contacts(enf, cfg),
+        _time_ms(lambda: grid_cuda._counts_and_contacts_plain(enf, cfg)),
+        'exact: (cnt9, counts9) and the routed triple',
+        # the routed call as the min-size merge makes it: i32 labels in,
+        # (K,) counts + (gh, gw, 25) contacts + (gh, gw, 9) counts f32 out
+        # (the (gh, gw, 9, 25) pair counts are scratch the route reads
+        # back); two pair compares and a count per pixel
+        px * 4 + k * (1 + 25 + 9) * 4, px * 3,
+        _time_ms(lambda: torch.bincount(pair_codes, minlength=k * k)),
+        max_kernels=2))
 
     min_size = int(0.5 * cfg.step * cfg.step)
     counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
@@ -1557,7 +1650,7 @@ def kernel_phases_wide(torch):
     against row 12 on the same labels and centres, at both tile geometries;
     records at each row's own route geometry, and the anchor seed's."""
     from pyimsegm_tpu_torch.ops import connectivity_cuda as cc
-    from pyimsegm_tpu_torch.ops import enforce_cuda
+    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     records = []
     routes = {TILE_14: ('reach_absorb_fused', 'pyimsegm_tpu/ops/'
@@ -1570,6 +1663,8 @@ def kernel_phases_wide(torch):
         img, labels, centers, cfg = _tile(torch, shape)
         check_schedule(torch, *slic_ops._prepare_chw(img, cfg), m, cfg,
                        'tile %dx%d' % shape)
+        _check_pair_count(torch, grid_cuda, labels, cfg,
+                          'SLIC labels of tile %dx%d' % shape)
         want_route = 'rafused' if own == 'reach_absorb_fused' else 'two'
         route = grid_ops._enforce_route(cfg)
         if route != want_route:
@@ -1600,6 +1695,8 @@ def kernel_phases_wide(torch):
                   flush=True)
             if d_twin or d_12 or n != (2 if name == 'reach_absorb' else 1):
                 raise AssertionError('%s disagrees at %s' % (name, shape))
+        _check_pair_count(torch, grid_cuda, row12, cfg,
+                          'enforced labels of tile %dx%d' % shape)
         px = shape[0] * shape[1]
         plain_ms = _time_ms(lambda: enforce_cuda._connect_components(
             labels, seed.bool(), cfg), reps=2)
@@ -1694,6 +1791,67 @@ def _damaged_labels(torch, labels, cfg, seed):
     flat[idx[2 * q:]] = 2 ** 31 - 1 - rng.integers(0, 5, len(idx) - 2 * q)
     bad[-2:] = cfg.n_segments + np.arange(bad.shape[1])[None] // cfg.step
     return torch.as_tensor(bad, device=labels.device)
+
+
+#: row 1's shapes beyond the bench geometry: widths no multiple of 4 or
+#: 32, images smaller than the blur radius (the reflection wraps more than
+#: once), and the two whole-slide tiles
+PREP_SHAPES = ((883, 1197), (57, 101), (3, 7), (7, 3), (4, 2), (1, 1),
+               (2, 9)) + (TILE_14, TILE_13)
+
+
+def prep_phases(torch, img):
+    """Row 1 against its twin (``_check_blur_lab``) on image 0 as a gray
+    image stacked to RGB, in 0-255, with one NaN pixel, on a constant image,
+    and on synthetic images of ``PREP_SHAPES``."""
+    from pyimsegm_tpu_torch.ops import prep_cuda
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    gray = img.mean(dim=-1)
+    nan = img.clone()
+    nan[100, 200, 1] = float('nan')
+    cases = [('gray stacked to RGB', torch.stack([gray] * 3, dim=-1)),
+             ('in 0-255', img * 255.0),
+             ('one NaN pixel', nan),
+             ('constant 0.5', torch.full_like(img, 0.5))]
+    for i, shape in enumerate(PREP_SHAPES):
+        cases.append(('%dx%d' % shape, torch.as_tensor(
+            sample_color_image_rand_segment(shape, 3, rand_seed=i)[0],
+            device=img.device)))
+    for what, image in cases:
+        _check_blur_lab(torch, prep_cuda, image, what)
+
+
+def minsize_count_phases(torch, img):
+    """Row 10 against its twins (``_check_pair_count``) on damaged labels
+    (-1 and -2 holes, ids outside their window, ids >= K inside and beyond
+    the windows, the last two rows >= K) of image 0, and on the SLIC labels
+    of synthetic images at ODD and ONE_PX."""
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
+    bad = _damaged_labels(torch, labels, cfg, seed=5)
+    bad.view(-1)[::97] = -1
+    _check_pair_count(torch, grid_cuda, bad, cfg, 'damaged labels of image 0')
+    odd = torch.as_tensor(sample_color_image_rand_segment(
+        ODD, 3, rand_seed=1)[0], device=img.device)
+    cfg_odd = slic_ops.slic_config(ODD[0], ODD[1], SP_SIZE)
+    labels_odd = slic_ops.slic_segment_with_features(odd, odd, cfg_odd, m)[0]
+    _check_pair_count(torch, grid_cuda, labels_odd, cfg_odd,
+                      'SLIC labels at %dx%d' % ODD)
+    _check_pair_count(torch, grid_cuda, _damaged_labels(
+        torch, labels_odd, cfg_odd, seed=6), cfg_odd,
+        'damaged labels at %dx%d' % ODD)
+    # the last tile row and column one pixel wide, as at 4096x4096
+    one = torch.as_tensor(sample_color_image_rand_segment(
+        ONE_PX, 3, rand_seed=2)[0], device=img.device)
+    cfg_one = slic_ops.slic_config(ONE_PX[0], ONE_PX[1], SP_SIZE)
+    _check_pair_count(torch, grid_cuda, slic_ops.slic_segment_with_features(
+        one, one, cfg_one, m)[0], cfg_one, 'SLIC labels at %dx%d' % ONE_PX)
 
 
 def reduce_phases(torch):
@@ -1959,6 +2117,8 @@ def main():
     images = [p[0] for p in pairs]
     img = torch.as_tensor(images[0], device=DEVICE)
     records = kernel_phases(torch, img)
+    prep_phases(torch, img)
+    minsize_count_phases(torch, img)
     enforce_cases(torch)
     odd_geometry_phases(torch)
     measure_path_kernels(torch, img)

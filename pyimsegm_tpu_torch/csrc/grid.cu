@@ -33,14 +33,21 @@
 // tables need no cast.  The other
 // three are one block per tile.  The adjacency ORs each pixel's two pair
 // bits into one of 9 shared words picked by its own
-// offset code; the pair count adds 1 into one of 9 x 25 shared counters per
-// boundary pair, and keeps its pixel counts per thread in registers, reduced
-// by warp shuffles before one shared add per warp (OR and integer adds are
-// order-free, so shared atomics keep both exact and deterministic; the f32
-// outputs are exact integers).  The moments (row 8) add each pixel's 9
-// channels into 9 x 9 per-thread sums in shared memory, indexed by the
-// merged label's offset (9 adds per pixel, where register sums would need
-// 81 predicated ones; laid out [channel][thread], so a warp never shares a
+// offset code.  The pair count (row 10) stages its tile's labels, one row
+// below and one column to the right in shared memory once (coalesced rows;
+// each label read from device memory about once, where each pixel read
+// three), each beside its window code (no division: the window code below;
+// a pair's channel from the two codes, or from d = b - a and the first
+// endpoint's window column where the neighbour lies outside the window, in
+// place of four divisions and two modulos by gw a pair), counts pixels by
+// nine ballots a warp and round and adds pairs by shared atomics (integer
+// adds are order-free, so both are exact and deterministic; the f32
+// outputs are exact integers); a second launch routes the counts to their
+// seeds and symmetrises the contacts (ops/grid.py:counts_and_contacts's
+// triple), one thread per seed and channel.  The moments (row 8) add each
+// pixel's 9 channels into 9 x 9 per-thread sums in shared memory, indexed
+// by the merged label's offset (9 adds per pixel, where register sums would
+// need 81 predicated ones; laid out [channel][thread], so a warp never shares a
 // bank); each (offset, channel) is then reduced by one warp, a fixed
 // strided sum and a shuffle tree: no float atomics, so a run is
 // deterministic.  Where the width allows, a thread reads 4-pixel quads (16
@@ -97,6 +104,11 @@
 #define RED_MAX_STEP 1024
 #define ADJ_THREADS 256
 #define NCH 25
+// row 10: block threads, and the most labels a block stages at once (a
+// band of its tile's rows, + 1 row and + 1 column; 40 KB with their codes),
+// which takes seed steps up to PAIR_STAGE / 2 - 1
+#define PAIR_THREADS 256
+#define PAIR_STAGE 8192
 // row 8's block size, chosen by a same-call A/B on the card against 64 and
 // 128 (PERF.md)
 #define MOM_THREADS 96
@@ -201,63 +213,6 @@ grid_adjacency_kernel(const int* __restrict__ labels,  // (H, W)
     __syncthreads();
     if (threadIdx.x < NOFF)
         words[((size_t)ty * gw + tx) * NOFF + threadIdx.x] = acc[threadIdx.x];
-}
-
-__device__ __forceinline__ int pair_channel(int a, int b, int gw) {
-    if (b < 0 || a < 0 || a == b) return -1;
-    int dy = b / gw - a / gw, dx = b % gw - a % gw;
-    if (dy < -2 || dy > 2 || dx < -2 || dx > 2) return -1;
-    return (dy + 2) * 5 + (dx + 2);
-}
-
-__device__ __forceinline__ int offset_code(int l, int y, int x, int gw,
-                                           int step) {
-    if (l < 0) return -1;
-    const int oy = l / gw - y / step + 1, ox = l % gw - x / step + 1;
-    return (oy >= 0 && oy < 3 && ox >= 0 && ox < 3) ? oy * 3 + ox : -1;
-}
-
-__global__ void __launch_bounds__(ADJ_THREADS)
-grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
-                       float* __restrict__ cnt9,        // (gh, gw, 9, 25)
-                       float* __restrict__ counts9,     // (gh, gw, 9)
-                       int height, int width, int gw, int step) {
-    __shared__ int acc[NOFF * NCH];
-    __shared__ int cnt[NOFF];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    for (int k = threadIdx.x; k < NOFF * NCH; k += ADJ_THREADS) acc[k] = 0;
-    if (threadIdx.x < NOFF) cnt[threadIdx.x] = 0;
-    __syncthreads();
-    int local[NOFF];
-#pragma unroll
-    for (int o = 0; o < NOFF; ++o) local[o] = 0;
-    for (int p = threadIdx.x; p < step * step; p += ADJ_THREADS) {
-        const int y = ty * step + p / step, x = tx * step + p % step;
-        if (y >= height || x >= width) continue;   // pad pixels are -2
-        const int a = labels[(size_t)y * width + x];
-        const int o = offset_code(a, y, x, gw, step);
-        if (o < 0) continue;
-#pragma unroll
-        for (int oi = 0; oi < NOFF; ++oi) local[oi] += (oi == o);
-        const int right = x + 1 < width ? labels[(size_t)y * width + x + 1] : -2;
-        const int down = y + 1 < height ? labels[(size_t)(y + 1) * width + x] : -2;
-        const int cr = pair_channel(a, right, gw), cd = pair_channel(a, down, gw);
-        if (cr >= 0) atomicAdd(&acc[o * NCH + cr], 1);
-        if (cd >= 0) atomicAdd(&acc[o * NCH + cd], 1);
-    }
-#pragma unroll
-    for (int o = 0; o < NOFF; ++o) {
-        int v = local[o];
-#pragma unroll
-        for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(FULL, v, m);
-        if ((threadIdx.x & 31) == 0 && v) atomicAdd(&cnt[o], v);
-    }
-    __syncthreads();
-    const size_t tile = (size_t)ty * gw + tx;
-    for (int k = threadIdx.x; k < NOFF * NCH; k += ADJ_THREADS)
-        cnt9[tile * NOFF * NCH + k] = (float)acc[k];
-    if (threadIdx.x < NOFF)
-        counts9[tile * NOFF + threadIdx.x] = (float)cnt[threadIdx.x];
 }
 
 // Row 8's window code: the offset 0..8 of label l in the 3x3 seed window
@@ -403,6 +358,160 @@ __device__ __forceinline__ int window_code(int l, int base, int gw, int oxlo,
         if (ox >= oxlo && ox <= oxhi) return oy * 3 + ox;
     }
     return -1;
+}
+
+// Row 10: the relative seed channel (dy + 2) * 5 + dx + 2 of the conn4 pair
+// (a, b), -1 where b is negative, equal to a, or not within +-2 seed rows
+// and columns of a.  No division: a's seed column ax comes from its window
+// code, and d = b - a = dy * gw + dx has at most one dy in -2..2 whose dx
+// lies within +-2 with ax + dx on the grid (b >= 0 then makes b's seed row
+// a's plus dy, as b / gw would).  A b >= K is counted wherever its dy and
+// dx fall, as the twin's divisions do.
+__device__ __forceinline__ int pair_ch(int a, int b, int ax, int gw) {
+    if (b < 0 || b == a) return -1;
+    const unsigned int d = (unsigned int)b - (unsigned int)a;
+#pragma unroll
+    for (int dy = -2; dy <= 2; ++dy) {
+        const int dx = (int)(d - (unsigned int)(dy * gw));
+        if (dx >= -2 && dx <= 2 && ax + dx >= 0 && ax + dx < gw)
+            return (dy + 2) * 5 + dx + 2;
+    }
+    return -1;
+}
+
+// Row 10: the pair key o * 25 + channel of a pixel with window code o >= 0
+// and its neighbour at staged index qb (-1: no pair).  Both codes in the
+// window: the channel is e(ob) - e(o) + 12 with e(o) = 5 (o / 3) + o % 3
+// (dy and dx from the two window cells); a neighbour outside the window
+// (a label >= 0 of a seed beyond it) takes pair_ch on the labels.
+__device__ __forceinline__ int pair_key(int o, int qa, int qb,
+                                        const int* __restrict__ lab,
+                                        const signed char* __restrict__ code,
+                                        int tx, int gw) {
+    const int ob = code[qb];
+    if (ob == o) return -1;             // the same label
+    const int oy = (o * 11) >> 5;       // o / 3 for o <= 8
+    if (ob >= 0)
+        return o * NCH + ob + 2 * ((ob * 11) >> 5) - o - 2 * oy + 12;
+    const int b = lab[qb];
+    if (b < 0) return -1;
+    const int ch = pair_ch(lab[qa], b, tx - 1 + o - 3 * oy, gw);
+    return ch >= 0 ? o * NCH + ch : -1;
+}
+
+// Row 10: one block per tile.  The tile's labels with one row below and one
+// column to the right (-2 off the image, as the reference pads) are staged
+// in shared memory in bands of `band` rows (+ 1), each beside its window
+// code (no division: window_code); each pixel then reads its code and its
+// two neighbours' from there, and a pair's channel from the two codes.
+// Pixel counts by code: nine ballots a warp and round, kept in registers;
+// pair counts: shared atomics (integers: exact and order-free).  Outputs as
+// the twin's: cnt9 (gh, gw, 9, 25), counts9 (gh, gw, 9), f32 of exact
+// integers.
+__global__ void __launch_bounds__(PAIR_THREADS)
+grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
+                       float* __restrict__ cnt9,        // (gh, gw, 9, 25)
+                       float* __restrict__ counts9,     // (gh, gw, 9)
+                       int height, int width, int gw, int step, int band) {
+    extern __shared__ int lab[];      // a band (+ 1 row, + 1 column), codes
+    __shared__ int acc[NOFF * NCH];
+    __shared__ int cnt[NOFF];
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int tile = blockIdx.x, ty = tile / gw, tx = tile - ty * gw;
+    const int x0 = tx * step, y0 = ty * step;
+    const int tw = min(step, width - x0), th = min(step, height - y0);
+    const int sw = tw + 1;
+    signed char* code =
+        reinterpret_cast<signed char*>(lab + (band + 1) * (step + 1));
+    const int base = (ty - 1) * gw + tx - 1;
+    const int oxlo = tx == 0 ? 1 : 0, oxhi = tx == gw - 1 ? 1 : 2;
+    for (int k = tid; k < NOFF * NCH; k += PAIR_THREADS) acc[k] = 0;
+    if (tid < NOFF) cnt[tid] = 0;
+    int count[NOFF];                    // the warp's pixels by code
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) count[o] = 0;
+    // row and column of a staged label and of a pixel without a division:
+    // i / n = umulhi(i, ceil(2^32 / n)), exact while i * n <= 2^32 (n > 1;
+    // a tile one pixel wide, as 4096 at step 35 leaves, takes i / 1 = i)
+    const unsigned int ms = 0xffffffffu / sw + 1, mp = 0xffffffffu / tw + 1;
+    for (int yb = 0; yb < th; yb += band) {
+        const int nb = min(band, th - yb);
+        const int ns = (nb + 1) * sw, np = nb * tw;
+        __syncthreads();                // the last band is counted
+        for (int i = tid; i < ns; i += PAIR_THREADS) {
+            const int r = __umulhi(i, ms), c = i - r * sw;
+            const int y = y0 + yb + r, x = x0 + c;
+            const int l = y < height && x < width
+                ? __ldg(labels + (size_t)y * width + x) : -2;
+            lab[i] = l;
+            code[i] = (signed char)window_code(l, base, gw, oxlo, oxhi);
+        }
+        __syncthreads();                // the band is in
+        for (int p0 = 0; p0 < np; p0 += PAIR_THREADS) {   // warp-uniform
+            int o = -1, kr = -1, kd = -1;
+            if (p0 + tid < np) {
+                const int r = tw == 1 ? p0 + tid : __umulhi(p0 + tid, mp);
+                const int q = p0 + tid + r;                 // r sw + c
+                o = code[q];
+                if (o >= 0) {
+                    kr = pair_key(o, q, q + 1, lab, code, tx, gw);
+                    kd = pair_key(o, q, q + sw, lab, code, tx, gw);
+                }
+            }
+#pragma unroll
+            for (int k = 0; k < NOFF; ++k)
+                count[k] += __popc(__ballot_sync(FULL, o == k));
+            if (kr >= 0) atomicAdd(&acc[kr], 1);
+            if (kd >= 0) atomicAdd(&acc[kd], 1);
+        }
+    }
+    if (lane == 0)
+#pragma unroll
+        for (int k = 0; k < NOFF; ++k) atomicAdd(&cnt[k], count[k]);
+    __syncthreads();
+    const size_t t = tile;
+    for (int k = tid; k < NOFF * NCH; k += PAIR_THREADS)
+        cnt9[t * NOFF * NCH + k] = (float)acc[k];
+    if (tid < NOFF) counts9[t * NOFF + tid] = (float)cnt[tid];
+}
+
+// Row 10's route: the 9 offset partials of channel c routed to seed (y, x)
+// (the tiles around it; exact integers, so any order gives the same sum).
+__device__ __forceinline__ float pair_routed(const float* __restrict__ p,
+                                             int y, int x, int gh, int gw,
+                                             int nch, int c) {
+    float s = 0.0f;
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) {
+        const int sy = y - (o / 3 - 1), sx = x - (o % 3 - 1);
+        if (sy >= 0 && sy < gh && sx >= 0 && sx < gw)
+            s = __fadd_rn(s, p[(((size_t)sy * gw + sx) * NOFF + o) * nch + c]);
+    }
+    return s;
+}
+
+// One thread per (seed, channel 0..25): channel 25 the seed's pixel count,
+// channel c < 25 its symmetric contact count, directed (seed -> seed at
+// GRAPH_OFFSETS[c]) plus directed back (that seed -> this, channel 24 - c)
+// where that seed lies on the grid (ops/grid.py:sym_contact_counts).
+__global__ void grid_pair_route_kernel(const float* __restrict__ cnt9,
+                                       const float* __restrict__ counts9,
+                                       float* __restrict__ counts,  // (K,)
+                                       float* __restrict__ sym25,   // (K, 25)
+                                       int gh, int gw) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= gh * gw * (NCH + 1)) return;
+    const int s = i / (NCH + 1), c = i - s * (NCH + 1);
+    const int y = s / gw, x = s - y * gw;
+    if (c == NCH) {
+        counts[s] = pair_routed(counts9, y, x, gh, gw, 1, 0);
+        return;
+    }
+    float v = pair_routed(cnt9, y, x, gh, gw, NCH, c);
+    const int ny = y + c / 5 - 2, nx = x + c % 5 - 2;
+    if (ny >= 0 && ny < gh && nx >= 0 && nx < gw)
+        v = __fadd_rn(v, pair_routed(cnt9, ny, nx, gh, gw, NCH, NCH - 1 - c));
+    sym25[(size_t)s * NCH + c] = v;
 }
 
 // Row 7's [count, sum dy, sum dx] of a warp's pixels, per offset code
@@ -730,13 +839,31 @@ extern "C" int grid_adjacency_presence(const void* labels, void* words,
     return (int)cudaGetLastError();
 }
 
+// Row 10: cnt9 (gh, gw, 9, 25) and counts9 (gh, gw, 9); with counts and
+// sym25 given, also the routed triple's (K,) pixel counts and (gh, gw, 25)
+// symmetric contacts, in a second launch.
 extern "C" int grid_pair_count(const void* labels, void* cnt9, void* counts9,
-                               int height, int width, int gh, int gw,
-                               int step, void* stream) {
-    dim3 grid(gw, gh);
-    grid_pair_count_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
+                               void* counts, void* sym25, int height,
+                               int width, int gh, int gw, int step,
+                               void* stream) {
+    if (step < 1 || step + 1 > PAIR_STAGE / 2)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    // rows a band, for every tile: (band + 1) x (step + 1) labels staged
+    // (computed here: computed in the kernel by the same min(), nvcc 12.8's
+    // build ran the staging loop past its bound)
+    const int band = PAIR_STAGE / (step + 1) - 1 < step
+        ? PAIR_STAGE / (step + 1) - 1 : step;
+    grid_pair_count_kernel<<<gh * gw, PAIR_THREADS,
+                             (band + 1) * (step + 1) * 5, st>>>(
         (const int*)labels, (float*)cnt9, (float*)counts9, height, width, gw,
-        step);
+        step, band);
+    const int err = (int)cudaGetLastError();
+    if (err || counts == nullptr) return err;
+    const int n = gh * gw * (NCH + 1);
+    grid_pair_route_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        (const float*)cnt9, (const float*)counts9, (float*)counts,
+        (float*)sym25, gh, gw);
     return (int)cudaGetLastError();
 }
 

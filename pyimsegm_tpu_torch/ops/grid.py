@@ -377,17 +377,13 @@ def grid_pair_count_channels(labels, cfg: SlicConfig):
 def counts_and_contacts(labels, cfg: SlicConfig):
     """Per-superpixel pixel counts, symmetric boundary-contact counts and
     the per-(tile, offset) pixel counts: the measurement behind the
-    min-size merge, one pass over the pixels (``grid_pair_count``).
+    min-size merge, one pass over the pixels and its route
+    (:func:`grid_cuda.counts_and_contacts`: two CUDA kernels on the card).
 
     :returns: (counts (K,) f32, sym25 (gh, gw, 25) f32, counts9 (gh, gw, 9)
         f32)
     """
-    from pyimsegm_tpu_torch.ops.slic_cuda import combine_sums
-    gh, gw = cfg.grid_h, cfg.grid_w
-    cnt9, counts9 = grid_cuda.grid_pair_count(labels, cfg)
-    counts = combine_sums(counts9[..., None])[..., 0]
-    return (counts.reshape(gh * gw),
-            sym_contact_counts(combine_sums(cnt9), gh, gw), counts9)
+    return grid_cuda.counts_and_contacts(labels, cfg)
 
 
 def _neighbor_index(gh, gw, device):

@@ -4,13 +4,15 @@ CUDA kernels and twins.
 
 Replaces five kernels of ``pyimsegm_tpu.ops.grid_pallas`` with the kernels
 of ``csrc/grid.cu``: ``grid_reduce_pallas``, ``grid_lookup_pallas``,
-``grid_adjacency_presence_pallas``, ``grid_pair_count_pallas`` and
+``grid_adjacency_presence_pallas``, ``grid_pair_count_pallas`` (also with
+the routing of ``counts_and_contacts`` in the same C call) and
 ``grid_moments_apply_pallas``, whose donor-less mode also replaces
 ``grid_moments_pallas``.  Each wrapper launches its kernel for CUDA tensors
 and runs its plain twin for CPU tensors.
 """
 
 import functools
+import math
 
 import torch
 
@@ -33,7 +35,7 @@ def _lib():
         'grid_reduce': [v] * 4 + [i] * 7 + [v],
         'grid_lookup': [v, v, v] + [i] * 6 + [v],
         'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
-        'grid_pair_count': [v, v, v] + [i] * 5 + [v],
+        'grid_pair_count': [v] * 5 + [i] * 5 + [v],
         'grid_moments_apply': [v] * 6 + [i] * 6 + [v],
         'grid_moments': [v] * 4 + [i] * 6 + [v],
     })
@@ -242,6 +244,26 @@ def _grid_pair_count_plain(labels, cfg: SlicConfig):
             counts9.reshape(gh, gw, 9).to(torch.float32))
 
 
+def _pair_count_launch(labels, cfg: SlicConfig, routed):
+    """Row 10 on the card: (cnt9, counts9), and with ``routed`` also the
+    routed (counts, sym25), from one C call into one allocation."""
+    h, w = labels.shape
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    gh, gw, k = cfg.grid_h, cfg.grid_w, cfg.n_segments
+    shapes = [(gh, gw, 9, 25), (gh, gw, 9)] + ([(k,), (gh, gw, 25)]
+                                               if routed else [])
+    sizes = [math.prod(shape) for shape in shapes]
+    buf = torch.empty((sum(sizes),), dtype=torch.float32, device=labels.device)
+    out = [part.view(shape)
+           for part, shape in zip(torch.split(buf, sizes), shapes)]
+    ptrs = [t.data_ptr() for t in out] + [None] * (4 - len(out))
+    _build.launch(_lib().grid_pair_count, 'grid_pair_count', labels,
+                  labels.data_ptr(), *ptrs, h, w, gh, gw, cfg.step)
+    LAUNCHES['grid_pair_count'] += 1
+    return out
+
+
 def grid_pair_count(labels, cfg: SlicConfig):
     """Conn4 boundary-pair counts and pixel counts in one pass.
 
@@ -253,19 +275,34 @@ def grid_pair_count(labels, cfg: SlicConfig):
     """
     if not labels.is_cuda:
         return _grid_pair_count_plain(labels, cfg)
-    h, w = labels.shape
-    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
-                            (cfg.height, cfg.width))
-    dev = labels.device
-    cnt9 = torch.empty((cfg.grid_h, cfg.grid_w, 9, 25), dtype=torch.float32,
-                       device=dev)
-    counts9 = torch.empty((cfg.grid_h, cfg.grid_w, 9), dtype=torch.float32,
-                          device=dev)
-    _build.launch(_lib().grid_pair_count, 'grid_pair_count', labels,
-                  labels.data_ptr(), cnt9.data_ptr(), counts9.data_ptr(), h,
-                  w, cfg.grid_h, cfg.grid_w, cfg.step)
-    LAUNCHES['grid_pair_count'] += 1
-    return cnt9, counts9
+    return tuple(_pair_count_launch(labels, cfg, routed=False))
+
+
+def _counts_and_contacts_plain(labels, cfg: SlicConfig):
+    """Twin of the routed pair count: the pass, then ``combine_sums`` and
+    ``sym_contact_counts`` in PyTorch."""
+    from pyimsegm_tpu_torch.ops.grid import sym_contact_counts
+    from pyimsegm_tpu_torch.ops.slic_cuda import combine_sums
+    gh, gw = cfg.grid_h, cfg.grid_w
+    cnt9, counts9 = _grid_pair_count_plain(labels, cfg)
+    counts = combine_sums(counts9[..., None])[..., 0]
+    return (counts.reshape(gh * gw),
+            sym_contact_counts(combine_sums(cnt9), gh, gw), counts9)
+
+
+def counts_and_contacts(labels, cfg: SlicConfig):
+    """Row 10 with its route: per-superpixel pixel counts, symmetric
+    boundary-contact counts and the per-(tile, offset) pixel counts, the
+    measurement behind the min-size merge; two CUDA kernels on the card.
+
+    :param labels: (H, W) int32 grid-structured labels
+    :returns: (counts (K,) f32, sym25 (gh, gw, 25) f32, counts9 (gh, gw, 9)
+        f32) -- exact integers
+    """
+    if not labels.is_cuda:
+        return _counts_and_contacts_plain(labels, cfg)
+    _, counts9, counts, sym25 = _pair_count_launch(labels, cfg, routed=True)
+    return counts, sym25, counts9
 
 
 def _route_moments(partials):

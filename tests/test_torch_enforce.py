@@ -243,6 +243,31 @@ def test_counts_and_contacts_match_jax(raw):
             np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def _beyond_k_bottom(labels, cfg, rows=2):
+    """``labels`` with the last ``rows`` rows set to ids >= K of the seed row
+    below the grid, in their tiles' windows: those pixels keep a routing
+    offset, and the pixels above them pair with second endpoints >= K."""
+    out = labels.copy()
+    out[-rows:] = cfg.n_segments + np.arange(out.shape[1])[None] // cfg.step
+    return out
+
+
+@pytest.mark.parametrize('damage', ['holes', 'beyond-k', 'both'])
+def test_counts_and_contacts_damaged_match_jax(raw, damage):
+    """The routed pair-count twin (the triple of ``counts_and_contacts``)
+    against JAX on damaged labels: -2, -1, out-of-window and beyond-K ids,
+    and ids >= K inside the windows of the bottom tile row."""
+    labels, _, cfg, tcfg = raw
+    if damage != 'beyond-k':
+        labels = _damaged(labels, cfg, seed=3)
+    if damage != 'holes':
+        labels = _beyond_k_bottom(labels, cfg)
+    ref = jgrid.counts_and_contacts(jnp.asarray(labels), cfg)
+    out = tgrid.counts_and_contacts(torch.as_tensor(labels), tcfg)
+    for got, want in zip(out, ref):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def _ch(dy, dx):
     return (dy + 2) * 5 + (dx + 2)
 

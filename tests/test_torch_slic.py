@@ -94,6 +94,47 @@ def test_blur_lab_plain_matches_pallas_interpret(shape):
     assert (out == ref).mean() >= 0.999
 
 
+def _prep_case(case):
+    """Images of the preprocessing cases: smaller than the blur radius (h
+    or w < 5, the symmetric reflection wraps more than once), constant (hi
+    = lo), gray stacked to RGB, and in 0-255."""
+    if case.startswith('tiny-'):
+        shape = tuple(int(n) for n in case[5:].split('x'))
+        return _image(shape, seed=2)
+    img = _image((40, 52), seed=4)
+    if case == 'constant':
+        return np.full_like(img, 0.5)
+    if case == 'gray':
+        return np.repeat(img.mean(-1, keepdims=True), 3, -1)
+    return img * np.float32(255.0)
+
+
+@pytest.mark.parametrize('case', ['tiny-3x7', 'tiny-4x2', 'tiny-1x1',
+                                  'constant', 'gray', 'range-255'])
+def test_blur_lab_twin_small_constant_gray_match_jax(case):
+    """The blur + Lab twin (``blur_lab`` on a CPU tensor) against JAX's
+    ``_prepare_image`` (f32, the blur_lab test bar above) and against
+    ``blur_lab_pallas`` in interpret mode: the same bf16 values, except
+    where a channel is a cancellation near 0 (a and b of a gray image, L of
+    a black or constant one), which may differ by at most 1e-4."""
+    from pyimsegm_tpu.ops import prep_pallas
+    img = _prep_case(case)
+    lab_j = np.asarray(jslic._prepare_image(jnp.asarray(img)))
+    lab_t = tslic._prepare_image(torch.as_tensor(img)).numpy()
+    np.testing.assert_allclose(lab_t, lab_j, rtol=1e-5, atol=1e-4)
+    patch, calls = _interpret(prep_pallas)
+    with patch:
+        ref = np.asarray(prep_pallas.blur_lab_pallas(jnp.asarray(img))
+                         .astype(jnp.float32))
+    assert calls
+    out = prep_cuda.blur_lab(torch.as_tensor(img))
+    assert out.dtype == torch.bfloat16 and out.shape == (3,) + img.shape[:2]
+    out = out.float().numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-4)
+    if case not in ('constant', 'gray'):
+        assert (out == ref).mean() >= 0.999
+
+
 @pytest.mark.parametrize('shape', SHAPES)
 def test_slic_segment_xla_matches_jax(shape):
     img = _image(shape)

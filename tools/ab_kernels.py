@@ -1,4 +1,4 @@
-"""Same-call A/B of build variants of kernel rows 2, 3-5, 6-7, 8 and 15.
+"""Same-call A/B of build variants of kernel rows 1-8, 10 and 15.
 
 A variant is ``base`` (the source as it is), ``KEY=V+KEY=V`` (each KEY
 names a constant of the kernel's source, and the variant is built from a
@@ -52,6 +52,30 @@ the paths' F = 4 (f32) and 30 (bf16), and row 7 at F = 3, 18 and 60,
 holding the sums within rtol 1e-5 + 1e-5 x channel max against the plain
 twins, and prints each variant's device us per CUDA kernel.
 
+``--kernel prep`` (row 1, the min / max + blur + Lab of
+``csrc/prep.cu``): ``PREP_TW``, ``PREP_TH`` (output tile), ``PREP_S`` (rows
+of a thread's vertical strip), ``PREP_THREADS``, ``PREP_MIN_BLOCKS``,
+``PREP_TW_WIDE``, ``PREP_WIDE_PIXELS`` and ``MM_THREADS``.  It first runs
+the exhaustive division check: one launch per constant divisor of the Lab
+forms (1.055, 12.92, 0.95047, 1.08883, 3 and 3 (6/29)^2) over all 2^32 f32
+inputs, comparing the bits of a three-FMA form by the rounded reciprocal
+(``div_fma`` of ``DIV_CHECK``) with ``__fdiv_rn``'s, and prints the
+mismatches of each (a divisor may take the form only where there are
+none).  Then it times
+``blur_lab`` on image 0 at 884x1200, at 883x1197 and on a 4096x4096 tile,
+holding the bf16 planes to the twin (>= 0.9999 equal, at most 1 ulp).
+
+``--kernel pair`` (row 10, the pair count and its route in
+``csrc/grid.cu``): ``PAIR_THREADS``, ``PAIR_MIN_BLOCKS`` and
+``PAIR_STAGE``.  On the enforced
+SLIC kernels' labels of image 0 and of ``bench.py``'s first noise image at
+884x1200 it times the routed call (``counts_and_contacts``'s triple),
+holding it and (cnt9, counts9) exactly equal to the twins.
+
+``--sass`` prints, for each variant, the SASS instruction count of each
+kernel of the source (``cuobjdump --dump-sass``), whole and split at its
+block barriers (``BAR.SYNC``), and stops before any launch.
+
 ``--kernel slic3d --probe`` measures where row 15's pass spends a tile
 instead: a copy whose blocks add, per work item, the ``clock64`` cycles of
 each phase (waiting for the item's copies, building the tile's tables,
@@ -67,8 +91,9 @@ variants in turns (in order, then reversed).
 
 Run from the root of a checkout on a machine with a CUDA card::
 
-    python3 tools/ab_kernels.py --kernel schedule|moments|assign|slic3d|reduce \\
-        [--variants base,PRUNE=1,...] [--probe]
+    python3 tools/ab_kernels.py \\
+        --kernel schedule|moments|assign|slic3d|reduce|prep|pair \\
+        [--variants base,PRUNE=1,...] [--probe] [--sass]
 """
 
 import argparse
@@ -98,7 +123,69 @@ KERNELS = {
                'base,THREADS=64,MIN_BLOCKS=8'),
     'reduce': ('grid', 'grid_reduce_kernel',
                'base,RED_THREADS=64,RED_MIN_BLOCKS=1'),
+    'prep': ('prep', 'blur_lab_kernel', 'base,PREP_S=16,PREP_TH=64'),
+    'pair': ('grid', 'grid_pair_count_kernel',
+             'base,PAIR_THREADS=128,PAIR_MATCH=0,PAIR_LOADS=1'),
 }
+#: row 1's exhaustive check of an FMA form of its constant divisions: one
+#: launch per constant divisor of csrc/prep.cu over every f32 bit pattern
+DIV_CHECK = r'''
+#include <cuda_runtime.h>
+
+// the Lab forms' constant divisors, in the f32 rounding of csrc/prep.cu
+__host__ __device__ constexpr float divisor(int i) {
+    return i == 0 ? 1.055f
+         : i == 1 ? 12.92f
+         : i == 2 ? 0.95047f
+         : i == 3 ? 1.08883f
+         : i == 4 ? 3.0f
+         : (float)(3.0 * (6.0 / 29.0) * (6.0 / 29.0));
+}
+
+// x / c as q = x * r, e = x - q * c (exact by the FMA), q + e * r rounded
+// once, r = 1 / c rounded; |x| outside [2^-100, 2^100], zeros, infinities
+// and NaNs by __fdiv_rn
+__device__ __forceinline__ float div_fma(float x, float c, float r) {
+    const unsigned int ax = __float_as_uint(x) & 0x7fffffffu;
+    if (ax - 0x0d800000u >= 0x64000000u) return __fdiv_rn(x, c);
+    const float q = __fmul_rn(x, r);
+    return __fmaf_rn(__fmaf_rn(-q, c, x), r, q);
+}
+
+template <int I>
+__global__ void div_check_kernel(unsigned long long* bad, unsigned int* first) {
+    unsigned long long n = 0;
+    unsigned int f = 0xffffffffu;
+    const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+    for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x
+             + threadIdx.x; i < (1ull << 32); i += stride) {
+        const float x = __uint_as_float((unsigned int)i);
+        if (__float_as_uint(div_fma(x, divisor(I), 1.0f / divisor(I)))
+                != __float_as_uint(__fdiv_rn(x, divisor(I)))) {
+            ++n;
+            f = min(f, (unsigned int)i);
+        }
+    }
+    if (n) {
+        atomicAdd(bad + I, n);
+        atomicMin(first + I, f);
+    }
+}
+
+extern "C" int prep_div_check(void* bad, void* first, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    unsigned long long* b = (unsigned long long*)bad;
+    unsigned int* f = (unsigned int*)first;
+    div_check_kernel<0><<<1056, 256, 0, st>>>(b, f);
+    div_check_kernel<1><<<1056, 256, 0, st>>>(b, f);
+    div_check_kernel<2><<<1056, 256, 0, st>>>(b, f);
+    div_check_kernel<3><<<1056, 256, 0, st>>>(b, f);
+    div_check_kernel<4><<<1056, 256, 0, st>>>(b, f);
+    div_check_kernel<5><<<1056, 256, 0, st>>>(b, f);
+    return (int)cudaGetLastError();
+}
+'''
+DIVISORS = ('1.055', '12.92', '0.95047', '1.08883', '3', '3 (6/29)^2')
 #: plain members of a struct, by key: (source file, member)
 MEMBERS = {'assign': {'T_FEAT': 'T_FEAT', 'T_PLAIN': 'T_PLAIN'},
            'slic3d': {'THREADS': 'T', 'MIN_BLOCKS': 'MIN_BLOCKS'}}
@@ -162,7 +249,7 @@ def _variant_source(kernel, variant, text):
             text = text.replace(old, new)
         return text
     sets = dict(kv.split('=') for kv in variant.split('+'))
-    if kernel in ('moments', 'reduce'):
+    if kernel in ('moments', 'reduce', 'prep', 'pair'):
         for key, v in sets.items():
             text = _sub_once(r'#define %s \S+' % re.escape(key),
                              '#define %s %s' % (key, v), text, key)
@@ -427,6 +514,166 @@ def _reduce(torch, libs, build):
                       torch, call(dll)))), flush=True)
 
 
+def _div_check(torch, build):
+    """The exhaustive check of row 1's FMA division form: mismatches of
+    each constant divisor over all 2^32 inputs, and the first input."""
+    out_dir = os.path.join(build.BUILD_DIR, 'ab')
+    src = os.path.join(out_dir, 'prep_div_check.cu')
+    lib = os.path.join(out_dir, 'libprep_div_check.so')
+    with open(src, 'w') as f:
+        f.write(DIV_CHECK)
+    subprocess.run([build._nvcc()] + build.NVCC_FLAGS + ['-o', lib, src],
+                   check=True)
+    dll = ctypes.CDLL(lib)
+    dll.prep_div_check.argtypes = [build.VOIDP] * 3
+    dll.prep_div_check.restype = ctypes.c_int
+    bad = torch.zeros(len(DIVISORS), dtype=torch.int64, device='cuda')
+    first = torch.full((len(DIVISORS),), -1, dtype=torch.int32,
+                       device='cuda')
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    build.check(dll.prep_div_check(bad.data_ptr(), first.data_ptr(),
+                                   build.stream_ptr(bad)), 'prep_div_check')
+    end.record()
+    torch.cuda.synchronize()
+    for i, c in enumerate(DIVISORS):
+        n = int(bad[i])
+        print('division by %s: %d of 2^32 inputs differ from __fdiv_rn%s'
+              % (c, n, ' (first 0x%08x)' % (int(first[i]) & 0xffffffff)
+                 if n else ''), flush=True)
+    print('division check: %.1f ms for %d launches'
+          % (start.elapsed_time(end), len(DIVISORS)), flush=True)
+
+
+def _prep(torch, libs, build):
+    import chip_smoke
+    from pyimsegm_tpu_torch.ops import prep_cuda
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    _div_check(torch, build)
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.blur_lab.argtypes = ([build.VOIDP] * 3 + [build.INT] * 3
+                                 + [build.FLOAT] * 9 + [build.VOIDP])
+        dll.blur_lab.restype = ctypes.c_int
+        dlls[v] = dll
+    images = {'884x1200': sample_color_image_rand_segment(
+                  CROP, 3, rand_seed=0)[0],
+              '883x1197': sample_color_image_rand_segment(
+                  (883, 1197), 3, rand_seed=0)[0],
+              '4096x4096': sample_color_image_rand_segment(
+                  (4096, 4096), 3, rand_seed=0)[0]}
+    parts = torch.empty((prep_cuda._PARTS, 2), device='cuda')
+    for name, image in images.items():
+        img = torch.as_tensor(image, device='cuda')
+        h, w = img.shape[:2]
+        want = prep_cuda._blur_lab_plain(img)
+        out = torch.empty_like(want)
+
+        def call(dll, img=img, out=out, h=h, w=w):
+            return lambda: build.check(dll.blur_lab(
+                img.data_ptr(), parts.data_ptr(), out.data_ptr(), h, w,
+                prep_cuda._PARTS, *prep_cuda._taps(), build.stream_ptr(img)),
+                'blur_lab')
+
+        def check(v, out=out, want=want, name=name):
+            equal, ulps = chip_smoke._bf16_agree(torch, out, want)
+            if equal < 0.9999 or ulps > 1:
+                raise AssertionError('%s %s: %.6f equal, max %d ulp'
+                                     % (v, name, equal, ulps))
+        times = _in_turns(torch, {v: call(d) for v, d in dlls.items()},
+                          check)
+        print('%s ms per call (in turns): %s' % (name, json.dumps(times)),
+              flush=True)
+        for v, dll in dlls.items():
+            print('%s %s device us per CUDA kernel (torch.profiler, 5 calls): '
+                  '%s' % (name, v, json.dumps(_kernel_us(torch, call(dll)))),
+                  flush=True)
+
+
+def _pair(torch, libs, build):
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    gh, gw, k = cfg.grid_h, cfg.grid_w, cfg.n_segments
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.grid_pair_count.argtypes = ([build.VOIDP] * 5 + [build.INT] * 5
+                                        + [build.VOIDP])
+        dll.grid_pair_count.restype = ctypes.c_int
+        dlls[v] = dll
+    images = {
+        'image0': sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
+        'noise': np.random.default_rng(0).random(CROP + (3,),
+                                                 dtype=np.float32)}
+    cnt9 = torch.empty((gh, gw, 9, 25), device='cuda')
+    counts9 = torch.empty((gh, gw, 9), device='cuda')
+    counts = torch.empty((k,), device='cuda')
+    sym25 = torch.empty((gh, gw, 25), device='cuda')
+    for name, image in images.items():
+        img = torch.as_tensor(image, device='cuda')
+        labels, _, centers, _ = slic_ops.slic_segment_with_features(
+            img, img, cfg, m)
+        enf = grid_ops.enforce_grid_connectivity(labels, cfg,
+                                                 centers=centers)
+        want = (*grid_cuda._grid_pair_count_plain(enf, cfg),
+                *grid_cuda._counts_and_contacts_plain(enf, cfg)[:2])
+
+        def call(dll, enf=enf):
+            return lambda: build.check(dll.grid_pair_count(
+                enf.data_ptr(), cnt9.data_ptr(), counts9.data_ptr(),
+                counts.data_ptr(), sym25.data_ptr(), CROP[0], CROP[1], gh, gw,
+                cfg.step, build.stream_ptr(enf)), 'grid_pair_count')
+
+        def check(v, want=want, name=name):
+            if 'probe' in v:                  # timing-only copies
+                return
+            if not all(torch.equal(a, b) for a, b in
+                       zip((cnt9, counts9, counts, sym25), want)):
+                raise AssertionError('%s %s: differs from the twin'
+                                     % (v, name))
+        times = _in_turns(torch, {v: call(d) for v, d in dlls.items()},
+                          check)
+        print('%s routed ms per call (in turns): %s'
+              % (name, json.dumps(times)), flush=True)
+        for v, dll in dlls.items():
+            print('%s %s device us per CUDA kernel (torch.profiler, 5 calls): '
+                  '%s' % (name, v, json.dumps(_kernel_us(torch, call(dll)))),
+                  flush=True)
+
+
+def _sass(libs, build):
+    """Print each variant's SASS instruction count per kernel, whole and
+    between block barriers."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    for v, (lib, _) in libs.items():
+        text = subprocess.run([cuobjdump, '--dump-sass', lib],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for block in text.split('Function : ')[1:]:
+            name = block.split('\n', 1)[0].strip()
+            ops = [line.split('*/', 1)[1].strip()
+                   for line in block.splitlines()
+                   if re.match(r'\s*/\*[0-9a-f]{4,}\*/', line)]
+            ops = [op for op in ops if op and not op.startswith('NOP')]
+            phases, n = [], 0
+            for op in ops:
+                n += 1
+                if 'BAR.SYNC' in op:
+                    phases.append(n)
+                    n = 0
+            phases.append(n)
+            print('sass %s %s: %d instructions, by barrier %s'
+                  % (v, name[:60], len(ops), phases), flush=True)
+
+
 def _sums_ok(got, want):
     """rtol 1e-5 plus 1e-5 of the channel's largest value."""
     diff = (got - want).abs()
@@ -590,6 +837,8 @@ def main():
     parser.add_argument('--probe', action='store_true',
                         help='slic3d only: the phase and one-candidate '
                              'probes')
+    parser.add_argument('--sass', action='store_true',
+                        help='print the SASS instruction counts and stop')
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -607,8 +856,12 @@ def main():
     libs = _build(args.kernel, variants)
     for v, (_, info) in libs.items():
         print('variant %s: %s' % (v, ' | '.join(info)), flush=True)
+    if args.sass:
+        _sass(libs, build)
+        return
     {'schedule': _schedule, 'moments': _moments, 'assign': _assign,
-     'slic3d': _slic3d, 'reduce': _reduce}[args.kernel](torch, libs, build)
+     'slic3d': _slic3d, 'reduce': _reduce, 'prep': _prep,
+     'pair': _pair}[args.kernel](torch, libs, build)
 
 
 if __name__ == '__main__':

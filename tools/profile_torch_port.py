@@ -41,8 +41,10 @@ the enforcement); its stages (upload, slic, enforce, geometry, features,
 predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
 ranges, read as for ``--path 3d``.
 
-``--path kernels`` measures kernel rows 2 (plain and SLICO), 3 (with its
-routing to per-seed sums), 4 (plain and SLICO), 5, 8, 9 and 12 and the
+``--path kernels`` measures kernel rows 1 (as ``_prepare_chw`` calls it,
+with its host-to-device copies), 2 (plain and SLICO), 3 (with its routing
+to per-seed sums), 4 (plain and SLICO), 5, 8, 9, 10 (as the bench path's
+``counts_and_contacts``, with its routing) and 12 and the
 bench path's whole SLIC stage as the paths call them, on image 0 and on the
 first noise image, rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30 bf16) and
 7 (F = 3, 18, 60) on image 0, and row 15 (the 10-iteration schedule and its
