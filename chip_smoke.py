@@ -25,7 +25,11 @@ Phases (any failure raises and exits non-zero):
    routed triple, on SLIC and enforced labels of image 0 and of the noise
    image, damaged labels (-1, -2, out of the window, >= K) at 884x1200 and
    883x1197, and both tiles, each call twice with equal bits
-   (``minsize_count_phases``); row 9 exact at C = 1 (int32 and f32), 2, 3, 4 and 5 on the
+   (``minsize_count_phases``); row 11 (at most 2 CUDA kernels a call: the
+   presence pass and its route to the symmetric (gh, gw, 25) adjacency)
+   exact against its twins, the words and the routed adjacency, on the
+   same label sets (and the damaged labels of the noise image and at
+   71x106); row 9 exact at C = 1 (int32 and f32), 2, 3, 4 and 5 on the
    labels and on damaged labels; row 12 exact on the noise image's labels
    and on ``ENFORCE_CASES`` (fragmented noise labels, a tall image, the
    serpentine labels that need more reach sweeps than the cap, which must
@@ -36,9 +40,10 @@ Phases (any failure raises and exits non-zero):
    keep its centre; every row 2 call must be one C call of the wrapper;
    row 3 writes labels, partials and their routed per-seed sums (routed
    sums within the partials' tolerance, at most 2 CUDA kernels per call);
-   then, for rows 1-10, 12 and 15 as the paths call them (row 1 as
+   then, for rows 1-12 and 15 as the paths call them (row 1 as
    ``_prepare_chw`` calls it, row 3 with its routing, row 10 as the bench
-   path's ``counts_and_contacts``, and the bench path's whole SLIC stage), the call ms, the
+   path's ``counts_and_contacts``, row 11 as the edge weights'
+   ``grid_adjacency``, and the bench path's whole SLIC stage), the call ms, the
    device ms and the CUDA kernels per call from ``torch.profiler`` on the
    labels of image 0 and of the noise image and on the 3D workload, row 9
    at C = 1 and 4 beside ``table[index]``, rows 6 (F = 7 f32 and bf16,
@@ -73,7 +78,11 @@ Phases (any failure raises and exits non-zero):
    5, 7, 15, 30, 40, 61 in f32 and bf16, row 7 at F = 1, 3, 5, 18, 60,
    61, both also beyond one block's channels (F = 129 at 4-byte loads, row
    6 at 258 and both at 260 at 8- and 16-byte loads: two channel ranges),
-   each call twice with equal bits, within the same bar;
+   each call twice with equal bits, within the same bar; then rows 6, 7,
+   10 and 11 at seed steps above their former caps (``step_phases``: row
+   7 at 1025, 2100 and 3500, rows 10 and 11 at 4097, row 6 at 16385) on
+   grid-structured labels made with numpy, each call twice with equal
+   bits, counts exact and sums within the same bar;
 8. the fit path: image 0 through
    ``pipe_color2d_slic_features_model_graphcut`` with the full colour
    feature set (mean, std, energy, median, meanGrad), a GMM fitted on the
@@ -285,11 +294,13 @@ def _final_pass(slic_cuda, lab_chw, centers, m, cfg, image):
 
 
 def measure_path_kernels(torch, img):
-    """Rows 1, 2, 3, 4, 5, 8, 9, 10, 12 and 15 as the paths call them
+    """Rows 1, 2, 3, 4, 5, 8, 9, 10, 11, 12 and 15 as the paths call them
     (``ops.prep_cuda.blur_lab`` as ``_prepare_chw`` calls it, with its
     host-to-device copies per call; row 10 as
     ``ops.grid.counts_and_contacts`` on the enforced labels, the bench
-    path's min-size measurement with its routing;
+    path's min-size measurement with its routing; row 11 as
+    ``ops.grid.grid_adjacency`` on the enforced labels, as the edge weights
+    call it, with its routing;
     ``ops.slic_cuda.slic_multi_update``, row 3 with its routing as
     ``_final_pass`` runs it, ``slic_assign`` plain and SLICO,
     ``slic_update``, ``ops.grid_cuda.grid_moments_apply`` with the min-size
@@ -338,6 +349,8 @@ def measure_path_kernels(torch, img):
             torch, lambda: prep_cuda.blur_lab(image))
         row['counts_and_contacts'] = timed(
             lambda: grid_ops.counts_and_contacts(enf, cfg))
+        row['grid_adjacency'] = timed(
+            lambda: grid_ops.grid_adjacency(enf, cfg))
         counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
         donor = grid_ops.donor_chain_table(
             counts, sym25, cfg.grid_h, cfg.grid_w,
@@ -477,6 +490,25 @@ def _check_pair_count(torch, grid_cuda, labels, cfg, what):
                                  'two calls' % (name, what))
     print('grid_pair_count %s: (cnt9, counts9) and the routed triple exact, '
           'two calls equal' % what, flush=True)
+
+
+def _check_adjacency(torch, grid_cuda, labels, cfg, what):
+    """Row 11 on ``labels``: the presence words alone, and the words and
+    the routed adjacency of one call, each call twice with equal bits and
+    exactly equal to the twins."""
+    words_p = grid_cuda._grid_adjacency_presence_plain(labels, cfg)
+    adj_p = grid_cuda._grid_adjacency_plain(labels, cfg)
+    pairs = []
+    for _ in range(2):
+        words, adj = grid_cuda._adjacency_launch(labels, cfg, routed=True)
+        pairs += [(grid_cuda.grid_adjacency_presence(labels, cfg), words_p),
+                  (words, words_p), (adj, adj_p)]
+    torch.cuda.synchronize()
+    if not all(torch.equal(got, want) for got, want in pairs):
+        raise AssertionError('grid_adjacency %s: differs from its twins or '
+                             'between two calls' % what)
+    print('grid_adjacency %s: words and routed adjacency exact, two calls '
+          'equal (%d edges)' % (what, int(adj_p.sum())), flush=True)
 
 
 def _bound(nbytes, ops):
@@ -633,22 +665,23 @@ def kernel_phases(torch, img):
         px * (4 + 16) + k * 16, px * 6,
         _time_ms(lambda: table[index])))
 
-    words_k = grid_cuda.grid_adjacency_presence(labels, cfg)
-    words_p = grid_cuda._grid_adjacency_presence_plain(labels, cfg)
-    torch.cuda.synchronize()
-    if not torch.equal(words_k, words_p):
-        raise AssertionError('grid_adjacency_presence: %d words differ'
-                             % int((words_k != words_p).sum()))
+    _check_adjacency(torch, grid_cuda, labels, cfg, 'SLIC labels of image 0')
+    print('grid_adjacency_presence (the words) alone: %.4f ms, device %.4f '
+          'ms in %g CUDA kernel(s)'
+          % ((_time_ms(lambda: grid_cuda.grid_adjacency_presence(labels,
+                                                                 cfg)),)
+             + _profiled(torch, lambda: grid_cuda.grid_adjacency_presence(
+                 labels, cfg))), flush=True)
     records.append(_record(
         'grid_adjacency_presence', 'pyimsegm_tpu_torch/csrc/grid.cu',
         'pyimsegm_tpu/ops/grid_pallas.py:568', 0.0,
-        lambda: grid_cuda.grid_adjacency_presence(labels, cfg),
-        _time_ms(lambda: grid_cuda._grid_adjacency_presence_plain(labels,
-                                                                  cfg)),
-        'exact',
-        # i32 labels in, 9 words per seed out; two neighbour compares per
-        # pixel
-        px * 4 + k * 9 * 4, px * 2))
+        lambda: grid_cuda.grid_adjacency(labels, cfg),
+        _time_ms(lambda: grid_cuda._grid_adjacency_plain(labels, cfg)),
+        'exact: the words and the routed adjacency',
+        # the routed call as the edge weights make it: i32 labels in,
+        # (gh, gw, 25) f32 adjacency out (the (gh, gw, 9) words are scratch
+        # the route reads back); two neighbour compares per pixel
+        px * 4 + k * 25 * 4, px * 2, max_kernels=2))
     centers = (sums_k[..., 3:5] / torch.clamp_min(sums_k[..., 5:6], 1.0)) \
         .reshape(cfg.n_segments, 2)
     records += enforce_phases(torch, img, labels, centers, cfg)
@@ -874,11 +907,17 @@ def enforce_phases(torch, img, labels, centers, cfg):
                                    for n in CROP], indexing='ij'),
                                  dim=-1).reshape(-1, 2)], dim=-1)
     noise_enf = enforce_cuda.enforce_fused(noise_labels, noise_centers, cfg)
-    for lab, what in ((labels, 'SLIC labels of image 0'),
-                      (enf, 'enforced labels of image 0'),
-                      (noise_labels, 'SLIC labels of the noise image'),
-                      (noise_enf, 'enforced labels of the noise image')):
+    for lab, what in (
+            (labels, 'SLIC labels of image 0'),
+            (enf, 'enforced labels of image 0'),
+            (_damaged_labels(torch, labels, cfg, 7),
+             'damaged labels of image 0'),
+            (noise_labels, 'SLIC labels of the noise image'),
+            (noise_enf, 'enforced labels of the noise image'),
+            (_damaged_labels(torch, noise_labels, cfg, 8),
+             'damaged labels of the noise image')):
         _check_pair_count(torch, grid_cuda, lab, cfg, what)
+        _check_adjacency(torch, grid_cuda, lab, cfg, what)
     print('grid_pair_count (cnt9, counts9) alone, enforced labels of image 0: '
           '%.4f ms, device %.4f ms in %g CUDA kernel(s), bound %.4f ms (%s)'
           % ((_time_ms(lambda: grid_cuda.grid_pair_count(enf, cfg)),)
@@ -1665,6 +1704,8 @@ def kernel_phases_wide(torch):
                        'tile %dx%d' % shape)
         _check_pair_count(torch, grid_cuda, labels, cfg,
                           'SLIC labels of tile %dx%d' % shape)
+        _check_adjacency(torch, grid_cuda, labels, cfg,
+                         'SLIC labels of tile %dx%d' % shape)
         want_route = 'rafused' if own == 'reach_absorb_fused' else 'two'
         route = grid_ops._enforce_route(cfg)
         if route != want_route:
@@ -1697,6 +1738,8 @@ def kernel_phases_wide(torch):
                 raise AssertionError('%s disagrees at %s' % (name, shape))
         _check_pair_count(torch, grid_cuda, row12, cfg,
                           'enforced labels of tile %dx%d' % shape)
+        _check_adjacency(torch, grid_cuda, row12, cfg,
+                         'enforced labels of tile %dx%d' % shape)
         px = shape[0] * shape[1]
         plain_ms = _time_ms(lambda: enforce_cuda._connect_components(
             labels, seed.bool(), cfg), reps=2)
@@ -1823,10 +1866,11 @@ def prep_phases(torch, img):
 
 
 def minsize_count_phases(torch, img):
-    """Row 10 against its twins (``_check_pair_count``) on damaged labels
-    (-1 and -2 holes, ids outside their window, ids >= K inside and beyond
-    the windows, the last two rows >= K) of image 0, and on the SLIC labels
-    of synthetic images at ODD and ONE_PX."""
+    """Rows 10 and 11 against their twins (``_check_pair_count``,
+    ``_check_adjacency``) on damaged labels (-1 and -2 holes, ids outside
+    their window, ids >= K inside and beyond the windows, the last two rows
+    >= K) of image 0, and on the SLIC labels of synthetic images at ODD and
+    ONE_PX and their damaged labels."""
     from pyimsegm_tpu_torch.ops import grid_cuda
     from pyimsegm_tpu_torch.ops import slic as slic_ops
     from pyimsegm_tpu_torch.utils.data_samples import \
@@ -1836,22 +1880,25 @@ def minsize_count_phases(torch, img):
     labels = slic_ops.slic_segment_with_features(img, img, cfg, m)[0]
     bad = _damaged_labels(torch, labels, cfg, seed=5)
     bad.view(-1)[::97] = -1
-    _check_pair_count(torch, grid_cuda, bad, cfg, 'damaged labels of image 0')
     odd = torch.as_tensor(sample_color_image_rand_segment(
         ODD, 3, rand_seed=1)[0], device=img.device)
     cfg_odd = slic_ops.slic_config(ODD[0], ODD[1], SP_SIZE)
     labels_odd = slic_ops.slic_segment_with_features(odd, odd, cfg_odd, m)[0]
-    _check_pair_count(torch, grid_cuda, labels_odd, cfg_odd,
-                      'SLIC labels at %dx%d' % ODD)
-    _check_pair_count(torch, grid_cuda, _damaged_labels(
-        torch, labels_odd, cfg_odd, seed=6), cfg_odd,
-        'damaged labels at %dx%d' % ODD)
     # the last tile row and column one pixel wide, as at 4096x4096
     one = torch.as_tensor(sample_color_image_rand_segment(
         ONE_PX, 3, rand_seed=2)[0], device=img.device)
     cfg_one = slic_ops.slic_config(ONE_PX[0], ONE_PX[1], SP_SIZE)
-    _check_pair_count(torch, grid_cuda, slic_ops.slic_segment_with_features(
-        one, one, cfg_one, m)[0], cfg_one, 'SLIC labels at %dx%d' % ONE_PX)
+    labels_one = slic_ops.slic_segment_with_features(one, one, cfg_one, m)[0]
+    for lab, c, what in (
+            (bad, cfg, 'damaged labels of image 0'),
+            (labels_odd, cfg_odd, 'SLIC labels at %dx%d' % ODD),
+            (_damaged_labels(torch, labels_odd, cfg_odd, seed=6), cfg_odd,
+             'damaged labels at %dx%d' % ODD),
+            (labels_one, cfg_one, 'SLIC labels at %dx%d' % ONE_PX),
+            (_damaged_labels(torch, labels_one, cfg_one, seed=9), cfg_one,
+             'damaged labels at %dx%d' % ONE_PX)):
+        _check_pair_count(torch, grid_cuda, lab, c, what)
+        _check_adjacency(torch, grid_cuda, lab, c, what)
 
 
 def reduce_phases(torch):
@@ -1908,6 +1955,79 @@ def reduce_phases(torch):
             if bad:
                 raise AssertionError('rows 6 / 7 disagree at %s on %s '
                                      'labels' % (shape, kind))
+
+
+#: seed steps above the former caps of row 7 (1024; at 2100 a tile's sum
+#: of rows passes 2^32, at 3500 a warp's share of it, ~5.4e9, at F = 3),
+#: rows 10 and 11 (4095: a tile row and the next no longer fit the stage)
+#: and row 6 (16384: a tile row no longer fits the code map): (rows,
+#: shape, step), partial last tiles where the shape has several
+BIG_STEPS = ((('grid_moments',), (1100, 2100), 1025),
+             (('grid_moments',), (2100, 4200), 2100),
+             (('grid_moments',), (3500, 7000), 3500),
+             (('grid_pair_count', 'grid_adjacency'), (40, 8200), 4097),
+             (('grid_reduce',), (16, 16400), 16385))
+
+
+def _grid_labels(torch, shape, step, seed):
+    """Grid-structured labels at seed step ``step``, made with numpy: each
+    5x5 block of pixels takes its tile's seed moved by a random offset in
+    -1..1 (kept on the grid), then 1 pixel in 50 set to a random id in -2
+    .. K + 3 (negative, >= K, or where the grid allows outside its
+    window)."""
+    h, w = shape
+    gh, gw = -(-h // step), -(-w // step)
+    rng = np.random.default_rng(seed)
+    y, x = np.arange(h)[:, None], np.arange(w)[None, :]
+    moves = rng.integers(-1, 2, (2, (h + 4) // 5, (w + 4) // 5))
+    sy = np.clip(y // step + moves[0][y // 5, x // 5], 0, gh - 1)
+    sx = np.clip(x // step + moves[1][y // 5, x // 5], 0, gw - 1)
+    labels = (sy * gw + sx).astype(np.int32).reshape(-1)
+    idx = rng.choice(labels.size, labels.size // 50, replace=False)
+    labels[idx] = rng.integers(-2, gh * gw + 4, idx.size)
+    return torch.as_tensor(labels.reshape(shape), device=DEVICE)
+
+
+def step_phases(torch):
+    """Rows 6, 7, 10 and 11 at seed steps above their former caps
+    (``BIG_STEPS``) on ``_grid_labels``, each call twice with equal bits:
+    rows 10 and 11 and row 7's pixel counts exact, sums within rtol 1e-5 +
+    1e-5 x channel max of their twins (F = 3)."""
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    rng = np.random.default_rng(10)
+    for rows, shape, step in BIG_STEPS:
+        cfg = slic_ops.slic_config(shape[0], shape[1], step)
+        labels = _grid_labels(torch, shape, step, seed=step)
+        what = 'grid labels at %dx%d, step %d' % (shape[0], shape[1], step)
+        if 'grid_pair_count' in rows:
+            _check_pair_count(torch, grid_cuda, labels, cfg, what)
+            _check_adjacency(torch, grid_cuda, labels, cfg, what)
+            continue
+        data = torch.as_tensor(rng.normal(size=shape + (3,)).astype(
+            np.float32), device=DEVICE)
+        if rows == ('grid_reduce',):
+            got, again = (grid_cuda.grid_reduce(data, labels, cfg)
+                          for _ in range(2))
+            want = grid_cuda._grid_reduce_plain(data, labels, cfg)
+        else:
+            got, again = (grid_cuda.grid_moments_apply(data, labels, None,
+                                                       cfg)[1]
+                          for _ in range(2))
+            want = grid_cuda._grid_moments_apply_plain(data, labels, None,
+                                                       cfg)[1]
+        torch.cuda.synchronize()
+        # row 7's channel 2F = 6 counts pixels: integers, exact
+        counts_ok = rows == ('grid_reduce',) or torch.equal(got[:, 6],
+                                                            want[:, 6])
+        ok, diff = _sums_agree(got, want)
+        print('%s on %s: sums max diff %g (rtol 1e-5 + 1e-5 x channel max), '
+              'pixel counts exact %s, two calls equal %s'
+              % (rows[0], what, diff, counts_ok, torch.equal(got, again)),
+              flush=True)
+        del want
+        if not (ok and counts_ok and torch.equal(got, again)):
+            raise AssertionError('%s disagrees on %s' % (rows[0], what))
 
 
 def _fixture_suffix(fixture, suffix):
@@ -2124,6 +2244,7 @@ def main():
     measure_path_kernels(torch, img)
     records += fit_kernel_phases(torch, img)
     reduce_phases(torch)
+    step_phases(torch)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])
     bench = path_bench(torch, model, images, fixtures[1])

@@ -11,6 +11,8 @@
 //   grid_adjacency_presence_pallas (_adjacency_kernel): for each tile and
 //     each routing offset of the first endpoint, a 25-bit word of which
 //     relative seed offsets its conn4 right/down neighbour pairs reach;
+//     here also routed to the seeds and symmetrised into the (gh, gw, 25)
+//     0/1 adjacency of ops/grid.py:grid_adjacency in the same C call;
 //   grid_pair_count_pallas (_pair_count_kernel): the same pairs counted per
 //     (tile, offset, channel), and the tile's pixel count per offset;
 //   grid_moments_apply_pallas (_moments_apply_kernel): donor[label] applied
@@ -24,27 +26,34 @@
 // Bound: device memory.  The lookup reads 4 B of label and writes 4*C B per
 // pixel (the (K, C) f32 or int32 table stays in L1/L2); the adjacency and
 // the pair count read 4 B of label per pixel (the down neighbour is the
-// next row's read) and write 36 B / 936 B per tile; the moments read 4 +
-// 12 B per pixel (and write 4 B of merged label) and write 324 B per tile.
+// next row's read) and write 100 B (the routed adjacency) / 140 B (the
+// routed triple) per seed; the moments read 4 + 12 B per pixel (and write
+// 4 B of merged label) and write 324 B per tile.
 // Design: the lookup is four neighbouring pixels per thread of a block row
 // per image row (no 64-bit division), a gather guarded by the window test,
 // templated on C (1-4, and a generic kernel) so that the stores are 16-byte
 // vectors where the layout allows; it copies 4-byte words, so f32 and int32
 // tables need no cast.  The other
-// three are one block per tile.  The adjacency ORs each pixel's two pair
-// bits into one of 9 shared words picked by its own
-// offset code.  The pair count (row 10) stages its tile's labels, one row
-// below and one column to the right in shared memory once (coalesced rows;
-// each label read from device memory about once, where each pixel read
-// three), each beside its window code (no division: the window code below;
-// a pair's channel from the two codes, or from d = b - a and the first
-// endpoint's window column where the neighbour lies outside the window, in
-// place of four divisions and two modulos by gw a pair), counts pixels by
-// nine ballots a warp and round and adds pairs by shared atomics (integer
-// adds are order-free, so both are exact and deterministic; the f32
-// outputs are exact integers); a second launch routes the counts to their
-// seeds and symmetrises the contacts (ops/grid.py:counts_and_contacts's
-// triple), one thread per seed and channel.  The moments (row 8) add each
+// three are one block per tile.  The pair count (row 10) and the adjacency
+// (row 11) are one pass, templated on what it keeps: it stages its tile's
+// labels, one row below and one column to the right in shared memory once
+// (coalesced rows; each label read from device memory about once, where
+// each pixel read three), in bands of rows (and of columns where a tile row
+// does not fit the stage), each label beside its window code (no division:
+// the window code below; a pair's channel from the two codes, or from d =
+// b - a and the first endpoint's window column where the neighbour lies
+// outside the window, in place of four divisions and two modulos by gw a
+// pair).  Row 10 counts pixels by nine ballots a warp and round and adds
+// pairs by shared atomics (integer adds are order-free, so both are exact
+// and deterministic; the f32 outputs are exact integers); row 11 sets a
+// shared flag per (offset, channel) with a plain store (presence is an OR:
+// idempotent and order-free, so racing stores of 1 give the same bits) and
+// packs the 25 flags of each offset into its word.  A second launch routes
+// to the seeds, one thread per seed and channel: row 10 adds the counts and
+// symmetrises the contacts (ops/grid.py:counts_and_contacts's triple), row
+// 11 ORs the routed bit with the partner seed's flipped one and masks the
+// off-grid and self channels (ops/grid.py:grid_adjacency), so neither call
+// runs a torch op.  The moments (row 8) add each
 // pixel's 9 channels into 9 x 9 per-thread sums in shared memory, indexed
 // by the merged label's offset (9 adds per pixel, where register sums would
 // need 81 predicated ones; laid out [channel][thread], so a warp never shares a
@@ -58,21 +67,26 @@
 // once (up to 128 channels, 256 at VEC 2 or 4; wider data goes in channel
 // ranges, a grid row each, and each range reads the labels again): one
 // block per tile turns the tile's labels into a byte map of
-// offset codes in shared memory (no division per pixel: the tile's row and
-// column come from the block, the label's window offset from three
-// subtractions), then thread t owns VEC = 4, 2 or 1 neighbouring channels
-// (16-, 8- or 4-byte loads, as F and the alignment allow) and walks the
+// offset codes in shared memory, a band of rows at a time (and of columns
+// where a tile row is longer than the map; no division per pixel: the
+// tile's row and column come from the block, the label's window offset
+// from three subtractions), then thread t owns VEC = 4, 2 or 1
+// neighbouring channels (16-, 8- or 4-byte loads, as F and the alignment
+// allow) and walks the
 // tile's pixels ng apart, so that neighbouring threads read neighbouring
 // words of the (H, W, F) rows; each thread loads 8 pixels (4 at VEC = 2)
 // before it adds them (staging rows through shared memory with cp.async
 // measured slower: its per-band barriers left the loads idle).  Row 7 takes
 // [f, f^2] from the same loaded value and [1, y, x] from the code map and
 // the pixel's row and column (warp ballots and integer reduces into
-// per-warp sums: exact, no atomics).  A thread adds into
-// registers while its pixels keep one code and flushes into per-thread
+// per-warp 64-bit sums: exact at any seed step, no atomics).  A thread adds
+// into registers while its pixels keep one code and flushes into per-thread
 // shared slots indexed by the code when it changes (no 9-way predication
-// per value, no float atomics); teams of lanes then reduce the slots in a
-// fixed order, so two runs give equal bits.  At F = 60 that is ~6 issued
+// per value, no float atomics); after each band (one, as a rule) teams of
+// lanes add the slots into the tile's sums in a fixed order, so two runs
+// give equal bits, and no f32 chain outgrows a band at a large seed step
+// (one chain over a whole 3500 x 3500 tile leaves the twin's bar on
+// zero-mean data, PERF.md).  At F = 60 that is ~6 issued
 // instructions per value, under the byte bound.  The route kernel, one
 // thread per (seed, channel), adds the 9 partials of each seed in the order
 // of combine_sums: two launches a call.  The TPU kernels' selector
@@ -91,24 +105,25 @@
 // must hold (the 910 tiles of 884x1200 at sp_size 35 in one wave), pixels a
 // thread loads before it adds them (16 for one sum a pixel, 8 for f and
 // f^2 or 4 channels, 4 at 2 channels, where 8 spill at the register cap;
-// same-call A/Bs, PERF.md), labels a block reads before it codes them,
-// bytes of the code map, and the largest seed step row 7 takes (its
-// integer sums of tile rows and columns stay below 2^32; row 6 takes a step
-// up to RED_CODES, where a band of the map still holds a tile row)
+// same-call A/Bs, PERF.md), labels a block reads before it codes them, and
+// bytes of the code map (a band of the tile's rows; of its columns too
+// where a tile row is longer, so that any seed step fits)
 #define RED_THREADS 128
 #define RED_MIN_BLOCKS 8
 #define RED_UNROLL(NV, VEC) \
     ((VEC) == 2 ? 4 : (NV) == 1 && (VEC) == 1 ? 16 : 8)
 #define RED_LABELS_STEP 512
 #define RED_CODES 16384
-#define RED_MAX_STEP 1024
-#define ADJ_THREADS 256
 #define NCH 25
-// row 10: block threads, and the most labels a block stages at once (a
-// band of its tile's rows, + 1 row and + 1 column; 40 KB with their codes),
-// which takes seed steps up to PAIR_STAGE / 2 - 1
+// rows 10 and 11: block threads, and the most labels a block stages at
+// once (40 KB with their codes): a band of its tile's rows + 1 row, each
+// the tile row + 1 column, while 2 x (step + 1) labels fit; else a band of
+// PAIR_STAGE / 2 - 1 columns + 1 and one row + 1 (pair_band)
 #define PAIR_THREADS 256
 #define PAIR_STAGE 8192
+// labels a thread of rows 10 and 11 loads before it codes them (1, 2, 4
+// and 8 in a same-call A/B on the card, PERF.md)
+#define PAIR_LOADS 4
 // row 8's block size, chosen by a same-call A/B on the card against 64 and
 // 128 (PERF.md)
 #define MOM_THREADS 96
@@ -181,38 +196,6 @@ grid_lookup_kernel(const unsigned int* __restrict__ table,  // (K, C)
             }
         }
     }
-}
-
-__device__ __forceinline__ int pair_bit(int a, int b, int gw) {
-    if (b < 0 || a < 0 || a == b) return 0;
-    int dy = b / gw - a / gw, dx = b % gw - a % gw;
-    if (dy < -2 || dy > 2 || dx < -2 || dx > 2) return 0;
-    return 1 << ((dy + 2) * 5 + (dx + 2));
-}
-
-__global__ void __launch_bounds__(ADJ_THREADS)
-grid_adjacency_kernel(const int* __restrict__ labels,  // (H, W)
-                      int* __restrict__ words,         // (gh, gw, 9)
-                      int height, int width, int gw, int step) {
-    __shared__ int acc[NOFF];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    if (threadIdx.x < NOFF) acc[threadIdx.x] = 0;
-    __syncthreads();
-    for (int p = threadIdx.x; p < step * step; p += ADJ_THREADS) {
-        const int y = ty * step + p / step, x = tx * step + p % step;
-        if (y >= height || x >= width) continue;   // pad pixels are -2
-        const int a = labels[(size_t)y * width + x];
-        if (a < 0) continue;
-        const int oy = a / gw - ty + 1, ox = a % gw - tx + 1;
-        if (oy < 0 || oy >= 3 || ox < 0 || ox >= 3) continue;
-        const int right = x + 1 < width ? labels[(size_t)y * width + x + 1] : -2;
-        const int down = y + 1 < height ? labels[(size_t)(y + 1) * width + x] : -2;
-        const int bits = pair_bit(a, right, gw) | pair_bit(a, down, gw);
-        if (bits) atomicOr(&acc[oy * 3 + ox], bits);
-    }
-    __syncthreads();
-    if (threadIdx.x < NOFF)
-        words[((size_t)ty * gw + tx) * NOFF + threadIdx.x] = acc[threadIdx.x];
 }
 
 // Row 8's window code: the offset 0..8 of label l in the 3x3 seed window
@@ -399,20 +382,28 @@ __device__ __forceinline__ int pair_key(int o, int qa, int qb,
     return ch >= 0 ? o * NCH + ch : -1;
 }
 
-// Row 10: one block per tile.  The tile's labels with one row below and one
-// column to the right (-2 off the image, as the reference pads) are staged
-// in shared memory in bands of `band` rows (+ 1), each beside its window
-// code (no division: window_code); each pixel then reads its code and its
-// two neighbours' from there, and a pair's channel from the two codes.
-// Pixel counts by code: nine ballots a warp and round, kept in registers;
-// pair counts: shared atomics (integers: exact and order-free).  Outputs as
-// the twin's: cnt9 (gh, gw, 9, 25), counts9 (gh, gw, 9), f32 of exact
-// integers.
+// Rows 10 and 11: one block per tile.  The tile's labels with one row
+// below and one column to the right (-2 off the image, as the reference
+// pads) are staged in shared memory in bands of `band` rows (+ 1) by
+// `bandw` columns (+ 1; the whole tile row unless it does not fit the
+// stage), each beside its window code (no division: window_code); each
+// pixel then reads its code and its two neighbours' from there, and a
+// pair's channel from the two codes.  Row 10 (PRESENCE false): pixel counts
+// by code, nine ballots a warp and round kept in registers, and pair counts
+// by shared atomics (integers: exact and order-free); outputs as the
+// twin's, cnt9 (gh, gw, 9, 25) and counts9 (gh, gw, 9), f32 of exact
+// integers.  Row 11 (PRESENCE true): a flag per (offset, channel) set by a
+// plain store (every store writes 1), packed into the words (gh, gw, 9)
+// int32: bit c of word o is set where a pixel of code o has a neighbour at
+// channel c.
+template <bool PRESENCE>
 __global__ void __launch_bounds__(PAIR_THREADS)
-grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
-                       float* __restrict__ cnt9,        // (gh, gw, 9, 25)
-                       float* __restrict__ counts9,     // (gh, gw, 9)
-                       int height, int width, int gw, int step, int band) {
+grid_pair_kernel(const int* __restrict__ labels,  // (H, W)
+                 float* __restrict__ cnt9,        // (gh, gw, 9, 25)
+                 float* __restrict__ counts9,     // (gh, gw, 9)
+                 int* __restrict__ words,         // (gh, gw, 9)
+                 int height, int width, int gw, int step, int band,
+                 int bandw) {
     extern __shared__ int lab[];      // a band (+ 1 row, + 1 column), codes
     __shared__ int acc[NOFF * NCH];
     __shared__ int cnt[NOFF];
@@ -420,56 +411,88 @@ grid_pair_count_kernel(const int* __restrict__ labels,  // (H, W)
     const int tile = blockIdx.x, ty = tile / gw, tx = tile - ty * gw;
     const int x0 = tx * step, y0 = ty * step;
     const int tw = min(step, width - x0), th = min(step, height - y0);
-    const int sw = tw + 1;
     signed char* code =
-        reinterpret_cast<signed char*>(lab + (band + 1) * (step + 1));
+        reinterpret_cast<signed char*>(lab + (band + 1) * (bandw + 1));
     const int base = (ty - 1) * gw + tx - 1;
     const int oxlo = tx == 0 ? 1 : 0, oxhi = tx == gw - 1 ? 1 : 2;
     for (int k = tid; k < NOFF * NCH; k += PAIR_THREADS) acc[k] = 0;
-    if (tid < NOFF) cnt[tid] = 0;
+    if (!PRESENCE && tid < NOFF) cnt[tid] = 0;
     int count[NOFF];                    // the warp's pixels by code
 #pragma unroll
     for (int o = 0; o < NOFF; ++o) count[o] = 0;
-    // row and column of a staged label and of a pixel without a division:
-    // i / n = umulhi(i, ceil(2^32 / n)), exact while i * n <= 2^32 (n > 1;
-    // a tile one pixel wide, as 4096 at step 35 leaves, takes i / 1 = i)
-    const unsigned int ms = 0xffffffffu / sw + 1, mp = 0xffffffffu / tw + 1;
-    for (int yb = 0; yb < th; yb += band) {
-        const int nb = min(band, th - yb);
-        const int ns = (nb + 1) * sw, np = nb * tw;
-        __syncthreads();                // the last band is counted
-        for (int i = tid; i < ns; i += PAIR_THREADS) {
-            const int r = __umulhi(i, ms), c = i - r * sw;
-            const int y = y0 + yb + r, x = x0 + c;
-            const int l = y < height && x < width
-                ? __ldg(labels + (size_t)y * width + x) : -2;
-            lab[i] = l;
-            code[i] = (signed char)window_code(l, base, gw, oxlo, oxhi);
-        }
-        __syncthreads();                // the band is in
-        for (int p0 = 0; p0 < np; p0 += PAIR_THREADS) {   // warp-uniform
-            int o = -1, kr = -1, kd = -1;
-            if (p0 + tid < np) {
-                const int r = tw == 1 ? p0 + tid : __umulhi(p0 + tid, mp);
-                const int q = p0 + tid + r;                 // r sw + c
-                o = code[q];
-                if (o >= 0) {
-                    kr = pair_key(o, q, q + 1, lab, code, tx, gw);
-                    kd = pair_key(o, q, q + sw, lab, code, tx, gw);
+    for (int xb = 0; xb < tw; xb += bandw) {      // one, as a rule
+        const int cw = min(bandw, tw - xb), sw = cw + 1;
+        // row and column of a staged label and of a pixel without a
+        // division: i / n = umulhi(i, ceil(2^32 / n)), exact while i * n <=
+        // 2^32 (n > 1; a band one pixel wide, as 4096 at step 35 leaves,
+        // takes i / 1 = i)
+        const unsigned int ms = 0xffffffffu / sw + 1,
+                           mp = 0xffffffffu / cw + 1;
+        for (int yb = 0; yb < th; yb += band) {
+            const int nb = min(band, th - yb);
+            const int ns = (nb + 1) * sw, np = nb * cw;
+            __syncthreads();                // the last band is counted
+            for (int i0 = tid; i0 < ns; i0 += PAIR_THREADS * PAIR_LOADS) {
+                int l[PAIR_LOADS];      // loaded before any is coded
+#pragma unroll
+                for (int u = 0; u < PAIR_LOADS; ++u) {
+                    const int i = i0 + u * PAIR_THREADS;
+                    const int r = __umulhi(i, ms), c = i - r * sw;
+                    const int y = y0 + yb + r, x = x0 + xb + c;
+                    l[u] = i < ns && y < height && x < width
+                        ? __ldg(labels + (size_t)y * width + x) : -2;
+                }
+#pragma unroll
+                for (int u = 0; u < PAIR_LOADS; ++u) {
+                    const int i = i0 + u * PAIR_THREADS;
+                    if (i >= ns) break;
+                    lab[i] = l[u];
+                    code[i] = (signed char)window_code(l[u], base, gw, oxlo,
+                                                       oxhi);
                 }
             }
+            __syncthreads();                // the band is in
+            for (int p0 = 0; p0 < np; p0 += PAIR_THREADS) {  // warp-uniform
+                int o = -1, kr = -1, kd = -1;
+                if (p0 + tid < np) {
+                    const int r = cw == 1 ? p0 + tid
+                                          : __umulhi(p0 + tid, mp);
+                    const int q = p0 + tid + r;              // r sw + c
+                    o = code[q];
+                    if (o >= 0) {
+                        kr = pair_key(o, q, q + 1, lab, code, tx, gw);
+                        kd = pair_key(o, q, q + sw, lab, code, tx, gw);
+                    }
+                }
+                if constexpr (PRESENCE) {
+                    if (kr >= 0) acc[kr] = 1;
+                    if (kd >= 0) acc[kd] = 1;
+                } else {
 #pragma unroll
-            for (int k = 0; k < NOFF; ++k)
-                count[k] += __popc(__ballot_sync(FULL, o == k));
-            if (kr >= 0) atomicAdd(&acc[kr], 1);
-            if (kd >= 0) atomicAdd(&acc[kd], 1);
+                    for (int k = 0; k < NOFF; ++k)
+                        count[k] += __popc(__ballot_sync(FULL, o == k));
+                    if (kr >= 0) atomicAdd(&acc[kr], 1);
+                    if (kd >= 0) atomicAdd(&acc[kd], 1);
+                }
+            }
         }
+    }
+    const size_t t = tile;
+    if constexpr (PRESENCE) {
+        __syncthreads();
+        if (tid < NOFF) {
+            int w = 0;
+#pragma unroll
+            for (int c = 0; c < NCH; ++c)
+                w |= (acc[tid * NCH + c] != 0) << c;
+            words[t * NOFF + tid] = w;
+        }
+        return;
     }
     if (lane == 0)
 #pragma unroll
         for (int k = 0; k < NOFF; ++k) atomicAdd(&cnt[k], count[k]);
     __syncthreads();
-    const size_t t = tile;
     for (int k = tid; k < NOFF * NCH; k += PAIR_THREADS)
         cnt9[t * NOFF * NCH + k] = (float)acc[k];
     if (tid < NOFF) counts9[t * NOFF + tid] = (float)cnt[tid];
@@ -514,12 +537,48 @@ __global__ void grid_pair_route_kernel(const float* __restrict__ cnt9,
     sym25[(size_t)s * NCH + c] = v;
 }
 
+// Row 11's route: bit c of the 9 offset words routed to seed (y, x) (the
+// tiles around it), OR-ed.
+__device__ __forceinline__ unsigned int adj_routed(const int* __restrict__ w,
+                                                   int y, int x, int gh,
+                                                   int gw, int c) {
+    unsigned int b = 0u;
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) {
+        const int sy = y - (o / 3 - 1), sx = x - (o % 3 - 1);
+        if (sy >= 0 && sy < gh && sx >= 0 && sx < gw)
+            b |= (unsigned int)__ldg(w + ((size_t)sy * gw + sx) * NOFF + o);
+    }
+    return (b >> c) & 1u;
+}
+
+// One thread per (seed, channel c < 25): the seed's routed bit c OR the
+// partner's (the seed at GRAPH_OFFSETS[c]) routed bit 24 - c, 0 where the
+// partner lies off the grid and at c = 12 (the seed itself), as 0/1 f32
+// (ops/grid.py:_sym_mask_adjacency).
+__global__ void grid_adjacency_route_kernel(
+        const int* __restrict__ words,  // (gh, gw, 9)
+        float* __restrict__ adj,        // (gh, gw, 25)
+        int gh, int gw) {
+    const int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= gh * gw * NCH) return;
+    const int s = i / NCH, c = i - s * NCH;
+    const int y = s / gw, x = s - y * gw;
+    const int ny = y + c / 5 - 2, nx = x + c % 5 - 2;
+    unsigned int v = 0u;
+    if (c != NCH / 2 && ny >= 0 && ny < gh && nx >= 0 && nx < gw)
+        v = adj_routed(words, y, x, gh, gw, c)
+            | adj_routed(words, ny, nx, gh, gw, NCH - 1 - c);
+    adj[i] = v ? 1.0f : 0.0f;
+}
+
 // Row 7's [count, sum dy, sum dx] of a warp's pixels, per offset code
 // present among them (dy, dx: the pixel's row and column in its tile): a
 // ballot and two integer reduces per code, added by lane 0 into the warp's
-// own sums (integers: exact, no atomics).  Every lane of the warp calls it.
+// own 64-bit sums (integers: exact, no atomics; a warp's sum of tile rows
+// can pass 2^32 from a step of 2048 on).  Every lane of the warp calls it.
 __device__ __forceinline__ void add_geometry(int o, int dy, int dx, int lane,
-                                             unsigned int* mine) {
+                                             unsigned long long* mine) {
     unsigned int present = __reduce_or_sync(FULL, o >= 0 ? 1u << o : 0u);
     while (present) {
         const int oi = __ffs(present) - 1;
@@ -575,7 +634,7 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p,
 }
 
 // One round of the data walk: the VEC channels of U pixels ng apart from
-// pixel p of the band (row r, column c of the tile) and their offset codes
+// pixel p of the band (row r, column c of the band) and their offset codes
 // (-1 past the band's n pixels), loaded before any is added; p, r and c
 // step on to the next round.
 template <int U, int VEC, typename T>
@@ -583,7 +642,7 @@ __device__ __forceinline__ void load_round(const T* __restrict__ row0,
                                            const signed char* codes,
                                            float (&v)[U][VEC], int (&o)[U],
                                            int& p, int& r, int& c, int n,
-                                           int ng, int ddr, int ddc, int tw,
+                                           int ng, int ddr, int ddc, int cw,
                                            int width, int f) {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -595,7 +654,7 @@ __device__ __forceinline__ void load_round(const T* __restrict__ row0,
         p += ng;
         c += ddc;
         r += ddr;
-        if (c >= tw) { c -= tw; ++r; }
+        if (c >= cw) { c -= cw; ++r; }
     }
 }
 
@@ -603,142 +662,16 @@ __device__ __forceinline__ void load_round(const T* __restrict__ row0,
 // channels (F = 60 has 15 threads a pixel there).
 #define RED_NT(VEC) ((VEC) == 4 ? RED_THREADS / 2 : RED_THREADS)
 
-// Per-(tile, offset) sums of the F channels of (H, W, F) data (NV = 1, row
-// 6) or of [f, f^2] plus [1, y, x] (NV = 2, row 7; nch = 2F + 3), one block
-// per tile and range of fr <= NT x VEC channels (blockIdx.y: one range for
-// F <= NT x VEC; range 0 adds row 7's [1, y, x]).  Per band of tile rows
-// (the whole tile where its map fits RED_CODES bytes): every thread turns
-// its labels into codes in a shared byte map (row 7 also adds each warp's
-// count, y and x per code); then thread t owns VEC channels lc.. and walks
-// pixels g, g + ng, ... of the band (g = t / tpp) in rounds of U, each
-// round's loads before its adds (at VEC > 1 issued at the end of the round
-// before), so that a block-step reads ng pixels x fr words, contiguous in
-// the (H, W, F) layout where one range holds all F.
-// A thread adds into registers while its pixels keep one code and flushes
-// them into its slots acc[o][v][j][t] when the code changes; teams of L
-// lanes then add the ng groups' slots of a channel, all 9 x NV sums of a
-// lane side by side, in a fixed order.
-template <typename T, int NV, int VEC>
-__global__ void __launch_bounds__(RED_NT(VEC), RED_MIN_BLOCKS)
-grid_reduce_kernel(const T* __restrict__ data,        // (H, W, F)
-                   const int* __restrict__ labels,    // (H, W)
-                   float* __restrict__ partials,      // (gh, gw, 9, nch)
-                   int height, int width, int f, int fr, int gw,
-                   int step) {
-    constexpr int NT = RED_NT(VEC), NR = NV * VEC;
-    constexpr int U = RED_UNROLL(NV, VEC), UL = RED_LABELS_STEP / NT;
-    __shared__ float acc[NOFF * NR * NT];             // [o][v][j][t]
-    __shared__ unsigned int geo[NT / 32][NOFF * 3];   // [warp][o][n, dy, dx]
-    extern __shared__ signed char codes[];            // a band of the tile
-    const int tid = threadIdx.x, lane = tid & 31;
-    const int tile = blockIdx.x, ty = tile / gw, tx = tile - ty * gw;
-    const int x0 = tx * step, y0 = ty * step;
-    const int tw = min(step, width - x0), th = min(step, height - y0);
-    const int band = min(th, RED_CODES / tw);
-    const int base = (ty - 1) * gw + tx - 1;
-    const int oxlo = tx == 0 ? 1 : 0, oxhi = tx == gw - 1 ? 1 : 2;
-    const int nch = NV == 2 ? 2 * f + 3 : f;
-    const int c0 = blockIdx.y * fr, fc = min(fr, f - c0);   // this range
-    const bool geometry = NV == 2 && blockIdx.y == 0;      // block-uniform
-    float* out = partials + (size_t)tile * NOFF * nch + c0;
-    if (geometry && lane < NOFF * 3) geo[tid / 32][lane] = 0u;
-    const int tpp = fc / VEC, ng = NT * VEC / fc, g = tid / tpp;
-    const T* src = data + c0 + (tid - g * tpp) * VEC;
-    // the code map's walk (pixels tid, tid + NT, ...) and the data walk
-    // (pixels g, g + ng, ...) of a band: row and column stepped, not divided
-    const int cdr = NT / tw, cdc = NT - cdr * tw;
-    const int cr0 = tid / tw, cc0 = tid - cr0 * tw;
-    const int ddr = ng / tw, ddc = ng - ddr * tw;
-    const int dr0 = g / tw, dc0 = g - dr0 * tw;
-    float* mine = acc + tid;
-#pragma unroll
-    for (int i = 0; i < NOFF * NR; ++i) mine[i * NT] = 0.0f;
-    float run[NR];
-#pragma unroll
-    for (int i = 0; i < NR; ++i) run[i] = 0.0f;
-    int cur = -1;
-    for (int yb = y0; yb < y0 + th; yb += band) {
-        const int n = min(band, y0 + th - yb) * tw;
-        __syncthreads();                  // the last band's map is read
-        int r = cr0, c = cc0;
-        for (int p0 = 0; p0 < n; p0 += NT * UL) {         // warp-uniform
-            int lab[UL], ys[UL], xs[UL];
-#pragma unroll
-            for (int u = 0; u < UL; ++u) {
-                ys[u] = yb + r;
-                xs[u] = x0 + c;
-                lab[u] = p0 + u * NT + tid < n
-                    ? labels[(size_t)ys[u] * width + xs[u]] : -1;
-                c += cdc;
-                r += cdr;
-                if (c >= tw) { c -= tw; ++r; }
-            }
-#pragma unroll
-            for (int u = 0; u < UL; ++u) {
-                const int p = p0 + u * NT + tid;
-                const int o = p < n ? window_code(lab[u], base, gw, oxlo,
-                                                  oxhi) : -1;
-                if (p < n) codes[p] = (signed char)o;
-                if (geometry)
-                    add_geometry(o, ys[u] - y0, xs[u] - x0, lane,
-                                 geo[tid / 32]);
-            }
-        }
-        __syncthreads();                  // the codes are in
-        if (g >= ng) continue;
-        // a round's loads at the top of its step at VEC = 1, at the end of
-        // the step before at VEC > 1: a same-call A/B of the two loops took
-        // 24.9 against 27.9 us at F = 7 f32 and 88.2 against 52.1 at F = 30
-        // bf16 (PERF.md)
-        const T* row0 = src + ((size_t)yb * width + x0) * f;
-        float v[U][VEC];
-        int o[U];
-        int dp = g, dr = dr0, dc = dc0;   // the data walk's next pixel
-        if constexpr (VEC > 1)
-            load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng, ddr,
-                               ddc, tw, width, f);
-        for (int q = g; q < n; q += U * ng) {
-            if constexpr (VEC == 1)
-                load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng, ddr,
-                                   ddc, tw, width, f);
-#pragma unroll
-            for (int u = 0; u < U; ++u) {
-                if (o[u] < 0) continue;
-                if (o[u] != cur) {
-                    if (cur >= 0) {
-                        float* s = mine + cur * NR * NT;
-#pragma unroll
-                        for (int i = 0; i < NR; ++i) {
-                            s[i * NT] = __fadd_rn(s[i * NT], run[i]);
-                            run[i] = 0.0f;
-                        }
-                    }
-                    cur = o[u];
-                }
-#pragma unroll
-                for (int j = 0; j < VEC; ++j) {
-                    run[j] = __fadd_rn(run[j], v[u][j]);
-                    if constexpr (NV == 2)
-                        run[VEC + j] = __fadd_rn(
-                            run[VEC + j], __fmul_rn(v[u][j], v[u][j]));
-                }
-            }
-            if constexpr (VEC > 1)
-                if (dp < n)
-                    load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng,
-                                       ddr, ddc, tw, width, f);
-        }
-    }
-    if (cur >= 0) {
-        float* s = mine + cur * NR * NT;
-#pragma unroll
-        for (int i = 0; i < NR; ++i) s[i * NT] = __fadd_rn(s[i * NT], run[i]);
-    }
-    __syncthreads();
-    // channel ch summed over the ng groups by a team of L lanes (as many
-    // lanes as leave a team for every channel, at most 32 and ng): lane li
-    // adds groups li, li + L, ... of all 9 x NV (offset, kind) sums side by
-    // side, then a shuffle tree joins the lanes
+// A reduce block's slots acc[o][v][j][t] of one band added into the
+// tile's (offset, kind, channel) sums out (set by the first band): channel
+// ch summed over the ng groups by a team of L lanes (as many lanes as leave
+// a team for every channel, at most 32 and ng): lane li adds groups li, li
+// + L, ... of all 9 x NV (offset, kind) sums side by side, then a shuffle
+// tree joins the lanes; a fixed order, so two runs give equal bits.
+template <int NV, int VEC, int NT>
+__device__ __forceinline__ void fold_slots(const float* acc, float* out,
+                                           int fc, int f, int nch, int ng,
+                                           int tpp, int tid, bool first) {
     int L = 1;
     while (L < 32 && 2 * L <= ng && NT / (2 * L) >= fc) L <<= 1;
     const int team = tid / L, li = tid & (L - 1), teams = NT / L;
@@ -760,8 +693,166 @@ grid_reduce_kernel(const T* __restrict__ data,        // (H, W, F)
                 s[k] = __fadd_rn(s[k], __shfl_xor_sync(FULL, s[k], m));
         if (ch < fc && li == 0)
 #pragma unroll
-            for (int k = 0; k < NOFF * NV; ++k)
-                out[(k / NV) * nch + (k % NV) * f + ch] = s[k];
+            for (int k = 0; k < NOFF * NV; ++k) {
+                float* o = out + (k / NV) * nch + (k % NV) * f + ch;
+                *o = first ? s[k] : __fadd_rn(*o, s[k]);
+            }
+    }
+}
+
+// Per-(tile, offset) sums of the F channels of (H, W, F) data (NV = 1, row
+// 6) or of [f, f^2] plus [1, y, x] (NV = 2, row 7; nch = 2F + 3), one block
+// per tile and range of fr <= NT x VEC channels (blockIdx.y: one range for
+// F <= NT x VEC; range 0 adds row 7's [1, y, x]).  Per band of tile rows
+// (the whole tile where its map fits RED_CODES bytes; a tile row longer
+// than RED_CODES is cut into bands of columns as well): every thread turns
+// its labels into codes in a shared byte map (row 7 also adds each warp's
+// count, y and x per code); then thread t owns VEC channels lc.. and walks
+// pixels g, g + ng, ... of the band (g = t / tpp) in rounds of U, each
+// round's loads before its adds (at VEC > 1 issued at the end of the round
+// before), so that a block-step reads ng pixels x fr words, contiguous in
+// the (H, W, F) layout where one range holds all F.
+// A thread adds into registers while its pixels keep one code and flushes
+// them into its slots acc[o][v][j][t] when the code changes; after each
+// band, fold_slots adds the ng groups' slots into the tile's sums in a
+// fixed order (a slot's chain of f32 adds spans one band, at most
+// RED_CODES pixels, whatever the seed step).
+template <typename T, int NV, int VEC>
+__global__ void __launch_bounds__(RED_NT(VEC), RED_MIN_BLOCKS)
+grid_reduce_kernel(const T* __restrict__ data,        // (H, W, F)
+                   const int* __restrict__ labels,    // (H, W)
+                   float* __restrict__ partials,      // (gh, gw, 9, nch)
+                   int height, int width, int f, int fr, int gw,
+                   int step) {
+    constexpr int NT = RED_NT(VEC), NR = NV * VEC;
+    constexpr int U = RED_UNROLL(NV, VEC), UL = RED_LABELS_STEP / NT;
+    __shared__ float acc[NOFF * NR * NT];             // [o][v][j][t]
+    __shared__ unsigned long long geo[NT / 32][NOFF * 3];  // [w][o][n, y, x]
+    extern __shared__ signed char codes[];            // a band of the tile
+    const int tid = threadIdx.x, lane = tid & 31;
+    const int tile = blockIdx.x, ty = tile / gw, tx = tile - ty * gw;
+    const int x0 = tx * step, y0 = ty * step;
+    const int tw = min(step, width - x0), th = min(step, height - y0);
+    const int bw = min(tw, RED_CODES), band = min(th, RED_CODES / bw);
+    const int base = (ty - 1) * gw + tx - 1;
+    const int oxlo = tx == 0 ? 1 : 0, oxhi = tx == gw - 1 ? 1 : 2;
+    const int nch = NV == 2 ? 2 * f + 3 : f;
+    const int c0 = blockIdx.y * fr, fc = min(fr, f - c0);   // this range
+    const bool geometry = NV == 2 && blockIdx.y == 0;      // block-uniform
+    float* out = partials + (size_t)tile * NOFF * nch + c0;
+    if (geometry && lane < NOFF * 3) geo[tid / 32][lane] = 0u;
+    const int tpp = fc / VEC, ng = NT * VEC / fc, g = tid / tpp;
+    const T* src = data + c0 + (tid - g * tpp) * VEC;
+    float* mine = acc + tid;
+#pragma unroll
+    for (int i = 0; i < NOFF * NR; ++i) mine[i * NT] = 0.0f;
+    float run[NR];
+#pragma unroll
+    for (int i = 0; i < NR; ++i) run[i] = 0.0f;
+    int cur = -1;
+    // bands of rows, then of columns (one band, as a rule)
+    for (int yb = y0, xb = x0; xb < x0 + tw;
+         yb = yb + band < y0 + th ? yb + band : y0,
+         xb = yb == y0 ? xb + bw : xb) {
+        const int cw = min(bw, x0 + tw - xb);       // the band's columns
+        const int n = min(band, y0 + th - yb) * cw;
+        // the code map's walk (pixels tid, tid + NT, ...) and the data walk
+        // (pixels g, g + ng, ...) of a band: row and column stepped, not
+        // divided
+        const int cdr = NT / cw, cdc = NT - cdr * cw;
+        const int cr0 = tid / cw, cc0 = tid - cr0 * cw;
+        const int ddr = ng / cw, ddc = ng - ddr * cw;
+        const int dr0 = g / cw, dc0 = g - dr0 * cw;
+        __syncthreads();                  // the last band's map is read
+        int r = cr0, c = cc0;
+        for (int p0 = 0; p0 < n; p0 += NT * UL) {         // warp-uniform
+            int lab[UL], ys[UL], xs[UL];
+#pragma unroll
+            for (int u = 0; u < UL; ++u) {
+                ys[u] = yb + r;
+                xs[u] = xb + c;
+                lab[u] = p0 + u * NT + tid < n
+                    ? labels[(size_t)ys[u] * width + xs[u]] : -1;
+                c += cdc;
+                r += cdr;
+                if (c >= cw) { c -= cw; ++r; }
+            }
+#pragma unroll
+            for (int u = 0; u < UL; ++u) {
+                const int p = p0 + u * NT + tid;
+                const int o = p < n ? window_code(lab[u], base, gw, oxlo,
+                                                  oxhi) : -1;
+                if (p < n) codes[p] = (signed char)o;
+                if (geometry)
+                    add_geometry(o, ys[u] - y0, xs[u] - x0, lane,
+                                 geo[tid / 32]);
+            }
+        }
+        __syncthreads();                  // the codes are in
+        if (g < ng) {
+            // a round's loads at the top of its step at VEC = 1, at the end
+            // of the step before at VEC > 1: a same-call A/B of the two loops
+            // took 24.9 against 27.9 us at F = 7 f32 and 88.2 against 52.1 at
+            // F = 30 bf16 (PERF.md)
+            const T* row0 = src + ((size_t)yb * width + xb) * f;
+            float v[U][VEC];
+            int o[U];
+            int dp = g, dr = dr0, dc = dc0;   // the data walk's next pixel
+            if constexpr (VEC > 1)
+                load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng,
+                                   ddr, ddc, cw, width, f);
+            for (int q = g; q < n; q += U * ng) {
+                if constexpr (VEC == 1)
+                    load_round<U, VEC>(row0, codes, v, o, dp, dr, dc, n, ng,
+                                       ddr, ddc, cw, width, f);
+#pragma unroll
+                for (int u = 0; u < U; ++u) {
+                    if (o[u] < 0) continue;
+                    if (o[u] != cur) {
+                        if (cur >= 0) {
+                            float* s = mine + cur * NR * NT;
+#pragma unroll
+                            for (int i = 0; i < NR; ++i) {
+                                s[i * NT] = __fadd_rn(s[i * NT], run[i]);
+                                run[i] = 0.0f;
+                            }
+                        }
+                        cur = o[u];
+                    }
+#pragma unroll
+                    for (int j = 0; j < VEC; ++j) {
+                        run[j] = __fadd_rn(run[j], v[u][j]);
+                        if constexpr (NV == 2)
+                            run[VEC + j] = __fadd_rn(
+                                run[VEC + j], __fmul_rn(v[u][j], v[u][j]));
+                    }
+                }
+                if constexpr (VEC > 1)
+                    if (dp < n)
+                        load_round<U, VEC>(row0, codes, v, o, dp, dr, dc,
+                                           n, ng, ddr, ddc, cw, width, f);
+            }
+        }
+        // the band's slots folded into the tile's sums, so that no slot
+        // adds more than a band's pixels (one band, as a rule: then the
+        // sums are the slots' reduce, as without bands)
+        if (cur >= 0) {
+            float* s = mine + cur * NR * NT;
+#pragma unroll
+            for (int i = 0; i < NR; ++i) {
+                s[i * NT] = __fadd_rn(s[i * NT], run[i]);
+                run[i] = 0.0f;
+            }
+            cur = -1;
+        }
+        __syncthreads();                  // the band's slots are in
+        fold_slots<NV, VEC, NT>(acc, out, fc, f, nch, ng, tpp, tid,
+                                yb == y0 && xb == x0);
+        if (yb + band < y0 + th || xb + bw < x0 + tw) {  // a band follows
+            __syncthreads();              // the slots are read
+#pragma unroll
+            for (int i = 0; i < NOFF * NR; ++i) mine[i * NT] = 0.0f;
+        }
     }
     if (geometry && tid < NOFF * 3) {        // the warps' sums, in order
         unsigned long long sum = 0;
@@ -830,12 +921,48 @@ extern "C" int grid_lookup(const void* table, const void* labels, void* out,
     return (int)cudaGetLastError();
 }
 
-extern "C" int grid_adjacency_presence(const void* labels, void* words,
-                                       int height, int width, int gh, int gw,
-                                       int step, void* stream) {
-    dim3 grid(gw, gh);
-    grid_adjacency_kernel<<<grid, ADJ_THREADS, 0, (cudaStream_t)stream>>>(
-        (const int*)labels, (int*)words, height, width, gw, step);
+// Rows 10 and 11: the rows and columns of a band, for every tile, so that
+// (band + 1) x (bandw + 1) labels fit PAIR_STAGE (computed here: computed
+// in the kernel by the same min(), nvcc 12.8's build ran the staging loop
+// past its bound): whole tile rows while two of them fit, else one row of
+// PAIR_STAGE / 2 - 1 columns.
+static void pair_band(int step, int* band, int* bandw) {
+    if (step + 1 <= PAIR_STAGE / 2) {
+        *bandw = step;
+        *band = PAIR_STAGE / (step + 1) - 1 < step
+            ? PAIR_STAGE / (step + 1) - 1 : step;
+    } else {
+        *bandw = PAIR_STAGE / 2 - 1;
+        *band = 1;
+    }
+}
+
+template <bool PRESENCE>
+static int pair_pass(const void* labels, void* cnt9, void* counts9,
+                     void* words, int height, int width, int gh, int gw,
+                     int step, cudaStream_t st) {
+    int band, bandw;
+    pair_band(step, &band, &bandw);
+    grid_pair_kernel<PRESENCE><<<gh * gw, PAIR_THREADS,
+                                 (band + 1) * (bandw + 1) * 5, st>>>(
+        (const int*)labels, (float*)cnt9, (float*)counts9, (int*)words,
+        height, width, gw, step, band, bandw);
+    return (int)cudaGetLastError();
+}
+
+// Row 11: the presence words (gh, gw, 9) int32; with adj given, also the
+// routed, symmetric (gh, gw, 25) 0/1 f32 adjacency, in a second launch.
+extern "C" int grid_adjacency(const void* labels, void* words, void* adj,
+                              int height, int width, int gh, int gw,
+                              int step, void* stream) {
+    if (step < 1) return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    const int err = pair_pass<true>(labels, nullptr, nullptr, words, height,
+                                    width, gh, gw, step, st);
+    if (err || adj == nullptr) return err;
+    const int n = gh * gw * NCH;
+    grid_adjacency_route_kernel<<<(n + 255) / 256, 256, 0, st>>>(
+        (const int*)words, (float*)adj, gh, gw);
     return (int)cudaGetLastError();
 }
 
@@ -846,19 +973,10 @@ extern "C" int grid_pair_count(const void* labels, void* cnt9, void* counts9,
                                void* counts, void* sym25, int height,
                                int width, int gh, int gw, int step,
                                void* stream) {
-    if (step < 1 || step + 1 > PAIR_STAGE / 2)
-        return (int)cudaErrorInvalidValue;
+    if (step < 1) return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
-    // rows a band, for every tile: (band + 1) x (step + 1) labels staged
-    // (computed here: computed in the kernel by the same min(), nvcc 12.8's
-    // build ran the staging loop past its bound)
-    const int band = PAIR_STAGE / (step + 1) - 1 < step
-        ? PAIR_STAGE / (step + 1) - 1 : step;
-    grid_pair_count_kernel<<<gh * gw, PAIR_THREADS,
-                             (band + 1) * (step + 1) * 5, st>>>(
-        (const int*)labels, (float*)cnt9, (float*)counts9, height, width, gw,
-        step, band);
-    const int err = (int)cudaGetLastError();
+    const int err = pair_pass<false>(labels, cnt9, counts9, nullptr, height,
+                                     width, gh, gw, step, st);
     if (err || counts == nullptr) return err;
     const int n = gh * gw * (NCH + 1);
     grid_pair_route_kernel<<<(n + 255) / 256, 256, 0, st>>>(
@@ -879,7 +997,7 @@ static int route(const void* partials, void* out, int gh, int gw, int f,
 
 // Rows 6 and 7: one block per tile and channel range, VEC channels a thread
 // where F and the data's alignment allow 16- or 8-byte loads; the code map
-// takes a band of at most RED_CODES bytes of the tile.  F above the block's
+// takes a band of at most RED_CODES bytes of the tile, at any seed step.  F above the block's
 // channel slots is split into equal ranges of a multiple of VEC channels,
 // one grid row each (every range re-reads the labels).
 template <typename T, int NV, int VEC>
@@ -889,8 +1007,8 @@ static int reduce_vec(const T* data, const int* labels, float* partials,
     constexpr int slots = RED_NT(VEC) * VEC;
     const int ranges = (f + slots - 1) / slots;
     const int fr = ((f + ranges - 1) / ranges + VEC - 1) / VEC * VEC;
-    const size_t codes = (size_t)(step * step < RED_CODES ? step * step
-                                                          : RED_CODES);
+    const size_t codes = (size_t)step * step < RED_CODES
+        ? (size_t)step * step : RED_CODES;
     const dim3 grid((unsigned int)gh * gw, (unsigned int)((f + fr - 1) / fr));
     grid_reduce_kernel<T, NV, VEC><<<grid, RED_NT(VEC), codes, st>>>(
         data, labels, partials, height, width, f, fr, gw, step);
@@ -901,8 +1019,7 @@ template <typename T, int NV>
 static int reduce_launch(const T* data, const int* labels, float* partials,
                          int height, int width, int f, int gh, int gw,
                          int step, cudaStream_t st) {
-    if (f < 1 || step > (NV == 2 ? RED_MAX_STEP : RED_CODES))
-        return (int)cudaErrorInvalidValue;
+    if (f < 1 || step < 1) return (int)cudaErrorInvalidValue;
     const uintptr_t a = (uintptr_t)data;
     if (f % 4 == 0 && a % (4 * sizeof(T)) == 0)
         return reduce_vec<T, NV, 4>(data, labels, partials, height, width, f,

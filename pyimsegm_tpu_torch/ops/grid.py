@@ -7,7 +7,8 @@ sums are masked tile sums routed by 9 grid shifts, and superpixel adjacency
 fits a dense (gh, gw, 25) tensor of relative seed offsets in [-2, 2]^2.
 
 The pixel-scale passes run through ``ops/grid_cuda.py`` (segment sums,
-lookup, adjacency, pair counts, moments with the donor apply),
+lookup, the adjacency and the pair counts each with its route to the seeds,
+moments with the donor apply),
 ``ops/enforce_cuda.py`` (anchor seed + reach + absorb) and
 ``ops/connectivity_cuda.py`` (reach + absorb of wide images): a CUDA
 kernel for a CUDA tensor, the plain twin for a CPU tensor.  The (K,)-sized
@@ -124,33 +125,10 @@ def _flip_channel_perm():
 
 def grid_adjacency(labels, cfg: SlicConfig):
     """(gh, gw, 25) 0/1 f32 adjacency between each superpixel and its grid
-    neighbours, from conn4 pixel pairs."""
-    gh, gw = cfg.grid_h, cfg.grid_w
-    words = grid_cuda.grid_adjacency_presence(labels, cfg)      # (gh, gw, 9)
-    ch = torch.arange(25, device=words.device, dtype=torch.int32)
-    bits = ((words[..., None] >> ch) & 1).to(torch.float32)     # (.., 9, 25)
-    adj = torch.zeros((gh, gw, 25), dtype=torch.float32, device=words.device)
-    for idx, (di, dj) in enumerate(_OFFSETS):
-        adj = adj + _shift2d(bits[:, :, idx], di, dj)
-    return _sym_mask_adjacency(adj, gh, gw)
-
-
-def _sym_mask_adjacency(adj, gh, gw):
-    """Raw pair channels -> symmetric 0/1 adjacency with out-of-range and
-    self channels zeroed."""
-    adj = (adj > 0).to(torch.float32)
-    perm = _flip_channel_perm()
-    partner = torch.stack(
-        [_shift2d(adj[..., perm[ci]], -dy, -dx)
-         for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)], dim=-1)
-    adj = torch.maximum(adj, partner)
-    oy = torch.arange(gh, device=adj.device)[:, None]
-    ox = torch.arange(gw, device=adj.device)[None, :]
-    keep = torch.stack(
-        [(oy + dy >= 0) & (oy + dy < gh) & (ox + dx >= 0) & (ox + dx < gw)
-         & (ci != _SELF) for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)],
-        dim=-1)
-    return torch.where(keep, adj, 0.0)
+    neighbours, from conn4 pixel pairs (:func:`grid_cuda.grid_adjacency`:
+    the pass and its route in one C call for CUDA tensors, the plain chain
+    for CPU tensors)."""
+    return grid_cuda.grid_adjacency(labels, cfg)
 
 
 def _neighbor_stack(table_grid):

@@ -1,14 +1,15 @@
-"""Grid lookup, conn4 adjacency presence, conn4 pair counts, the moments
-reduce with the min-size donor apply and the generic per-superpixel sum:
-CUDA kernels and twins.
+"""Grid lookup, conn4 adjacency, conn4 pair counts, the moments reduce
+with the min-size donor apply and the generic per-superpixel sum: CUDA
+kernels and twins.
 
 Replaces five kernels of ``pyimsegm_tpu.ops.grid_pallas`` with the kernels
 of ``csrc/grid.cu``: ``grid_reduce_pallas``, ``grid_lookup_pallas``,
-``grid_adjacency_presence_pallas``, ``grid_pair_count_pallas`` (also with
-the routing of ``counts_and_contacts`` in the same C call) and
+``grid_adjacency_presence_pallas`` (also with the routing and symmetrising
+of ``grid_adjacency`` in the same C call), ``grid_pair_count_pallas`` (also
+with the routing of ``counts_and_contacts`` in the same C call) and
 ``grid_moments_apply_pallas``, whose donor-less mode also replaces
 ``grid_moments_pallas``.  Each wrapper launches its kernel for CUDA tensors
-and runs its plain twin for CPU tensors.
+and runs its plain twin for CPU tensors; every kernel takes any seed step.
 """
 
 import functools
@@ -34,7 +35,7 @@ def _lib():
     return _build.load('grid', {
         'grid_reduce': [v] * 4 + [i] * 7 + [v],
         'grid_lookup': [v, v, v] + [i] * 6 + [v],
-        'grid_adjacency_presence': [v, v] + [i] * 5 + [v],
+        'grid_adjacency': [v] * 3 + [i] * 5 + [v],
         'grid_pair_count': [v] * 5 + [i] * 5 + [v],
         'grid_moments_apply': [v] * 6 + [i] * 6 + [v],
         'grid_moments': [v] * 4 + [i] * 6 + [v],
@@ -187,6 +188,26 @@ def _grid_adjacency_presence_plain(labels, cfg: SlicConfig):
     return words.to(torch.int32)
 
 
+def _adjacency_launch(labels, cfg: SlicConfig, routed):
+    """Row 11 on the card: the (gh, gw, 9) int32 presence words, and with
+    ``routed`` also the (gh, gw, 25) f32 adjacency, from one C call into
+    one allocation."""
+    h, w = labels.shape
+    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
+                            (cfg.height, cfg.width))
+    gh, gw = cfg.grid_h, cfg.grid_w
+    n9 = gh * gw * 9
+    buf = torch.empty((n9 + (gh * gw * 25 if routed else 0),),
+                      dtype=torch.int32, device=labels.device)
+    words = buf[:n9].view(gh, gw, 9)
+    adj = buf[n9:].view(torch.float32).view(gh, gw, 25) if routed else None
+    _build.launch(_lib().grid_adjacency, 'grid_adjacency_presence', labels,
+                  labels.data_ptr(), words.data_ptr(),
+                  adj.data_ptr() if routed else None, h, w, gh, gw, cfg.step)
+    LAUNCHES['grid_adjacency_presence'] += 1
+    return words, adj
+
+
 def grid_adjacency_presence(labels, cfg: SlicConfig):
     """Conn4 superpixel adjacency presence as (gh, gw, 9) 25-bit words,
     grouped by the routing offset of the first endpoint.
@@ -195,16 +216,54 @@ def grid_adjacency_presence(labels, cfg: SlicConfig):
     """
     if not labels.is_cuda:
         return _grid_adjacency_presence_plain(labels, cfg)
-    h, w = labels.shape
-    labels = _build.require(labels.contiguous(), 'labels', torch.int32,
-                            (cfg.height, cfg.width))
-    words = torch.empty((cfg.grid_h, cfg.grid_w, 9), dtype=torch.int32,
-                        device=labels.device)
-    _build.launch(_lib().grid_adjacency_presence, 'grid_adjacency_presence',
-                  labels, labels.data_ptr(), words.data_ptr(), h, w,
-                  cfg.grid_h, cfg.grid_w, cfg.step)
-    LAUNCHES['grid_adjacency_presence'] += 1
-    return words
+    return _adjacency_launch(labels, cfg, routed=False)[0]
+
+
+def _sym_mask_adjacency(adj, gh, gw):
+    """Raw pair channels -> symmetric 0/1 adjacency with out-of-range and
+    self channels zeroed."""
+    from pyimsegm_tpu_torch.ops.grid import (_SELF, GRAPH_OFFSETS,
+                                             _flip_channel_perm, _shift2d)
+    adj = (adj > 0).to(torch.float32)
+    perm = _flip_channel_perm()
+    partner = torch.stack(
+        [_shift2d(adj[..., perm[ci]], -dy, -dx)
+         for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)], dim=-1)
+    adj = torch.maximum(adj, partner)
+    oy = torch.arange(gh, device=adj.device)[:, None]
+    ox = torch.arange(gw, device=adj.device)[None, :]
+    keep = torch.stack(
+        [(oy + dy >= 0) & (oy + dy < gh) & (ox + dx >= 0) & (ox + dx < gw)
+         & (ci != _SELF) for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)],
+        dim=-1)
+    return torch.where(keep, adj, 0.0)
+
+
+def _grid_adjacency_plain(labels, cfg: SlicConfig):
+    """Twin of the routed adjacency: the presence words, routed to their
+    seeds by 9 grid shifts, then symmetrised and masked in PyTorch."""
+    from pyimsegm_tpu_torch.ops.grid import _OFFSETS, _shift2d
+    gh, gw = cfg.grid_h, cfg.grid_w
+    words = _grid_adjacency_presence_plain(labels, cfg)         # (gh, gw, 9)
+    ch = torch.arange(25, device=words.device, dtype=torch.int32)
+    bits = ((words[..., None] >> ch) & 1).to(torch.float32)     # (.., 9, 25)
+    adj = torch.zeros((gh, gw, 25), dtype=torch.float32, device=words.device)
+    for idx, (di, dj) in enumerate(_OFFSETS):
+        adj = adj + _shift2d(bits[:, :, idx], di, dj)
+    return _sym_mask_adjacency(adj, gh, gw)
+
+
+def grid_adjacency(labels, cfg: SlicConfig):
+    """Row 11 with its route: the (gh, gw, 25) 0/1 f32 adjacency between
+    each superpixel and its grid neighbours from conn4 pixel pairs,
+    symmetric, with off-grid and self channels zeroed; two CUDA kernels on
+    the card.
+
+    :param labels: (H, W) int32 grid-structured labels
+    """
+    if not labels.is_cuda:
+        return _grid_adjacency_plain(labels, cfg)
+    return _adjacency_launch(labels, cfg, routed=True)[1]
 
 
 def _pair_channel(a, b, gw):

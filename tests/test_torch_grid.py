@@ -2,9 +2,11 @@
 
 ``grid_lookup`` and ``grid_adjacency`` are held exactly against the JAX XLA
 path and against the Pallas kernels they replace, run in interpret mode.
-Labels come from the JAX SLIC of synthetic images made from numpy seeds.
+Labels come from the JAX SLIC of synthetic images made from numpy seeds,
+and, at seed steps above 1024, from a numpy seed grid (``_grid_labels``).
 """
 
+import math
 from unittest import mock
 
 import jax
@@ -27,18 +29,21 @@ from pyimsegm_tpu_torch.ops import slic as tslic
 from torch_threads import one_torch_thread  # noqa: F401
 
 SP = 16
-SHAPES = [(96, 140), (101, 133)]
+#: (shape, sp_size) by id: the module's scenes, and a shape whose last tile
+#: row and column are one pixel wide at sp_size 35
+SCENES = {'even': ((96, 140), SP), 'padded': ((101, 133), SP),
+          'one-px': ((71, 106), 35)}
 
 
-@pytest.fixture(scope='module', params=SHAPES, ids=['even', 'padded'])
+@pytest.fixture(scope='module', params=['even', 'padded'])
 def scene(request):
     """(labels (H, W) int32 numpy from the JAX SLIC, JAX cfg, torch cfg)."""
-    shape = request.param
+    shape, sp = SCENES[request.param]
     img = sample_color_image_rand_segment(shape, 3, rand_seed=3)[0]
-    cfg = jslic.slic_config(*shape, SP)
-    m = jslic.compactness_from_regul(SP, 0.2)
+    cfg = jslic.slic_config(*shape, sp)
+    m = jslic.compactness_from_regul(sp, 0.2)
     labels = np.asarray(jslic._slic_segment_xla(jnp.asarray(img), cfg, m))
-    return labels, cfg, tslic.slic_config(*shape, SP)
+    return labels, cfg, tslic.slic_config(*shape, sp)
 
 
 def _pallas_interpret(fn, *args):
@@ -132,6 +137,7 @@ def test_grid_lookup_main_path_tables_match_jax_and_pallas(scene, dtype, c):
 
 
 @pytest.mark.parametrize('damage', [False, True], ids=['slic', 'damaged'])
+@pytest.mark.parametrize('scene', list(SCENES), indirect=True)
 def test_grid_adjacency_matches_jax_and_pallas(scene, damage):
     labels, cfg, tcfg = scene
     if damage:
@@ -265,3 +271,59 @@ def test_segment_graph_cut_grid_matches_jax(scene, edge_type):
         grid_ctx=(torch.as_tensor(labels), tcfg),
         centers=torch.as_tensor(centers))
     np.testing.assert_array_equal(out.numpy(), ref)
+
+
+def _grid_labels(shape, step, seed):
+    """Grid-structured labels at seed step ``step``: each 5x5 block of
+    pixels takes its tile's seed moved by a random offset in -1..1 (kept on
+    the grid), then ids damaged as ``_damaged``."""
+    h, w = shape
+    gh, gw = math.ceil(h / step), math.ceil(w / step)
+    rng = np.random.default_rng(seed)
+    y, x = np.arange(h)[:, None], np.arange(w)[None, :]
+    moves = rng.integers(-1, 2, (2, (h + 4) // 5, (w + 4) // 5))
+    sy = np.clip(y // step + moves[0][y // 5, x // 5], 0, gh - 1)
+    sx = np.clip(x // step + moves[1][y // 5, x // 5], 0, gw - 1)
+    cfg = jslic.slic_config(h, w, step)
+    return _damaged((sy * gw + sx).astype(np.int32), cfg, seed), cfg
+
+
+def _sums_agree(got, want):
+    """rtol 1e-5 plus 1e-5 of the channel's largest sum: the sums are added
+    in another order than JAX's."""
+    scale = np.abs(want).max(axis=0, keepdims=True)
+    assert (np.abs(got - want) <= 1e-5 * np.abs(want) + 1e-5 * scale).all()
+
+
+#: seed steps above the 1024 up to which row 7 took a step (row 6 took up
+#: to 16384, rows 10 and 11 up to 4095; there JAX's XLA path, which pads
+#: the image to whole tiles, materialises gigabytes); a wide and a tall
+#: image of partial last tiles
+BIG_STEPS = {'wide': ((40, 2100), 1025), 'tall': ((2100, 36), 1025)}
+
+
+@pytest.mark.parametrize('geometry', list(BIG_STEPS))
+@pytest.mark.parametrize('fn', ['grid_adjacency', 'grid_geometry_moments',
+                                'counts_and_contacts', 'grid_segment_sum'])
+def test_twins_match_jax_at_large_seed_steps(fn, geometry):
+    """The twins that hold the CUDA kernels on the card, at a seed step above
+    a kernel's former cap, against JAX's XLA path on damaged grid labels:
+    adjacency and counts exact, sums within rtol 1e-5."""
+    shape, step = BIG_STEPS[geometry]
+    labels, cfg = _grid_labels(shape, step, seed=11)
+    tcfg = tslic.slic_config(*shape, step)
+    assert cfg.step == tcfg.step == step
+    lab_j, lab_t = jnp.asarray(labels), torch.as_tensor(labels)
+    data = np.random.default_rng(12).normal(size=shape + (3,)) \
+        .astype(np.float32)
+    if fn in ('grid_adjacency', 'counts_and_contacts'):
+        ref = getattr(jgrid, fn)(lab_j, cfg)
+        out = getattr(tgrid, fn)(lab_t, tcfg)
+        for got, want in zip(out if isinstance(out, tuple) else (out,),
+                             ref if isinstance(ref, tuple) else (ref,)):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        return
+    ref = np.asarray(getattr(jgrid, fn)(jnp.asarray(data), lab_j, cfg))
+    out = getattr(tgrid, fn)(torch.as_tensor(data), lab_t, tcfg).numpy()
+    assert out.shape == ref.shape
+    _sums_agree(out, ref)

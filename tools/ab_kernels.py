@@ -1,4 +1,4 @@
-"""Same-call A/B of build variants of kernel rows 1-8, 10 and 15.
+"""Same-call A/B of build variants of kernel rows 1-8, 10, 11 and 15.
 
 A variant is ``base`` (the source as it is), ``KEY=V+KEY=V`` (each KEY
 names a constant of the kernel's source, and the variant is built from a
@@ -66,11 +66,16 @@ none).  Then it times
 holding the bf16 planes to the twin (>= 0.9999 equal, at most 1 ulp).
 
 ``--kernel pair`` (row 10, the pair count and its route in
-``csrc/grid.cu``): ``PAIR_THREADS``, ``PAIR_MIN_BLOCKS`` and
-``PAIR_STAGE``.  On the enforced
-SLIC kernels' labels of image 0 and of ``bench.py``'s first noise image at
-884x1200 it times the routed call (``counts_and_contacts``'s triple),
-holding it and (cnt9, counts9) exactly equal to the twins.
+``csrc/grid.cu``): ``PAIR_THREADS``, ``PAIR_STAGE`` and ``PAIR_LOADS``.
+On the enforced SLIC kernels' labels of image 0 and of ``bench.py``'s first
+noise image at 884x1200 it times the routed call (``counts_and_contacts``'s
+triple), holding it and (cnt9, counts9) exactly equal to the twins.
+
+``--kernel adj`` (row 11, the presence pass, row 10's pass in its
+presence mode, and its route in ``csrc/grid.cu``): the same constants.  On
+the SLIC kernels' labels and the enforced labels of image 0 and of the
+first noise image at 884x1200 it times the routed call (``grid_adjacency``),
+holding its words and its adjacency exactly equal to the twins.
 
 ``--sass`` prints, for each variant, the SASS instruction count of each
 kernel of the source (``cuobjdump --dump-sass``), whole and split at its
@@ -92,7 +97,7 @@ variants in turns (in order, then reversed).
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/ab_kernels.py \\
-        --kernel schedule|moments|assign|slic3d|reduce|prep|pair \\
+        --kernel schedule|moments|assign|slic3d|reduce|prep|pair|adj \\
         [--variants base,PRUNE=1,...] [--probe] [--sass]
 """
 
@@ -124,8 +129,9 @@ KERNELS = {
     'reduce': ('grid', 'grid_reduce_kernel',
                'base,RED_THREADS=64,RED_MIN_BLOCKS=1'),
     'prep': ('prep', 'blur_lab_kernel', 'base,PREP_S=16,PREP_TH=64'),
-    'pair': ('grid', 'grid_pair_count_kernel',
-             'base,PAIR_THREADS=128,PAIR_MATCH=0,PAIR_LOADS=1'),
+    'pair': ('grid', 'grid_pair_kernel', 'base,PAIR_THREADS=128'),
+    'adj': ('grid', 'grid_pair_kernel', 'base,PAIR_LOADS=1,PAIR_LOADS=8,'
+            'PAIR_THREADS=128'),
 }
 #: row 1's exhaustive check of an FMA form of its constant divisions: one
 #: launch per constant divisor of csrc/prep.cu over every f32 bit pattern
@@ -249,7 +255,7 @@ def _variant_source(kernel, variant, text):
             text = text.replace(old, new)
         return text
     sets = dict(kv.split('=') for kv in variant.split('+'))
-    if kernel in ('moments', 'reduce', 'prep', 'pair'):
+    if kernel in ('moments', 'reduce', 'prep', 'pair', 'adj'):
         for key, v in sets.items():
             text = _sub_once(r'#define %s \S+' % re.escape(key),
                              '#define %s %s' % (key, v), text, key)
@@ -649,6 +655,59 @@ def _pair(torch, libs, build):
                   flush=True)
 
 
+def _adj(torch, libs, build):
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    gh, gw = cfg.grid_h, cfg.grid_w
+    dlls = {}
+    for v, (lib, _) in libs.items():
+        dll = ctypes.CDLL(lib)
+        dll.grid_adjacency.argtypes = ([build.VOIDP] * 3 + [build.INT] * 5
+                                       + [build.VOIDP])
+        dll.grid_adjacency.restype = ctypes.c_int
+        dlls[v] = dll
+    images = {
+        'image0': sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0],
+        'noise': np.random.default_rng(0).random(CROP + (3,),
+                                                 dtype=np.float32)}
+    words = torch.empty((gh, gw, 9), dtype=torch.int32, device='cuda')
+    adj = torch.empty((gh, gw, 25), device='cuda')
+    for name, image in images.items():
+        img = torch.as_tensor(image, device='cuda')
+        labels, _, centers, _ = slic_ops.slic_segment_with_features(
+            img, img, cfg, m)
+        enf = grid_ops.enforce_grid_connectivity(labels, cfg,
+                                                 centers=centers)
+        for kind, lab in (('SLIC', labels), ('enforced', enf)):
+            want = (grid_cuda._grid_adjacency_presence_plain(lab, cfg),
+                    grid_cuda._grid_adjacency_plain(lab, cfg))
+
+            def call(dll, lab=lab):
+                return lambda: build.check(dll.grid_adjacency(
+                    lab.data_ptr(), words.data_ptr(), adj.data_ptr(),
+                    CROP[0], CROP[1], gh, gw, cfg.step,
+                    build.stream_ptr(lab)), 'grid_adjacency')
+
+            def check(v, want=want, what='%s %s' % (name, kind)):
+                if not (torch.equal(words, want[0])
+                        and torch.equal(adj, want[1])):
+                    raise AssertionError('%s %s: differs from the twin'
+                                         % (v, what))
+            times = _in_turns(torch, {v: call(d) for v, d in dlls.items()},
+                              check)
+            print('%s %s labels: routed ms per call (in turns): %s'
+                  % (name, kind, json.dumps(times)), flush=True)
+            for v, dll in dlls.items():
+                print('%s %s %s device us per CUDA kernel (torch.profiler, '
+                      '5 calls): %s' % (name, kind, v, json.dumps(
+                          _kernel_us(torch, call(dll)))), flush=True)
+
+
 def _sass(libs, build):
     """Print each variant's SASS instruction count per kernel, whole and
     between block barriers."""
@@ -861,7 +920,7 @@ def main():
         return
     {'schedule': _schedule, 'moments': _moments, 'assign': _assign,
      'slic3d': _slic3d, 'reduce': _reduce, 'prep': _prep,
-     'pair': _pair}[args.kernel](torch, libs, build)
+     'pair': _pair, 'adj': _adj}[args.kernel](torch, libs, build)
 
 
 if __name__ == '__main__':

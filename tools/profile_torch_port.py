@@ -44,10 +44,11 @@ ranges, read as for ``--path 3d``.
 ``--path kernels`` measures kernel rows 1 (as ``_prepare_chw`` calls it,
 with its host-to-device copies), 2 (plain and SLICO), 3 (with its routing
 to per-seed sums), 4 (plain and SLICO), 5, 8, 9, 10 (as the bench path's
-``counts_and_contacts``, with its routing) and 12 and the
-bench path's whole SLIC stage as the paths call them, on image 0 and on the
-first noise image, rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30 bf16) and
-7 (F = 3, 18, 60) on image 0, and row 15 (the 10-iteration schedule and its
+``counts_and_contacts``, with its routing), 11 (as the edge weights'
+``grid_adjacency``, with its routing, on the enforced labels) and 12 and
+the bench path's whole SLIC stage as the paths call them, on image 0 and on
+the first noise image, rows 6 (F = 7 f32 and bf16, F = 4 f32, F = 30
+bf16) and 7 (F = 3, 18, 60) on image 0, and row 15 (the 10-iteration schedule and its
 two passes) at the 3D workload (``chip_smoke.measure_path_kernels``: call
 ms, device ms and CUDA kernel launches per call), with the package of the
 checkout at ``--root`` (this one by default), so that one call on the card
