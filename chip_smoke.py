@@ -135,7 +135,33 @@ Phases (any failure raises and exits non-zero):
    against its annotation within 0.02 of the JAX forest's; two fits with
    one seed equal); (e) a 2048x3600 and a 4096x4096 tile segmented with
    that forest, which must launch row 14 and row 13 and not row 12; warm
-   ms per tile and MPix/s.
+   ms per tile and MPix/s;
+11. the rest of the supervised family and the steps beyond the kernels'
+   former limits: (a) row 15 in its banded mode (``BIG_STEPS_3D``, seed
+   steps whose unbanded layout exceeds the card's shared memory a block),
+   its passes against their twins on the seeds and on the centres after a
+   round (those centres within 1e-5 of |centre| + 10), the schedule twice
+   equal and against
+   its twin (>= 0.999); (b) the 3D path with LM texture
+   (``FEATURES_3D_TLM``) against ``tests/data/torch_port_fixture_3d_tlm.npz``
+   at 8x160x192 (labels >= 0.999, ARS >= 0.98, standardised features of
+   the supervoxels whose voxel sets agree within 1e-2), then at the 3D
+   workload, timed, launching one ``slic3d_iterate`` a volume, its
+   features finite (its GMM fit, NaN on the card, reported: ROADMAP.md
+   queue 3); (c) config
+   2 with each of ``CLF_FAMILIES`` trained by the JAX package and carried
+   from ``tests/data/torch_port_fixture_clf.npz`` (names equal, labels >=
+   0.999, features of unchanged superpixels within rtol 1e-5 + 1e-4, their
+   proba within ``PROBA_FAMILY_BAR`` on all but ``PROBA_FAMILY_SHARE`` of
+   them, ARS >= 0.98, warm ms); (d) each family trained on the card on
+   images 0-2 with a 3-candidate search (accuracy on the JAX training set
+   within 0.02 of JAX's; GradBoost's fit twice with equal parameters,
+   AdaBoost's compared and reported; training ms); (e) row 8 at step
+   46341, one tile of more than 2^31 pixels, K = 1, no merge: the pixel
+   count equal to the tile's pixels rounded once to f32, sum f within
+   rtol 1e-3 of a float64 reduction, and the anchor seed of rows 13 / 14
+   on the same labels, whose one anchor is the centre pixel; then a line
+   saying whether scipy and pandas import on this machine.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -149,6 +175,7 @@ the sum of its two, the guarded ``donor[labels]`` and the ``index_add_`` of
 the moments, each printed).
 """
 
+import importlib.util
 import json
 import os
 import subprocess
@@ -165,6 +192,9 @@ FIXTURE_FIT = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_fit.npz')
 FIXTURE_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 FIXTURE_SUP = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_fixture_sup.npz')
+FIXTURE_CLF = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_clf.npz')
+FIXTURE_3D_TLM = os.path.join(ROOT, 'tests', 'data',
+                              'torch_port_fixture_3d_tlm.npz')
 FIXTURE_NOISE = os.path.join(ROOT, 'tests', 'data',
                              'torch_port_fixture_noise.npz')
 #: least share of enforced labels equal to JAX's on bench.py's noise images:
@@ -204,6 +234,16 @@ FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
 FEATURES_TLM = {'color': ['mean', 'std', 'energy'],
                 'tLM': ['mean', 'std', 'energy']}
 GC_REGUL_SUP = 5.0
+#: the classifier families carried from the JAX package besides the forest
+CLF_FAMILIES = ('GradBoost', 'AdaBoost', 'LogistRegr', 'SVM', 'KNN', 'MLP')
+#: bar of config 2's proba with a carried family on the superpixels whose
+#: pixel sets agree: features within rtol 1e-5 + 1e-4 move the linear
+#: models' proba by up to ~1e-4, and a feature that close to a GBT
+#: threshold or the k-th neighbour's distance moves a superpixel's by a
+#: tree's step or a vote; so 1e-4, on all but PROBA_FAMILY_SHARE of them
+PROBA_FAMILY_BAR, PROBA_FAMILY_SHARE = 1e-4, 0.005
+#: the 3D path with LM texture: its features (the small fixture's)
+FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
 #: whole-slide tiles on the routes of rows 14 and 13 at sp_size 35
 TILE_14, TILE_13 = (2048, 3600), (4096, 4096)
 #: an odd geometry at sp_size 35: the width not a multiple of 4 (row 8's
@@ -2030,6 +2070,119 @@ def step_phases(torch):
             raise AssertionError('%s disagrees on %s' % (rows[0], what))
 
 
+#: row 15 at seed steps whose unbanded layout needs more than the card's
+#: 227 KB of shared memory a block (x rows of 640 voxels; z and y tables
+#: of 1000 + 1000 entries a candidate): (shape, sp_size, spacing)
+BIG_STEPS_3D = (((4, 8, 1302), 640, (160, 160, 1)),
+                ((1000, 1000, 6), 1000, (1, 1, 500)))
+#: columns of a band in row 15's banded mode (BAND_X of csrc/slic3d.cu)
+BAND_X_3D = 96
+#: row 8 at a seed step whose tile holds more than 2^31 pixels
+BIG_STEP_8 = 46341
+
+
+def _centre_diff(got, want):
+    """Largest |got - want| / (|want| + 10) over the centres' channels."""
+    return float(((got - want).abs() / (want.abs() + 10.0)).max())
+
+
+def big_step_3d_phases(torch):
+    """Row 15 at ``BIG_STEPS_3D`` (the banded mode): the labels pass exact
+    and the partials pass within rtol 1e-5 + 1e-5 x channel max of their
+    twins on the seeds and on the centres after one round (those centres
+    within 1e-5 x (|centre| + 10): f32 sums of ~2e6 voxels a tile, in
+    another order than the twin's, put centres near 1000 ~5e-4 apart), the
+    whole schedule run twice with equal labels, against its twin (>= 0.999
+    equal).  The centre bar must catch a planted fault: the twin's centres
+    with the voxels of one band (the first ``BAND_X_3D`` columns of tile 0)
+    dropped from its sums read above it."""
+    from pyimsegm_tpu_torch.ops import slic3d, slic3d_cuda
+    from pyimsegm_tpu_torch.ops.slic import compactness_from_regul
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
+    for shape, sp, spacing in BIG_STEPS_3D:
+        cfg = slic3d.slic3d_config(shape, sp, spacing)
+        m = compactness_from_regul(sp, REGUL_3D)
+        vp, c0 = slic3d._prep3d(torch.as_tensor(
+            sample_gray_volume_3d(shape, rand_seed=3)[0], device=DEVICE), cfg)
+        where = '%dx%dx%d (steps %s)' % (shape + (cfg.steps,))
+        _check_passes_3d(torch, vp, c0, m, cfg, where)
+        c1 = slic3d_cuda._update3d_plain(
+            slic3d_cuda.slic3d_partials(vp, c0, m, cfg), c0)
+        c1_twin = slic3d_cuda._update3d_plain(
+            slic3d_cuda._slic3d_partials_plain(vp, c0, m, cfg), c0)
+        c_diff = _centre_diff(c1, c1_twin)
+        _, best_o = slic3d_cuda._assign3d_plain(vp, c0, m, cfg,
+                                                want_labels=False)
+        best_o[:cfg.steps[0], :cfg.steps[1],
+               :min(BAND_X_3D, cfg.steps[2])] = -1
+        planted = _centre_diff(slic3d_cuda._update3d_plain(
+            slic3d_cuda._pool3d_plain(vp, best_o, cfg), c0), c1_twin)
+        _check_passes_3d(torch, vp, c1, m, cfg, where)
+        lk, lp = _iterate_vs_twin(torch, vp, c0, m, cfg, 10)
+        eq = float((lk == lp).float().mean())
+        print('slic3d at %s, banded: passes exact / within rtol 1e-5, '
+              'centres after a round max diff %g of (|centre| + 10) (<= '
+              '1e-5; a dropped band reads %g), schedule labels equal %.6f '
+              '(>= 0.999), two runs equal' % (where, c_diff, planted, eq),
+              flush=True)
+        if eq < 0.999 or c_diff > 1e-5:
+            raise AssertionError('slic3d disagrees at %s' % where)
+        if planted <= 1e-5:
+            raise AssertionError('the centre bar misses a dropped band at %s'
+                                 % where)
+
+
+def big_step_8_phase(torch):
+    """Row 8 at seed step ``BIG_STEP_8``: one 46341 x 46341 tile, K = 1, the
+    donor table [0] (no merge): the pixel count equal to the tile's pixels
+    rounded once to f32, and sum f within rtol 1e-3 of a float64 torch
+    reduction of the same data (per-thread f32 sums of ~2.2e7 values);
+    then the anchor seed of rows 13 / 14 on the same labels, whose one
+    anchor must be the pixel at the centre."""
+    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    step = BIG_STEP_8
+    cfg = slic_ops.slic_config(step, step, step)
+    torch.cuda.empty_cache()          # ~43 GB below: the earlier paths' cache
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    labels = torch.zeros((step, step), dtype=torch.int32, device=DEVICE)
+    feat = torch.rand((step, step, 3), generator=gen, device=DEVICE)
+    donor = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    t0 = time.perf_counter()
+    merged, sums = grid_cuda.grid_moments_apply(feat, labels, donor, cfg)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    same = torch.equal(merged, labels)
+    del merged
+    want = torch.zeros(3, dtype=torch.float64, device=DEVICE)
+    for r0 in range(0, step, 2048):
+        want += feat[r0:r0 + 2048].sum(dim=(0, 1), dtype=torch.float64)
+    del feat
+    sums = sums.double().cpu().numpy()[0]
+    want = want.cpu().numpy()
+    # per-thread integer counts, summed exactly, rounded once to f32
+    count_want = float(np.float32(step * step))
+    rel = float(np.max(np.abs(sums[:3] - want) / want))
+    print('grid_moments_apply at step %d (one %dx%d tile, %d pixels): count '
+          '%.1f vs %.1f (the pixels rounded once to f32), sum f max rel diff '
+          '%.3g vs float64 (<= 1e-3), merged map unchanged %s, %.1f ms'
+          % (step, step, step, step * step, sums[6], count_want, rel, same,
+             ms), flush=True)
+    if sums[6] != count_want or rel > 1e-3 or not same:
+        raise AssertionError('grid_moments_apply disagrees at step %d' % step)
+    centers = torch.tensor([[step // 2, step // 2]], dtype=torch.float32,
+                           device=DEVICE)
+    reached = enforce_cuda.anchor_seed(labels, centers, cfg)
+    n_reached = int(reached.sum())
+    at_centre = bool(reached[step // 2, step // 2])
+    print('anchor_seed at step %d: %d anchor pixel(s), the centre one %s'
+          % (step, n_reached, at_centre), flush=True)
+    if n_reached != 1 or not at_centre:
+        raise AssertionError('anchor_seed disagrees at step %d' % step)
+    del labels, reached
+    torch.cuda.empty_cache()
+
+
 def _fixture_suffix(fixture, suffix):
     """The arrays of one feature family of the supervised fixture ('' for
     config 2's, '_tlm' for the LM family's), without the suffix."""
@@ -2117,6 +2270,184 @@ def path_supervised(torch, images, fixture):
           'forest): %s (best %.3f ms, %.3f MPix/s)'
           % (['%.3f' % t for t in ms], min(ms),
              CROP[0] * CROP[1] / 1e6 / min(ms) * 1e3), flush=True)
+    return launches
+
+
+def _family(fixture, name):
+    """A family's JAX-trained classifier of the classifier fixture, carried
+    to the card."""
+    from pyimsegm_tpu_torch.classification import classifier_from_numpy
+    pre = name + '_clf_'
+    return classifier_from_numpy(
+        {k[len(pre):]: v for k, v in fixture.items() if k.startswith(pre)},
+        name, device=DEVICE)
+
+
+def path_families(torch, images, fixture):
+    """Config 2 on image 0 with each family of ``CLF_FAMILIES`` trained by
+    the JAX package and carried across, against the classifier fixture;
+    returns the launch counts."""
+    from pyimsegm_tpu_torch import descriptors, pipelines
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL, gc_regul=GC_REGUL_SUP)
+    clfs = {name: _family(fixture, name) for name in CLF_FAMILIES}
+    segment = pipelines.segment_color2d_slic_features_model_graphcut
+
+    def run():
+        out = {}
+        for name in CLF_FAMILIES:
+            debug = {}
+            segm, soft = segment(images[0], clfs[name], FEATURES_SUP,
+                                 debug_visual=debug, **kw)
+            out[name] = (segm, soft, debug)
+        return out
+
+    outs, launches = _drive('carried families', PATH_SUP, run,
+                            forbidden=WIDE)
+    slic_want = fixture['slic'].astype(np.int64)
+    for name in CLF_FAMILIES:
+        segm, soft, debug = outs[name]
+        _check_outputs(segm, soft)
+        slic = debug['slic']
+        if name == CLF_FAMILIES[0]:
+            _, names = descriptors.compute_selected_features_color2d(
+                torch.as_tensor(images[0], device=DEVICE),
+                torch.as_tensor(slic.reshape(-1), device=DEVICE),
+                cfg.n_segments, FEATURES_SUP,
+                grid_ctx=(torch.as_tensor(slic, device=DEVICE), cfg))
+            names_ok = list(names) == [str(n) for n in fixture['names']]
+        slic_eq = float((slic == slic_want).mean())
+        diff = slic != slic_want
+        touched = np.zeros(cfg.n_segments, bool)
+        touched[slic[diff]] = True
+        touched[slic_want[diff]] = True
+        fd = np.abs(debug['features'] - fixture['features'])[~touched]
+        feat_ok = bool((fd <= 1e-5 * np.abs(fixture['features'][~touched])
+                        + 1e-4).all())
+        pd = np.abs(debug['proba'] - fixture[name + '_proba'])[~touched]
+        pd = pd.max(axis=1)
+        ars = adjusted_rand_score(segm, fixture[name + '_segm'])
+        ms = [_warm_ms(torch, lambda: segment(images[0], clfs[name],
+                                              FEATURES_SUP, **kw), 1)
+              for _ in range(3)]
+        print('config 2 with the carried %s, image 0 vs JAX-CPU: names equal '
+              '%s, labels equal %.6f (>= 0.999), features max diff %.3g on '
+              '%d / %d unchanged superpixels (rtol 1e-5 + 1e-4), proba max '
+              'diff %.3g, superpixels above 1e-6 %d, above %g %d (share <= '
+              '%g), segm ARS %.6f (>= 0.98); warm ms %s (best %.3f)'
+              % (name, names_ok, slic_eq, float(fd.max()),
+                 int((~touched).sum()), touched.size, float(pd.max()),
+                 int((pd > 1e-6).sum()), PROBA_FAMILY_BAR,
+                 int((pd > PROBA_FAMILY_BAR).sum()), PROBA_FAMILY_SHARE,
+                 ars, ['%.3f' % t for t in ms], min(ms)), flush=True)
+        if not (names_ok and slic_eq >= 0.999 and feat_ok and ars >= 0.98
+                and (pd > PROBA_FAMILY_BAR).mean() <= PROBA_FAMILY_SHARE):
+            raise AssertionError('config 2 with %s disagrees with the JAX '
+                                 'reference' % name)
+    return launches
+
+
+def path_train_families(torch, images, annots, fixture):
+    """Each family of ``CLF_FAMILIES`` trained on the card on images 0-2
+    with a 3-candidate search: accuracy on the JAX training set within 0.02
+    of the JAX classifier's, GradBoost's fit twice with equal parameters
+    (AdaBoost's compared and reported); the training ms of each."""
+    from pyimsegm_tpu_torch import classification, pipelines
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL)
+    x, y = fixture['train_features'], fixture['train_labels']
+    for name in CLF_FAMILIES:
+
+        def train():
+            return pipelines.train_classif_color2d_slic_features(
+                images[:3], annots[:3], FEATURES_SUP, clf_name=name,
+                nb_classif_search=3, device=DEVICE, **kw)
+
+        (clf, _slic, _feats, _labels), _ = _drive(
+            'training %s' % name, PATH_SUP[:-1], train, forbidden=WIDE)
+        ms = _warm_ms(torch, train, 1)
+        acc = clf.score(x, y)
+        acc_j = float(fixture[name + '_train_acc'])
+        refits = [classification.classifier_to_numpy(classification.Classifier(
+            name, seed=clf.seed, device=DEVICE, **clf.hyper).fit(x, y))
+            for _ in range(2)]
+        same = all(np.array_equal(refits[0][k], refits[1][k])
+                   for k in refits[0])
+        print('training %s on the card: hyper %s, accuracy on the JAX '
+              'training set %.4f vs the JAX classifier %.4f (within 0.02); '
+              'two fits with one seed equal: %s; training ms (warm, 3 images, '
+              '3 candidates) %.3f'
+              % (name, json.dumps(clf.hyper), acc, acc_j, same, ms),
+              flush=True)
+        if acc < acc_j - 0.02 or (name == 'GradBoost' and not same):
+            raise AssertionError('training %s on the card misses the JAX '
+                                 'classifier' % name)
+
+
+def path_gray3d_tlm(torch, fixture):
+    """The 3D path with LM texture: at the small fixture's size against it
+    (SLIC labels of the stored slices >= 0.999 equal, segm ARS >= 0.98,
+    standardised features of the supervoxels whose voxel sets agree within
+    1e-2), then at the 3D workload (48x640x768) timed, its output's shape
+    and range, the launch of row 15, finite features and mixture
+    parameters, and each of the NB_CLASSES_3D classes on at least 1% of the
+    voxels checked; returns the launch counts of the full-size run."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.utils.data_samples import sample_gray_volume_3d
+    from pyimsegm_tpu_torch.utils.metrics import (adjusted_rand_score,
+                                                  segment_digest)
+    shape = tuple(int(s) for s in fixture['shape'])
+
+    def run(vol, debug=None):
+        return pipelines.pipe_gray3d_slic_features_model_graphcut(
+            vol, NB_CLASSES_3D, FEATURES_3D_TLM, spacing=SPACING_3D,
+            sp_size=SP_3D, sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D,
+            debug_visual=debug)
+
+    small = torch.as_tensor(sample_gray_volume_3d(shape)[0], device=DEVICE)
+    debug = {}
+    segm = run(small, debug)
+    want = np.unpackbits(fixture['segm_bits'])[:segm.size].reshape(shape)
+    ars = adjusted_rand_score(segm, want)
+    slic_eq = float((debug['slic'][fixture['slices']]
+                     == fixture['slic']).mean())
+    same = np.all(segment_digest(debug['slic'], fixture['features'].shape[0])
+                  == fixture['digest'], axis=1)
+    fd = float(np.abs(debug['features'] - fixture['features'])[same].max())
+    print('3D path with tLM at %dx%dx%d vs JAX-CPU: %d features, labels '
+          'equal %.6f (>= 0.999), segm ARS %.6f (>= 0.98), supervoxels with '
+          'the same voxel set %d / %d, their standardised features max diff '
+          '%.3g (<= 1e-2)' % (shape + (debug['features'].shape[1], slic_eq,
+                                       ars, int(same.sum()), same.size, fd)),
+          flush=True)
+    if slic_eq < 0.999 or ars < 0.98 or fd > 1e-2 or same.mean() < 0.99:
+        raise AssertionError('3D path with tLM disagrees with the JAX '
+                             'reference')
+    vol = torch.as_tensor(sample_gray_volume_3d(SHAPE_3D)[0], device=DEVICE)
+    debug = {}
+    segm, launches = _drive('3D path with tLM', PATH_3D,
+                            lambda: run(vol, debug), forbidden=PASSES_3D)
+    gmm = debug['model'].gmm
+    finite = all(bool(torch.isfinite(a).all()) for a in gmm)
+    shares = np.bincount(segm.ravel(), minlength=NB_CLASSES_3D) / segm.size
+    # this volume's 23 standardised columns are nearly collinear: where
+    # every f32 restart's covariance factor breaks down, the fit is redone
+    # in float64 (covariances kept in float64)
+    print('3D path with tLM at 48x640x768: features finite %s, mixture '
+          'finite %s (covariances in %s), class shares %s (each >= 0.01)'
+          % (bool(np.isfinite(debug['features']).all()), finite,
+             gmm.covs.dtype, np.round(shares, 4).tolist()), flush=True)
+    if segm.shape != SHAPE_3D or segm.min() < 0 \
+            or segm.max() >= NB_CLASSES_3D \
+            or not np.isfinite(debug['features']).all() or not finite \
+            or shares.min() < 0.01:
+        raise AssertionError('3D path with tLM: bad segmentation')
+    ms = [_warm_ms(torch, lambda: run(vol), 1) for _ in range(2)]
+    print('3D path with tLM warm ms per 48x640x768 volume: %s (best %.3f ms, '
+          '%.3f MVox/s)' % (['%.3f' % t for t in ms], min(ms),
+                            float(np.prod(SHAPE_3D)) / 1e6 / min(ms) * 1e3),
+          flush=True)
     return launches
 
 
@@ -2229,7 +2560,7 @@ def main():
 
     fixtures = []
     for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
-                 FIXTURE_NOISE):
+                 FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
@@ -2245,6 +2576,7 @@ def main():
     records += fit_kernel_phases(torch, img)
     reduce_phases(torch)
     step_phases(torch)
+    big_step_3d_phases(torch)
     model = class_model_from_numpy(fixtures[0]).to(DEVICE)
     path_connectivity_false(torch, model, images, fixtures[0])
     bench = path_bench(torch, model, images, fixtures[1])
@@ -2261,12 +2593,16 @@ def main():
     fixture_3d = {k: v for k, v in fixtures[3].items()
                   if not k.startswith('small_')}
     gray3d = path_gray3d(torch, vol, fixture_3d)
+    path_gray3d_tlm(torch, fixtures[7])
 
     records += kernel_phases_wide(torch)
     records += row7_phases(torch, img)
     sup = path_supervised(torch, images, fixtures[4])
     clf = path_train(torch, images, [p[1] for p in pairs], fixtures[4])
     tiles = path_tiles(torch, clf)
+    path_families(torch, images, fixtures[6])
+    path_train_families(torch, images, [p[1] for p in pairs], fixtures[6])
+    big_step_8_phase(torch)
     for rec in records:
         name = rec['name']
         rec['launches'] = (
@@ -2276,6 +2612,9 @@ def main():
             else bench[name] if name in PATH_BENCH else
             op[name] if name in PATH_OP else
             gray3d[name] if name in PATH_3D + PASSES_3D else fit[name])
+    print('host packages on this machine: %s' % json.dumps(
+        {m: importlib.util.find_spec(m) is not None
+         for m in ('scipy', 'pandas')}), flush=True)
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

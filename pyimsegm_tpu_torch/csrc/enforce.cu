@@ -45,34 +45,31 @@ __device__ __forceinline__ int window_code(int l, int y, int x, int gw,
     return (oy >= 0 && oy < 3 && ox >= 0 && ox < 3) ? oy * 3 + ox : -1;
 }
 
-__global__ void __launch_bounds__(SEED_THREADS)
-seed_tile_min_kernel(const float* __restrict__ centers,  // (K, 2)
-                     const int* __restrict__ labels,     // (H, W)
-                     int* __restrict__ copy,             // (H, W) or null
-                     float* __restrict__ d2,             // (H, W)
-                     float* __restrict__ tile_min,       // (gh, gw, 9)
-                     int height, int width, int gh, int gw, int step) {
-    __shared__ unsigned int mins[NOFF];
-    const int tx = blockIdx.x, ty = blockIdx.y;
-    const int k = gh * gw, area = step * step;
-    if (threadIdx.x < NOFF) mins[threadIdx.x] = 0x7f800000u;   // +inf
-    __syncthreads();
-    float local[NOFF];
-#pragma unroll
-    for (int o = 0; o < NOFF; ++o) local[o] = F_INF;
-    for (int p0 = threadIdx.x; p0 < area; p0 += SEED_THREADS * SEED_BATCH) {
+// The seed pass over the pixels p = 0 .. step^2 - 1 of tile (ty, tx), p
+// counted in I: int where step^2 fits, else 64-bit (a step above 46340).
+template <typename I>
+__device__ __forceinline__ void seed_tile_pixels(
+        const float* __restrict__ centers, const int* __restrict__ labels,
+        int* __restrict__ copy, float* __restrict__ d2, int height, int width,
+        int gw, int step, int k, int ty, int tx, float* local) {
+    const I area = (I)step * step;
+    for (I p0 = threadIdx.x; p0 < area; p0 += SEED_THREADS * SEED_BATCH) {
         int l[SEED_BATCH];
 #pragma unroll
         for (int b = 0; b < SEED_BATCH; ++b) {
-            const int p = p0 + SEED_THREADS * b;
-            const int y = ty * step + p / step, x = tx * step + p % step;
+            const I p = p0 + SEED_THREADS * b;
+            const int py = (int)(p / step);
+            const int y = ty * step + py;
+            const int x = tx * step + (int)(p - (I)py * step);
             l[b] = p < area && y < height && x < width
                 ? labels[(size_t)y * width + x] : -1;
         }
 #pragma unroll
         for (int b = 0; b < SEED_BATCH; ++b) {
-            const int p = p0 + SEED_THREADS * b;
-            const int y = ty * step + p / step, x = tx * step + p % step;
+            const I p = p0 + SEED_THREADS * b;
+            const int py = (int)(p / step);
+            const int y = ty * step + py;
+            const int x = tx * step + (int)(p - (I)py * step);
             if (p >= area || y >= height || x >= width) continue;
             const size_t idx = (size_t)y * width + x;
             if (copy != nullptr) copy[idx] = l[b];
@@ -91,6 +88,29 @@ seed_tile_min_kernel(const float* __restrict__ centers,  // (K, 2)
                 if (oi == o) local[oi] = fminf(local[oi], d);
         }
     }
+}
+
+__global__ void __launch_bounds__(SEED_THREADS)
+seed_tile_min_kernel(const float* __restrict__ centers,  // (K, 2)
+                     const int* __restrict__ labels,     // (H, W)
+                     int* __restrict__ copy,             // (H, W) or null
+                     float* __restrict__ d2,             // (H, W)
+                     float* __restrict__ tile_min,       // (gh, gw, 9)
+                     int height, int width, int gh, int gw, int step) {
+    __shared__ unsigned int mins[NOFF];
+    const int tx = blockIdx.x, ty = blockIdx.y;
+    const int k = gh * gw;
+    if (threadIdx.x < NOFF) mins[threadIdx.x] = 0x7f800000u;   // +inf
+    __syncthreads();
+    float local[NOFF];
+#pragma unroll
+    for (int o = 0; o < NOFF; ++o) local[o] = F_INF;
+    if ((long long)step * step + SEED_THREADS * SEED_BATCH <= 0x7fffffffLL)
+        seed_tile_pixels<int>(centers, labels, copy, d2, height, width, gw,
+                              step, k, ty, tx, local);
+    else
+        seed_tile_pixels<long long>(centers, labels, copy, d2, height, width,
+                                    gw, step, k, ty, tx, local);
 #pragma unroll
     for (int o = 0; o < NOFF; ++o) {
         float v = local[o];

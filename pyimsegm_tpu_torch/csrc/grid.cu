@@ -128,6 +128,7 @@
 // 128 (PERF.md)
 #define MOM_THREADS 96
 #define MOM_CH 9
+#define MOM_COUNT 6          // the pixel-count channel of row 8
 #define FULL 0xffffffffu
 #define LOOKUP_THREADS 128
 #define LOOKUP_PIXELS 4
@@ -227,11 +228,14 @@ __device__ __forceinline__ int moments_pixel(int l, float f0, float f1,
     if (o >= 0) {
         float* s = mine + o * MOM_CH * MOM_THREADS;
         const float v[MOM_CH] = {f0, f1, f2, __fmul_rn(f0, f0),
-                                 __fmul_rn(f1, f1), __fmul_rn(f2, f2), 1.0f,
+                                 __fmul_rn(f1, f1), __fmul_rn(f2, f2), 0.0f,
                                  (float)y, (float)x};
 #pragma unroll
         for (int c = 0; c < MOM_CH; ++c)
-            s[c * MOM_THREADS] = __fadd_rn(s[c * MOM_THREADS], v[c]);
+            if (c != MOM_COUNT)
+                s[c * MOM_THREADS] = __fadd_rn(s[c * MOM_THREADS], v[c]);
+        // the pixel count, an integer in the slot's bits
+        ((unsigned int*)s)[MOM_COUNT * MOM_THREADS] += 1u;
     }
     return l;
 }
@@ -260,10 +264,15 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
     const int x0 = tx * step, x1 = min(x0 + step, width);
     const int y0 = ty * step, y1 = min(y0 + step, height);
     if (quad) {
+        // quads tid, tid + MOM_THREADS, ... of the tile's rows, row and
+        // column stepped: a tile may hold more than 2^31 pixels
         const int q0 = x0 / 4, nq = (x1 + 3) / 4 - q0;
-        const int n = (y1 - y0) * nq;
-        for (int i = tid; i < n; i += MOM_THREADS) {
-            const int r = i / nq, xq = (q0 + i - r * nq) * 4, y = y0 + r;
+        const int dr = MOM_THREADS / nq, dc = MOM_THREADS - dr * nq;
+        int r = tid / nq, c = tid - r * nq;
+        for (; r < y1 - y0; r += dr, c += dc) {
+            if (c >= nq) { c -= nq; ++r; }
+            if (r >= y1 - y0) break;
+            const int xq = (q0 + c) * 4, y = y0 + r;
             const size_t idx = (size_t)y * width + xq;
             const int4 l4 = *(const int4*)(labels + idx);
             const float4* fp = (const float4*)(feat + idx * 3);
@@ -286,9 +295,13 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
             }
         }
     } else {
-        const int w = x1 - x0, n = (y1 - y0) * w;
-        for (int i = tid; i < n; i += MOM_THREADS) {
-            const int r = i / w, y = y0 + r, x = x0 + i - r * w;
+        const int w = x1 - x0;
+        const int dr = MOM_THREADS / w, dc = MOM_THREADS - dr * w;
+        int r = tid / w, c = tid - r * w;
+        for (; r < y1 - y0; r += dr, c += dc) {
+            if (c >= w) { c -= w; ++r; }
+            if (r >= y1 - y0) break;
+            const int y = y0 + r, x = x0 + c;
             const size_t idx = (size_t)y * width + x;
             merged[idx] = moments_pixel(labels[idx], feat[idx * 3],
                                         feat[idx * 3 + 1], feat[idx * 3 + 2],
@@ -321,7 +334,21 @@ grid_moments_kernel(const float* __restrict__ feat,    // (H, W, 3)
 #pragma unroll
     for (int i = 0; i < PER_WARP; ++i) {
         const int j = warp + i * MOM_WARPS;
-        if (lane == 0 && j < NOFF * MOM_CH) out[j] = s[i];
+        if (lane == 0 && j < NOFF * MOM_CH && j % MOM_CH != MOM_COUNT)
+            out[j] = s[i];
+    }
+    // the pixel counts: the threads' integers summed exactly in 64 bits and
+    // rounded once (the f32 sum of the other slots would stop growing at
+    // 2^24 pixels a thread)
+    for (int o = warp; o < NOFF; o += MOM_WARPS) {
+        unsigned long long c = 0;
+#pragma unroll
+        for (int r = 0; r < MOM_THREADS; r += 32)
+            c += __float_as_uint(
+                acc[(o * MOM_CH + MOM_COUNT) * MOM_THREADS + lane + r]);
+#pragma unroll
+        for (int m = 16; m > 0; m >>= 1) c += __shfl_xor_sync(FULL, c, m);
+        if (lane == 0) out[o * MOM_CH + MOM_COUNT] = __ull2float_rn(c);
     }
 }
 

@@ -50,6 +50,14 @@
 //     tables are built one (axis, candidate) a thread with no division;
 //   * a chunk's labels replace its voxels in shared memory and are stored
 //     along x (a row a thread would scatter 32 rows a store);
+//   * a tile whose staged rows and tables do not fit in shared memory (a
+//     seed step of some 580 voxels along x, or some 1000 along z and y)
+//     takes the banded mode: a work item is a band of BAND_X columns of
+//     T rows, the x table covers the band and is built for each item, and
+//     the z and y terms are computed for each row from the candidates'
+//     centres, with the same rounded operations.  A thread still walks its
+//     row in x order, so the sums and labels are those the unbanded layout
+//     gives; a tile that fits keeps the unbanded layout;
 //   * one cooperative grid of as many blocks as the card holds co-resident
 //     (a launch the card refuses returns its error), striding over the
 //     tiles.  A round is the partials pass, a grid barrier, the centre
@@ -67,6 +75,7 @@ namespace cg = cooperative_groups;
 #define NOFF 27
 #define NCH 5
 #define XSTRIDE 28          // x table row: 27 candidates and a pad
+#define BAND_X 96           // columns of a band in the banded mode
 
 // Block size T and the blocks an SM must hold (which caps the registers).
 // Chosen by same-call A/B runs on the card (PERF.md).
@@ -87,6 +96,7 @@ struct Args3 {
     float* part;             // (gz, gy, gx, 27, 5), or null: labels only
     float s_z, s_y, s_x, sw, m2;
     int depth, height, width, gz, gy, gx, sz, sy, sx, n_upd;
+    int bx, nbx;             // columns of a band (sx unbanded), bands a row
 };
 
 // Asynchronous copies into shared memory (cp.async): 16 bytes through L2
@@ -126,10 +136,11 @@ __device__ __forceinline__ void candidate3(float v, float cv, float ab,
     }
 }
 
-// The shared memory of a block: dynamic (x table [sx][28], per-thread sums
-// [135][T + 1], two stages [T][sx | 1] of a chunk's voxels, z table
-// [27][sz], y table [27][sy]) and static (two sets of the 27 candidates'
-// centres as fetched, the current tile's candidate values and seed ids).
+// The shared memory of a block: dynamic (x table [bx][28], per-thread sums
+// [135][T + 1], two stages [T][bx | 1] of a chunk's voxels, and unbanded
+// the z table [27][sz] and y table [27][sy]) and static (two sets of the
+// 27 candidates' centres as fetched, the current tile's candidate values
+// and seed ids, and banded its candidates' centres).
 struct Smem3 {
     float* xt;
     float* acc;
@@ -140,20 +151,21 @@ struct Smem3 {
     float* cv;
     int* nid;
     long long* rowoff;           // the device offsets of a chunk's rows
+    float4* ctile;               // banded: the tile's candidates' centres
 };
 
-// A work item: rows r0 .. r0 + T - 1 (a chunk) of tile t.  Issue the
-// asynchronous copies of its voxels into stage b (and, for a tile's first
-// chunk, of its 27 candidates' centres into cc[b]; an out-of-grid one gets
-// a NaN z), as one group.
+// A work item: rows r0 .. r0 + T - 1 (a chunk) of tile t, columns of band
+// xb.  Issue the asynchronous copies of its voxels into stage b (and, for a
+// tile's first item, of its 27 candidates' centres into cc[b]; an
+// out-of-grid one gets a NaN z), as one group.
 __device__ __forceinline__ void fetch_item(const Args3& a, const float* cen,
                                            const Smem3& m, int t, int r0,
-                                           int b) {
+                                           int xb, int b) {
     constexpr int T = Cfg3::T;
     const int tid = threadIdx.x;
     const int tx = t % a.gx, ty = (t / a.gx) % a.gy, tz = t / (a.gx * a.gy);
     const int hp = a.gy * a.sy, wp = a.gx * a.sx;
-    if (r0 == 0 && tid < NOFF) {
+    if (r0 == 0 && xb == 0 && tid < NOFF) {
         const int nz = tz + tid / 9 - 1, ny = ty + (tid / 3) % 3 - 1,
                   nx = tx + tid % 3 - 1;
         if (nz >= 0 && nz < a.gz && ny >= 0 && ny < a.gy && nx >= 0 &&
@@ -166,12 +178,13 @@ __device__ __forceinline__ void fetch_item(const Args3& a, const float* cen,
     }
     // one row a thread, copied along x
     const int nr = min(T, a.sz * a.sy - r0);
+    const int xo = xb * a.bx, cw = min(a.bx, a.sx - xo);
     if (tid < nr) {
         const int r = r0 + tid, lz = r / a.sy, ly = r - lz * a.sy;
         const float* src = a.vol + ((size_t)(tz * a.sz + lz) * hp
-                                    + ty * a.sy + ly) * wp + tx * a.sx;
-        float* dst = m.stage + (b * T + tid) * (a.sx | 1);
-        for (int lx = 0; lx < a.sx; ++lx) copy4(dst + lx, src + lx);
+                                    + ty * a.sy + ly) * wp + tx * a.sx + xo;
+        float* dst = m.stage + (b * T + tid) * (a.bx | 1);
+        for (int lx = 0; lx < cw; ++lx) copy4(dst + lx, src + lx);
     }
     copy_commit();
 }
@@ -179,7 +192,8 @@ __device__ __forceinline__ void fetch_item(const Args3& a, const float* cen,
 // The tables of tile t from its candidates' centres cc[b] (and their values
 // and seed ids): entry i of 27 * (sz + sy + sx), the squared scaled
 // differences to each candidate's coordinate, the z entry infinite for an
-// out-of-grid candidate.
+// out-of-grid candidate.  Banded, the centres are kept instead.
+template <bool BANDED>
 __device__ __forceinline__ void build_tables(const Args3& a, const Smem3& m,
                                              int t, int b) {
     const int tid = threadIdx.x;
@@ -191,7 +205,9 @@ __device__ __forceinline__ void build_tables(const Args3& a, const Smem3& m,
                         nx >= 0 && nx < a.gx;
         m.nid[tid] = ok ? (nz * a.gy + ny) * a.gx + nx : 0;
         m.cv[tid] = m.cc[b][tid].x;
+        if (BANDED) m.ctile[tid] = m.cc[b][tid];
     }
+    if (BANDED) return;
     // item i: axis i / 27 of candidate i % 27, all its entries
     for (int i = tid; i < 3 * NOFF; i += Cfg3::T) {
         const int axis = i / NOFF, o = i - axis * NOFF;
@@ -218,6 +234,31 @@ __device__ __forceinline__ void build_tables(const Args3& a, const Smem3& m,
             }
         }
     }
+}
+
+// Banded: the x table of the cw columns of band xb of tile t.
+__device__ __forceinline__ void build_xtable(const Args3& a, const Smem3& m,
+                                             int t, int xb, int cw) {
+    const int x0 = (t % a.gx) * a.sx + xb * a.bx;
+    for (int o = threadIdx.x; o < NOFF; o += Cfg3::T) {
+        const float cx = m.ctile[o].w;
+        for (int l = 0; l < cw; ++l) {
+            const float f = __fmul_rn(__fsub_rn((float)(x0 + l), cx), a.s_x);
+            m.xt[l * XSTRIDE + o] = __fmul_rn(f, f);
+        }
+    }
+}
+
+// Banded: a^2 + b^2 of candidate o for the voxel row (z, y), as the z and y
+// tables hold them.
+__device__ __forceinline__ float row_ab(const Args3& a, const Smem3& m, int o,
+                                       int z, int y) {
+    const float4 c = m.ctile[o];
+    const float fz = __fmul_rn(__fsub_rn((float)z, c.y), a.s_z);
+    const float fy = __fmul_rn(__fsub_rn((float)y, c.z), a.s_y);
+    const float za = isnan(c.y) ? __int_as_float(0x7f800000)
+                                : __fmul_rn(fz, fz);
+    return __fadd_rn(za, __fmul_rn(fy, fy));
 }
 
 // Tile t's per-offset partials from the per-thread sums (which it zeroes):
@@ -251,51 +292,62 @@ __device__ __forceinline__ void reduce_tile(const Args3& a, float* acc,
 // One pass over the block's tiles (blockIdx.x, + gridDim.x, ...): every
 // voxel's first-best candidate, then its label (labels != null) or its
 // contribution to its tile's per-offset partials.  The work items (chunks
-// of T rows of a tile, one row a thread) run as a two-stage pipeline: the
-// copies of item k + 1 are in flight while item k is evaluated from shared
-// memory.  acc is all zero on entry and is left all zero.
-template <bool POOL>
+// of T rows of a tile, one row a thread; banded, each band of a chunk)
+// run as a two-stage pipeline: the copies of item k + 1 are in flight
+// while item k is evaluated from shared memory.  acc is all zero on entry
+// and is left all zero.
+template <bool POOL, bool BANDED>
 __device__ __forceinline__ void pass_tiles(const Args3& a, const float* cen,
                                            const Smem3& m) {
     constexpr int T = Cfg3::T;
     const int tid = threadIdx.x;
     const int n_tiles = a.gz * a.gy * a.gx, rows = a.sz * a.sy;
-    const int sxp = a.sx | 1;                    // odd: no bank conflict
+    const int sxp = a.bx | 1;                    // odd: no bank conflict
     const int hp = a.gy * a.sy, wp = a.gx * a.sx;
-    const float inv_sx = 1.0f / (float)a.sx;
-    int t = blockIdx.x, r0 = 0, b = 0;
-    if (t < n_tiles) fetch_item(a, cen, m, t, 0, 0);
+    int t = blockIdx.x, r0 = 0, xb = 0, b = 0;
+    if (t < n_tiles) fetch_item(a, cen, m, t, 0, 0, 0);
     while (t < n_tiles) {
-        // the next item: the tile's next chunk, or the next tile's first
-        int tn = t, rn = r0 + T;
+        // the next item: the chunk's next band, the tile's next chunk, or
+        // the next tile's first
+        int tn = t, rn = r0, xn = xb + 1;
+        if (xn >= a.nbx) { xn = 0; rn = r0 + T; }
         if (rn >= rows) { tn = t + gridDim.x; rn = 0; }
-        if (tn < n_tiles) fetch_item(a, cen, m, tn, rn, b ^ 1);
+        if (tn < n_tiles) fetch_item(a, cen, m, tn, rn, xn, b ^ 1);
         else copy_commit();                       // an empty group
         copy_wait_prior();
         __syncthreads();
-        if (r0 == 0) {
-            build_tables(a, m, t, b);
+        if (r0 == 0 && xb == 0) {
+            build_tables<BANDED>(a, m, t, b);
             __syncthreads();
         }
+        const int xo = xb * a.bx, cw = BANDED ? min(a.bx, a.sx - xo) : a.sx;
+        if (BANDED) {
+            build_xtable(a, m, t, xb, cw);
+            __syncthreads();
+        }
+        const float inv_cw = 1.0f / (float)cw;
         const int tx = t % a.gx, ty = (t / a.gx) % a.gy,
                   tz = t / (a.gx * a.gy);
         const int nr = min(T, rows - r0);
         float* st = m.stage + b * T * sxp;
         if (tid < nr) {
             const int r = r0 + tid, lz = r / a.sy, ly = r - lz * a.sy;
-            const int z = tz * a.sz + lz, y = ty * a.sy + ly, x0 = tx * a.sx;
+            const int z = tz * a.sz + lz, y = ty * a.sy + ly,
+                      x0 = tx * a.sx + xo;
             float cvr[NOFF], ab[NOFF];
 #pragma unroll
             for (int o = 0; o < NOFF; ++o) {
                 cvr[o] = m.cv[o];
-                ab[o] = __fadd_rn(m.za[o * a.sz + lz], m.yb[o * a.sy + ly]);
+                ab[o] = BANDED ? row_ab(a, m, o, z, y)
+                               : __fadd_rn(m.za[o * a.sz + lz],
+                                           m.yb[o * a.sy + ly]);
             }
             const bool row_valid = z < a.depth && y < a.height;
             const float fz = (float)z, fy = (float)y;
             float* vrow = st + tid * sxp;
             if (!POOL) m.rowoff[tid] = ((long long)z * hp + y) * wp + x0;
             float* mine = m.acc + tid;
-            for (int lx = 0; lx < a.sx; ++lx) {
+            for (int lx = 0; lx < cw; ++lx) {
                 const float v = vrow[lx];
                 float best_d = 1e10f;
                 int best_o = -1;
@@ -330,22 +382,23 @@ __device__ __forceinline__ void pass_tiles(const Args3& a, const float* cen,
         }
         __syncthreads();
         if (!POOL) {
-            // the chunk's labels stored along x: voxel e of the chunk is
-            // (row e / sx, x e % sx), the quotient exact in f32 for the
-            // chunk's e < T * sx
-            for (int e = tid; e < nr * a.sx; e += T) {
+            // the item's labels stored along x: voxel e of the item is
+            // (row e / cw, x e % cw), the quotient exact in f32 for the
+            // item's e < T * cw
+            for (int e = tid; e < nr * cw; e += T) {
                 const int rl = __float2int_rz(
-                    __fmul_rn((float)e + 0.5f, inv_sx));
-                const int lx = e - rl * a.sx;
+                    __fmul_rn((float)e + 0.5f, inv_cw));
+                const int lx = e - rl * cw;
                 a.labels[m.rowoff[rl] + lx] = ((const int*)st)[rl * sxp + lx];
             }
             __syncthreads();
-        } else if (r0 + T >= rows) {
+        } else if (r0 + T >= rows && xb == a.nbx - 1) {
             reduce_tile(a, m.acc, t);
             __syncthreads();
         }
         t = tn;
         r0 = rn;
+        xb = xn;
         b ^= 1;
     }
 }
@@ -386,6 +439,7 @@ __device__ __forceinline__ void update_seed(const Args3& a, const float* prev,
                                                    : __ldcg(prev + (size_t)s * 4 + c);
 }
 
+template <bool BANDED>
 __global__ void __launch_bounds__(Cfg3::T, Cfg3::MIN_BLOCKS)
 slic3d_kernel(Args3 a) {
     extern __shared__ float4 dyn4[];
@@ -393,17 +447,19 @@ slic3d_kernel(Args3 a) {
     __shared__ float cv[NOFF];
     __shared__ int nid[NOFF];
     __shared__ long long rowoff[Cfg3::T];
+    __shared__ float4 ctile[BANDED ? NOFF : 1];
     constexpr int T = Cfg3::T;
     Smem3 m;
     m.xt = (float*)dyn4;
-    m.acc = m.xt + a.sx * XSTRIDE;
+    m.acc = m.xt + a.bx * XSTRIDE;
     m.stage = m.acc + Cfg3::NACC * Cfg3::ACCS;
-    m.za = m.stage + 2 * T * (a.sx | 1);
+    m.za = m.stage + 2 * T * (a.bx | 1);
     m.yb = m.za + NOFF * a.sz;
     m.cc = cc;
     m.cv = cv;
     m.nid = nid;
     m.rowoff = rowoff;
+    m.ctile = ctile;
     cg::grid_group grid = cg::this_grid();
     const int n_tiles = a.gz * a.gy * a.gx;
     if (a.part != nullptr)
@@ -411,7 +467,7 @@ slic3d_kernel(Args3 a) {
             m.acc[k * Cfg3::ACCS + threadIdx.x] = 0.0f;
     for (int r = 0; r < a.n_upd; ++r) {
         const float* cen = r == 0 ? a.seeds : a.work;
-        pass_tiles<true>(a, cen, m);
+        pass_tiles<true, BANDED>(a, cen, m);
         grid.sync();
         for (int s = blockIdx.x * T + threadIdx.x; s < n_tiles;
              s += gridDim.x * T)
@@ -420,9 +476,18 @@ slic3d_kernel(Args3 a) {
     }
     const float* cen = a.n_upd == 0 ? a.seeds : a.work;
     if (a.labels != nullptr)
-        pass_tiles<false>(a, cen, m);
+        pass_tiles<false, BANDED>(a, cen, m);
     else
-        pass_tiles<true>(a, cen, m);
+        pass_tiles<true, BANDED>(a, cen, m);
+}
+
+// The dynamic shared memory of a block: unbanded (bx = sx) with the z and y
+// tables, banded without them.
+static size_t slic3d_smem(int bx, int sz, int sy, bool banded) {
+    return sizeof(float) * ((size_t)bx * XSTRIDE
+                            + (size_t)Cfg3::NACC * Cfg3::ACCS
+                            + (size_t)2 * Cfg3::T * (bx | 1)
+                            + (banded ? 0 : (size_t)NOFF * (sz + sy)));
 }
 
 // n_upd >= 0 rounds from the seeds, then the labels pass (labels != null),
@@ -431,7 +496,8 @@ slic3d_kernel(Args3 a) {
 // partials: (gz, gy, gx, 27, 5), the output of a partials pass and the
 // scratch of the rounds.  One cooperative grid of as many blocks as the
 // card holds co-resident (at most one per tile); a grid the card cannot
-// hold is refused and its error returned.
+// hold is refused and its error returned.  A tile whose unbanded layout
+// exceeds the card's shared memory a block takes the banded mode.
 extern "C" int slic3d_run(const void* vol, const void* seeds, void* work,
                           void* labels, void* partials, float s_z, float s_y,
                           float s_x, float sw, float m2, int depth, int height,
@@ -440,29 +506,33 @@ extern "C" int slic3d_run(const void* vol, const void* seeds, void* work,
     if (n_upd < 0 || (n_upd > 0 && (work == nullptr || labels == nullptr))
         || ((n_upd > 0 || labels == nullptr) && partials == nullptr))
         return (int)cudaErrorInvalidValue;
-    const size_t smem = sizeof(float) * ((size_t)sx * XSTRIDE
-                                         + (size_t)Cfg3::NACC * Cfg3::ACCS
-                                         + (size_t)2 * Cfg3::T * (sx | 1)
-                                         + (size_t)NOFF * (sz + sy));
-    static struct { size_t smem; int blocks; } cache[64];   // per device
-    int dev = 0;
+    static struct { size_t smem; int blocks; } cache[64][2];   // per device
+    int dev = 0, optin = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return (int)err;
     if (dev >= 64) return (int)cudaErrorInvalidDevice;
-    if (cache[dev].smem != smem) {
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return (int)err;
+    const bool banded = slic3d_smem(sx, sz, sy, false) > (size_t)optin;
+    const int bx = banded ? min(sx, BAND_X) : sx;
+    const size_t smem = slic3d_smem(bx, sz, sy, banded);
+    const void* kernel = banded ? (const void*)slic3d_kernel<true>
+                                : (const void*)slic3d_kernel<false>;
+    if (cache[dev][banded].smem != smem) {
         int n_sm = 0, per_sm = 0;
-        err = cudaFuncSetAttribute(slic3d_kernel,
+        err = cudaFuncSetAttribute(kernel,
                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
                                    (int)smem);
         if (err == cudaSuccess)
             err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
         if (err == cudaSuccess)
             err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &per_sm, slic3d_kernel, Cfg3::T, smem);
+                &per_sm, kernel, Cfg3::T, smem);
         if (err != cudaSuccess) return (int)err;
         if (per_sm * n_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-        cache[dev].smem = smem;
-        cache[dev].blocks = per_sm * n_sm;
+        cache[dev][banded].smem = smem;
+        cache[dev][banded].blocks = per_sm * n_sm;
     }
     Args3 a;
     a.vol = (const float*)vol;
@@ -474,9 +544,11 @@ extern "C" int slic3d_run(const void* vol, const void* seeds, void* work,
     a.depth = depth; a.height = height; a.width = width;
     a.gz = gz; a.gy = gy; a.gx = gx; a.sz = sz; a.sy = sy; a.sx = sx;
     a.n_upd = n_upd;
-    const int blocks = min(cache[dev].blocks, gz * gy * gx);
+    a.bx = bx;
+    a.nbx = (sx + bx - 1) / bx;
+    const int blocks = min(cache[dev][banded].blocks, gz * gy * gx);
     void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)slic3d_kernel, dim3(blocks),
+    err = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
                                       dim3(Cfg3::T), args, smem,
                                       (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;

@@ -6,8 +6,9 @@ The same feature-flag surface (``{'color[_<space>]': [stats...],
 same feature naming and ordering: ``color-ch1_mean``, ``lab-ch2_std``,
 ``tLM_sigma1.4-edge-ch1_mean``, ``tGabor_sigma2.0-freq0.10-gabor-ch1_mean``,
 ``tLBP-ch1_bin0``, ... for colour images, ``gray_mean``, ``gray_std``, ...
-for gray images and volumes.  Texture of gray images and volumes raises
-``NotImplementedError`` until its slice (ROADMAP.md item 6).
+and ``tLM_<filter>_<flag>`` for gray images and volumes (whose texture is
+the LM bank's alone: the other texture keys are left out there, as the
+reference leaves them).
 """
 
 import numpy as np
@@ -28,8 +29,6 @@ FEATURES_SET_COLOR = {'color': ('mean', 'std', 'energy')}
 FEATURES_SET_TEXTURE = {'tLM': ('mean', 'std', 'energy')}
 FEATURES_SET_TEXTURE_SHORT = {'tLM_short': ('mean', 'std', 'energy')}
 
-_TEXTURE_PREFIXES = ('tLM', 'tGabor', 'tLBP')
-
 _BANK_CACHE = {}
 
 
@@ -48,17 +47,6 @@ def _get_gabor_bank():
     if 'gabor' not in _BANK_CACHE:
         _BANK_CACHE['gabor'] = filter_ops.create_filter_bank_gabor_2d()
     return _BANK_CACHE['gabor']
-
-
-def _check_gray_keys(dict_features):
-    texture = [k for k in dict_features if k.startswith(_TEXTURE_PREFIXES)]
-    if texture:
-        raise NotImplementedError(
-            'texture features %r of gray images and volumes come with the '
-            'rest of the supervised family (ROADMAP.md item 6)' % texture)
-    unknown = [k for k in dict_features if not k.startswith('color')]
-    if unknown:
-        raise ValueError('unrecognised feature groups: %r' % unknown)
 
 
 def compute_selected_features_color2d(image, seg_ids, num_segments,
@@ -225,35 +213,46 @@ def feature_names(dict_features, gray3d=False):
     return names
 
 
-def _gray_flags(dict_features):
-    """The union of the colour keys' flags, in canonical order."""
-    _check_gray_keys(dict_features)
-    if not dict_features:
-        raise ValueError('no feature groups given')
-    flags = set(np.concatenate([list(v) for v in dict_features.values()]))
+def _canonical(flags):
     return tuple(f for f in NAMES_FEATURE_FLAGS if f in flags)
+
+
+def _color_flags(dict_features, color_keys):
+    """The union of the colour keys' flags, in canonical order."""
+    return _canonical(set(np.concatenate([list(dict_features[k])
+                                          for k in color_keys])))
 
 
 def compute_selected_features_gray2d(image, seg_ids, num_segments,
                                      dict_features, grid_ctx=None):
-    """Intensity statistics of a 2D gray image: one set of the union of the
-    colour keys' flags, named ``gray_<flag>``; over grid-structured
-    superpixels with a grid context, else as a volume of one slice
-    (:func:`compute_selected_features_gray3d`)."""
-    flags = _gray_flags(dict_features)
-    if grid_ctx is None:
+    """Features of a 2D gray image: the intensity statistics of the union of
+    the colour keys' flags (``gray_<flag>``) over the grid reduce where a
+    grid context and a colour key are given, and the rest as a volume of one
+    slice (:func:`compute_selected_features_gray3d`)."""
+    color_keys = [k for k in dict_features if k.startswith('color')]
+    other = {k: v for k, v in dict_features.items() if k not in color_keys}
+    if grid_ctx is None or not color_keys:
         return compute_selected_features_gray3d(image[None], seg_ids,
                                                 num_segments, dict_features)
-    features = segment_stats.compute_channel_statistics(
+    flags = _color_flags(dict_features, color_keys)
+    feats = [segment_stats.compute_channel_statistics(
         image.to(torch.float32)[..., None], seg_ids, num_segments, flags,
-        grid_ctx=grid_ctx)
-    return torch.nan_to_num(features), ['gray_%s' % f for f in flags]
+        grid_ctx=grid_ctx)]
+    names = ['gray_%s' % f for f in flags]
+    if other:
+        f3, n3 = compute_selected_features_gray3d(image[None], seg_ids,
+                                                  num_segments, other)
+        feats.append(f3)
+        names += n3
+    return torch.nan_to_num(torch.cat(feats, dim=-1)), names
 
 
 def compute_selected_features_gray3d(volume, seg_ids, num_segments,
                                      dict_features, grid_ctx3d=None):
-    """Intensity statistics of a gray volume: one set of the union of the
-    colour keys' flags, named ``gray_<flag>``.
+    """Features of a gray volume: the intensity statistics of the union of
+    the colour keys' flags (``gray_<flag>``), then the LM texture of each
+    ``tLM[_short]`` key (``tLM_<filter>_<flag>``); other keys are left out,
+    and a spec with neither raises ``ValueError``.
 
     :param volume: (Z, H, W) float tensor
     :param seg_ids: (Z*H*W,) integer labels in [0, num_segments)
@@ -261,10 +260,52 @@ def compute_selected_features_gray3d(volume, seg_ids, num_segments,
         supervoxels, whose mean / std / energy take the 27-offset grid sums
     :returns: ((num_segments, F) features, list of F names)
     """
-    flags = _gray_flags(dict_features)
-    features = _gray3d_statistics(volume.to(torch.float32), seg_ids,
-                                  num_segments, flags, grid_ctx3d=grid_ctx3d)
-    return torch.nan_to_num(features), ['gray_%s' % f for f in flags]
+    volume = volume.to(torch.float32)
+    feats, names = [], []
+    color_keys = [k for k in dict_features if k.startswith('color')]
+    if color_keys:
+        flags = _color_flags(dict_features, color_keys)
+        feats.append(_gray3d_statistics(volume, seg_ids, num_segments, flags,
+                                         grid_ctx3d=grid_ctx3d))
+        names += ['gray_%s' % f for f in flags]
+    for key in [k for k in dict_features if k.startswith('tLM')]:
+        f, n = _texture_features_gray3d(
+            volume, seg_ids, num_segments, tuple(dict_features[key]),
+            key.split('_')[-1] if '_' in key else 'normal',
+            grid_ctx3d=grid_ctx3d)
+        feats.append(f)
+        names += n
+    if not feats:
+        raise ValueError('no colour or tLM feature group in %r'
+                         % list(dict_features))
+    return torch.nan_to_num(torch.cat(feats, dim=-1)), names
+
+
+def _texture_features_gray3d(volume, seg_ids, num_segments, flags, bank_type,
+                             grid_ctx3d=None):
+    """LM texture statistics of a gray volume: each z-slice's background
+    subtracted and its bank response normalised on its own, as the
+    reference treats the slices, then the statistics of each battery's
+    response volume over the supervoxels.  The slices ride one bank
+    convolution as its channels.
+
+    :returns: ((K, n_batteries * n_flags) features, names
+        ``tLM_<filter>_<flag>``)
+    """
+    bank = _get_bank(bank_type)
+    img = torch.stack([filter_ops.subtract_background(
+        volume[z][..., None], 150.0)[..., 0]
+        for z in range(volume.shape[0])], dim=-1)            # (H, W, Z)
+    raw = filter_ops.filter_bank_raw(img, bank)              # (B, H, W, Z)
+    scales = filter_ops.battery_norm_scales(torch.sum(raw * raw, dim=(1, 2)))
+    canon = _canonical(flags)
+    feats, names = [], []
+    for bi, bname in enumerate(bank.names):
+        resp = (raw[bi] * scales[bi]).permute(2, 0, 1)       # (Z, H, W)
+        feats.append(_gray3d_statistics(resp, seg_ids, num_segments, canon,
+                                        grid_ctx3d=grid_ctx3d))
+        names += ['tLM_%s_%s' % (bname, f) for f in flags]
+    return torch.cat(feats, dim=-1), names
 
 
 def _gray3d_statistics(volume, seg_ids, num_segments, flags, grid_ctx3d=None):

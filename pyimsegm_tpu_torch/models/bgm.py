@@ -6,7 +6,9 @@ Normal-Wishart prior on each component's mean and precision, with every
 update in closed form.  The restarts run as one batch, each seeded by
 k-means++ on an explicit ``torch.Generator``, and the fit is exported as
 expected parameters (``weights = E[pi]``, ``means = m_k``,
-``covs = E[Sigma_k]``) so the predict path is the GMM's.
+``covs = E[Sigma_k]``) so the predict path is the GMM's.  Where every
+restart is NaN, the fit runs again from the same seeds in float64, as
+:func:`pyimsegm_tpu_torch.models.gmm.gmm_fit` does.
 """
 
 import torch
@@ -20,9 +22,9 @@ _LOG2PI = 1.8378770664093453
 
 
 def _cavi_fit_single(generator, x, w, n_classes, max_iter, alpha0, beta0,
-                     reg_covar, diag=False, batch=None):
+                     reg_covar, diag=False, batch=None, centers=None):
     """CAVI runs from k-means++-seeded responsibilities (``batch`` of them
-    at once, or one).
+    at once, or one), or from the given (..., C, D) ``centers``.
 
     With ``diag=True`` the Wishart scale is diagonalised at every update."""
     n, d = x.shape
@@ -36,7 +38,9 @@ def _cavi_fit_single(generator, x, w, n_classes, max_iter, alpha0, beta0,
         data_cov = data_cov * eye
     w0_inv = data_cov * nu0
 
-    centers = kmeans_plus_plus_init(generator, x, w, n_classes, batch=batch)
+    if centers is None:
+        centers = kmeans_plus_plus_init(generator, x, w, n_classes,
+                                        batch=batch)
     resp = torch.nn.functional.one_hot(
         torch.argmin(_sq_dist(x, centers), dim=-1), n_classes).to(x.dtype) \
         * w[:, None]                                          # (..., N, C)
@@ -100,7 +104,16 @@ def bgm_fit(generator, x, sample_weight, n_classes, n_init=4, max_iter=99,
     w = sample_weight.to(torch.float32)
     if alpha0 is None:
         alpha0 = 1.0 / n_classes                   # sklearn's default
-    params = _cavi_fit_single(generator, x, w, n_classes, max_iter,
-                              float(alpha0), float(beta0), float(reg_covar),
-                              diag=diag, batch=n_init)
-    return _select(params, gmm_score(params, x, w))
+    centers = kmeans_plus_plus_init(generator, x, w, n_classes, batch=n_init)
+    hyper = (n_classes, max_iter, float(alpha0), float(beta0),
+             float(reg_covar))
+    params = _cavi_fit_single(None, x, w, *hyper, diag=diag, centers=centers)
+    scores = gmm_score(params, x, w)
+    if bool(torch.isnan(scores).all()):
+        x, w = x.double(), w.double()
+        params = _cavi_fit_single(None, x, w, *hyper, diag=diag,
+                                  centers=centers.double())
+        scores = gmm_score(params, x, w)
+        params = GMMParams(params.weights.float(), params.means.float(),
+                           params.covs)
+    return _select(params, scores)

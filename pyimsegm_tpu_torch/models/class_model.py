@@ -31,7 +31,8 @@ class ClassModel(nn.Module):
     Buffers: ``scaler_mean``/``scaler_scale`` (D,), ``pca_components``
     (D, D) rows = principal axes, ``pca_mean`` (D,), ``pca_mask`` (D,) —
     each may be None — and ``weights`` (C,), ``means`` (C, D), ``covs``
-    (C, D, D).
+    (C, D, D).  All are float32 but ``covs`` given in float64 (the GMM's
+    float64 refit), which stays so.
     """
 
     def __init__(self, weights, means, covs, scaler_mean=None,
@@ -44,9 +45,11 @@ class ClassModel(nn.Module):
                           ('pca_mean', pca_mean), ('pca_mask', pca_mask),
                           ('weights', weights), ('means', means),
                           ('covs', covs)):
+            keep64 = name == 'covs' and torch.is_tensor(val) \
+                and val.dtype == torch.float64
             self.register_buffer(
                 name, None if val is None else torch.as_tensor(
-                    val, dtype=torch.float32))
+                    val, dtype=torch.float64 if keep64 else torch.float32))
 
     @property
     def gmm(self):

@@ -5,8 +5,13 @@ arrays, so the ``n_init`` random restarts of :func:`gmm_fit` run as one
 batch (the JAX package ``vmap``s them).  EM runs to ``max_iter`` and
 freezes each restart once its mean log-likelihood moves by at most ``tol``:
 the same result as the reference's data-dependent stop, with no host
-synchronisation.  A covariance that is not positive definite gives NaN (as
-JAX's ``cholesky`` does), and a NaN restart loses the selection.
+synchronisation inside the loop.  A covariance that is not positive
+definite gives NaN (as JAX's ``cholesky`` does), and a NaN restart loses
+the selection.  Where every restart breaks down so (nearly collinear
+features, whose f32 covariance plus ``reg_covar`` rounds to an indefinite
+matrix), the fit runs EM again from the same start in float64 and keeps
+those covariances in float64; JAX returns the NaN fit there.  Deciding
+this is the fit's one host synchronisation.
 
 Randomness comes from an explicit ``torch.Generator`` on the data's device;
 categorical draws use the Gumbel-max trick.  The draws differ from
@@ -37,16 +42,19 @@ def _cholesky(mats):
 
 
 def _chol_log_prob(x, means, covs):
-    """log N(x | mu_c, Sigma_c) for all components: (..., N, C)."""
+    """log N(x | mu_c, Sigma_c) for all components: (..., N, C) in x's
+    dtype, computed in the covariances' dtype."""
     d = x.shape[-1]
+    dt = covs.dtype
     chol = _cholesky(covs)                                   # (..., C, D, D)
-    diff = x - means[..., :, None, :]                        # (..., C, N, D)
+    diff = x.to(dt) - means.to(dt)[..., :, None, :]          # (..., C, N, D)
     z = torch.linalg.solve_triangular(chol, diff.transpose(-1, -2),
                                       upper=False)           # (..., C, D, N)
     quad = torch.sum(z * z, dim=-2)                          # (..., C, N)
     logdet = 2.0 * torch.sum(torch.log(torch.diagonal(chol, dim1=-2,
                                                       dim2=-1)), dim=-1)
-    return (-0.5 * (d * _LOG2PI + logdet[..., None] + quad)).transpose(-1, -2)
+    return (-0.5 * (d * _LOG2PI + logdet[..., None] + quad)) \
+        .transpose(-1, -2).to(x.dtype)
 
 
 def gmm_log_resp(params: GMMParams, x):
@@ -157,22 +165,17 @@ def quantile_init_centers(x, n_clusters):
 
 # -------------------------------------------------------------------- EM ---
 
-def _em_fit(generator, x, sample_weight, n_components, max_iter, reg_covar,
-            init_resp=None, tol=1e-3, batch=None):
-    """EM from k-means labels (or ``init_resp``), stopped per restart once
-    the weighted mean log-likelihood moves by at most ``tol``.
+def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
+    """EM from (..., N, C) responsibilities ``init_resp``, stopped per
+    restart once the weighted mean log-likelihood moves by at most ``tol``.
 
-    :returns: (params with leading ``batch`` dimension if given, scores)
+    :returns: (params with the leading dimensions of ``init_resp``, scores)
     """
-    if init_resp is None:
-        _, labels = kmeans_fit(generator, x, sample_weight, n_components,
-                               n_iter=15, batch=batch)
-        init_resp = torch.nn.functional.one_hot(labels, n_components) \
-            .to(x.dtype)
     params = _m_step(x, init_resp, sample_weight, reg_covar)
     shape = params.weights.shape[:-1]
-    prev_ll = torch.full(shape, float('-inf'), device=x.device)
-    ll = torch.full(shape, float('inf'), device=x.device)
+    prev_ll = torch.full(shape, float('-inf'), dtype=x.dtype,
+                         device=x.device)
+    ll = torch.full(shape, float('inf'), dtype=x.dtype, device=x.device)
     for _ in range(max_iter):
         active = torch.abs(ll - prev_ll) > tol     # NaN stops, as in JAX
         lr = gmm_log_resp(params, x)
@@ -184,6 +187,20 @@ def _em_fit(generator, x, sample_weight, n_components, max_iter, reg_covar,
         prev_ll = torch.where(active, ll, prev_ll)
         ll = torch.where(active, new_ll, ll)
     return params, gmm_score(params, x, sample_weight)
+
+
+def _em_fit_f64_if_all_nan(x, sample_weight, max_iter, reg_covar, init_resp):
+    """:func:`_em_fit` in float32; where every restart's score is NaN, again
+    in float64 from the same responsibilities (weights and means returned
+    in float32, covariances in float64)."""
+    params, scores = _em_fit(x, sample_weight, max_iter, reg_covar,
+                             init_resp)
+    if bool(torch.isnan(scores).all()):
+        params, scores = _em_fit(x.double(), sample_weight.double(),
+                                 max_iter, reg_covar, init_resp.double())
+        params = GMMParams(params.weights.float(), params.means.float(),
+                           params.covs)
+    return params, scores
 
 
 def _select(params, scores):
@@ -202,9 +219,11 @@ def gmm_fit(generator, x, sample_weight, n_components, n_init=1, max_iter=99,
     :returns: the best :class:`GMMParams` by weighted log-likelihood
     """
     x = x.to(torch.float32)
-    params, scores = _em_fit(generator, x, sample_weight, n_components,
-                             max_iter, reg_covar, batch=n_init)
-    return _select(params, scores)
+    _, labels = kmeans_fit(generator, x, sample_weight, n_components,
+                           n_iter=15, batch=n_init)
+    resp = torch.nn.functional.one_hot(labels, n_components).to(x.dtype)
+    return _select(*_em_fit_f64_if_all_nan(x, sample_weight, max_iter,
+                                           reg_covar, resp))
 
 
 def gmm_fit_from_labels(x, labels, sample_weight, n_components, max_iter=1,
@@ -214,6 +233,5 @@ def gmm_fit_from_labels(x, labels, sample_weight, n_components, max_iter=1,
     x = x.to(torch.float32)
     resp = torch.nn.functional.one_hot(labels.to(torch.int64),
                                        n_components).to(x.dtype)
-    params, _ = _em_fit(None, x, sample_weight, n_components, max_iter,
-                        reg_covar, init_resp=resp)
-    return params
+    return _em_fit_f64_if_all_nan(x, sample_weight, max_iter, reg_covar,
+                                  resp)[0]

@@ -3,7 +3,7 @@
 
 Elementwise PyTorch on the image's device; every function takes float
 images in [0, 1] of shape (..., 3).  The inverse conversions come with a
-later slice (ROADMAP.md queue 10).
+later slice (ROADMAP.md item 9).
 """
 
 import numpy as np

@@ -9,20 +9,22 @@
 * :func:`train_classif_color2d_slic_features` — train a classifier on the
   superpixels of annotated images (BASELINE config 2);
 * :func:`compute_color2d_superpixels_features` — SLIC + features;
+* :func:`wrapper_compute_color2d_slic_features_labels` — SLIC, features
+  and the superpixels' annotation labels of one image;
 * :func:`pipe_gray3d_slic_features_model_graphcut` — unsupervised gray
-  volume: 3D SLIC, gray features, a class model fitted on the volume, MRF
-  on the supervoxel grid.
+  volume: 3D SLIC, gray features (LM texture too), a class model fitted on
+  the volume, MRF on the supervoxel grid.
 
 A tensor image runs on its own device; a numpy image on the ``device``
 keyword (``'cuda'`` by default; with no card the call raises, and
 ``device='cpu'`` runs the plain PyTorch path).  Features are any colour
 spec (``'color'`` or ``'color_<space>'`` keys, any of mean / std / energy /
 median / meanGrad) and the texture keys ``tLM[_short]``, ``tGabor`` and
-``tLBP``; the classifiers are ``RandForest`` and ``DecTree``
-(:mod:`pyimsegm_tpu_torch.classification`); SLICO and ``connectivity`` on
-or off are ported.  ``sp_compat``, the other classifiers and models that are
-neither a :class:`ClassModel` nor a :class:`Classifier` raise
-``NotImplementedError`` naming the item of ROADMAP.md that brings them.
+``tLBP``; the classifiers are every name of
+:mod:`pyimsegm_tpu_torch.classification`, and any other model with a numpy
+``predict_proba`` and ``classes_`` segments through a host round trip;
+SLICO and ``connectivity`` on or off are ported.  ``sp_compat`` raises
+``NotImplementedError`` naming the item of ROADMAP.md that brings it.
 """
 
 import numpy as np
@@ -159,7 +161,7 @@ def _segment_with_classif_core(image, classif, *, cfg, feats_spec, gc_regul,
     labels, features, _counts, centers = _slic_features_core(
         image, cfg, feats_spec, compactness, connectivity=connectivity)
     with stage_range('predict_proba'):
-        proba = classif.predict_proba(torch.nan_to_num(features))
+        proba = classif.device_predict_proba(torch.nan_to_num(features))
     graph_labels = graphcut.segment_graph_cut_general(
         labels, proba, cfg.n_segments, image=image.to(torch.float32),
         features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
@@ -209,10 +211,6 @@ def _fetch_reconstruct(labels, proba, graph_labels, cfg):
 def _to_model_device(image, model):
     """The image as a tensor on the model's device (a numpy image is moved
     there; a tensor image must already be there)."""
-    if not isinstance(model, (ClassModel, Classifier)):
-        raise NotImplementedError(
-            'models other than a ClassModel or a RandForest / DecTree '
-            'Classifier come with ROADMAP.md item 6')
     device = _model_device(model)
     if isinstance(image, torch.Tensor) and image.device != device:
         raise ValueError('image on %s, model on %s' % (image.device, device))
@@ -222,13 +220,17 @@ def _to_model_device(image, model):
 def segment_color2d_slic_features_model_graphcut(
         image, model_pipeline, dict_features, sp_size=30,
         sp_regul=0.2, gc_regul=1.0, gc_edge_type='model', debug_visual=None,
-        sp_compat=False, connectivity=True):
+        sp_compat=False, connectivity=True, device='cuda'):
     """Segment one image with a fitted model.
 
     The work runs on the device of ``model_pipeline``, a :class:`ClassModel`
     or a trained :class:`Classifier`; a numpy image is moved there, a tensor
     image must already be there.  A classifier's result is relabelled by its
-    ``classes_``.
+    ``classes_``.  Any other model with a numpy ``predict_proba`` and
+    ``classes_`` (an sklearn-style estimator) takes the reference's generic
+    route: the features go to the host for its ``predict_proba``, and the
+    MRF runs on the image's device (``device`` for a numpy image), on the
+    enforced labels whatever ``connectivity`` says.
 
     :param image: (H, W, 3) float image, numpy or tensor
     :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) ndarray)
@@ -236,6 +238,10 @@ def segment_color2d_slic_features_model_graphcut(
     if sp_compat:
         raise NotImplementedError('sp_compat (skimage-compat SLIC) comes '
                                   'with the RG2Sp slice (ROADMAP.md)')
+    if not isinstance(model_pipeline, (ClassModel, Classifier)):
+        return _segment_duck_typed(image, model_pipeline, dict_features,
+                                   sp_size, sp_regul, gc_regul, gc_edge_type,
+                                   debug_visual, device)
     with stage_range('upload'):
         image = _to_model_device(image, model_pipeline)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
@@ -255,6 +261,33 @@ def segment_color2d_slic_features_model_graphcut(
         return _fetch_reconstruct(labels, proba, graph_labels, cfg)
     # raw labels may hold out-of-window pixels: the device lookup holds
     return segm.cpu().numpy(), segm_soft.cpu().numpy()
+
+
+def _segment_duck_typed(image, model, dict_features, sp_size, sp_regul,
+                        gc_regul, gc_edge_type, debug_visual, device):
+    """The generic route: SLIC and features on the device, the model's
+    numpy ``predict_proba`` on the host, the MRF on the device, and the
+    upsampling on the host."""
+    if not hasattr(model, 'predict_proba'):
+        raise AttributeError('%r has no predict_proba' % type(model).__name__)
+    image = as_tensor(image, device)
+    cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    labels, features, _counts, centers = _slic_features_core(
+        image, cfg, _features_spec(dict_features), m)
+    proba = np.asarray(model.predict_proba(
+        np.nan_to_num(features.cpu().numpy())), np.float32)
+    graph_labels = graphcut.segment_graph_cut_general(
+        labels, torch.as_tensor(proba, device=image.device), cfg.n_segments,
+        image=image.to(torch.float32), features=features,
+        gc_regul=float(gc_regul), edge_type=gc_edge_type,
+        grid_ctx=(labels, cfg), centers=centers).cpu().numpy()
+    labels_np = labels.cpu().numpy()
+    segm = np.asarray(model.classes_)[graph_labels][labels_np]
+    if debug_visual is not None:
+        debug_visual['slic'] = labels_np
+        debug_visual['proba'] = proba
+    return segm, proba[labels_np]
 
 
 def _segment_classif(image, classif, cfg, compactness, dict_features,
@@ -297,6 +330,42 @@ def compute_color2d_superpixels_features(image, dict_features, sp_size=30,
     labels, features, _counts, _centers = _slic_features_core(
         image, cfg, _features_spec(dict_features), m)
     return labels.cpu().numpy(), torch.nan_to_num(features).cpu().numpy()
+
+
+def wrapper_compute_color2d_slic_features_labels(img_annot, sp_size, sp_regul,
+                                                 dict_features,
+                                                 label_purity=0.9,
+                                                 device='cuda'):
+    """SLIC, features and superpixel labels of one annotated image for the
+    supervised training: each superpixel takes the annotation label it
+    overlaps most, or -1 where that covers less than ``label_purity`` of it,
+    where the annotation is negative or where it is empty.
+
+    :param img_annot: (image, annotation) pair
+    :returns: (slic ndarray, features ndarray, labels ndarray)
+    """
+    from pyimsegm_tpu_torch import labeling
+
+    image, annot = img_annot
+    image = as_tensor(image, device)
+    annot = np.asarray(annot).astype(int)
+    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
+    cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
+    labels_map, features, counts, _centers = _slic_features_core(
+        image, cfg, _features_spec(dict_features), m)
+    labels_map = labels_map.cpu().numpy()
+    neg_label = annot.max() + 1 if (annot < 0).any() else None
+    if neg_label is not None:
+        annot[annot < 0] = neg_label
+    hist = labeling.histogram_regions_labels_norm(
+        labels_map, annot, nb_labels=annot.max() + 1)
+    lbs = np.argmax(hist, axis=1)
+    purity = np.max(hist, axis=1)
+    if neg_label is not None:
+        lbs[lbs == neg_label] = -1
+    lbs[purity < label_purity] = -1
+    lbs[counts.cpu().numpy() == 0] = -1
+    return labels_map, np.nan_to_num(features.cpu().numpy()), lbs
 
 
 def pipe_color2d_slic_features_model_graphcut(

@@ -1,5 +1,6 @@
-"""Segmentation agreement metrics (port of the ARS part of
-``pyimsegm_tpu.utils.metrics``).  Inputs may be numpy arrays or tensors."""
+"""Segmentation agreement and classification metrics (port of
+``pyimsegm_tpu.utils.metrics``), on the host in numpy.  Inputs may be numpy
+arrays or tensors."""
 
 import numpy as np
 import torch
@@ -54,3 +55,54 @@ def adjusted_rand_score(labels_a, labels_b, num_a=None, num_b=None):
     if denom == 0:
         return 1.0
     return float((sum_comb - expected) / denom)
+
+
+def accuracy(labels_true, labels_pred):
+    """Share of equal labels."""
+    return float(np.mean(_flat_int(labels_true) == _flat_int(labels_pred)))
+
+
+def confusion_matrix(labels_true, labels_pred, nb_labels=None):
+    """(L, L) f32 counts, true label by row."""
+    t, p = _flat_int(labels_true), _flat_int(labels_pred)
+    if nb_labels is None:
+        nb_labels = int(max(t.max(), p.max())) + 1
+    return contingency_table(t, p, nb_labels, nb_labels).astype(np.float32)
+
+
+def precision_recall_f1(labels_true, labels_pred, nb_labels=None,
+                        average='macro'):
+    """Per-class precision, recall and F1, or their 'macro' or 'weighted'
+    averages."""
+    cm = confusion_matrix(labels_true, labels_pred, nb_labels)
+    tp = np.diag(cm)
+    support = cm.sum(axis=1)
+    pred_cnt = cm.sum(axis=0)
+    with np.errstate(divide='ignore', invalid='ignore'):
+        prec = np.where(pred_cnt > 0, tp / pred_cnt, 0.0)
+        rec = np.where(support > 0, tp / support, 0.0)
+        f1 = np.where(prec + rec > 0, 2 * prec * rec / (prec + rec), 0.0)
+    if average == 'macro':
+        w = np.ones_like(support) / len(support)
+    elif average == 'weighted':
+        w = support / max(support.sum(), 1.0)
+    else:
+        return prec, rec, f1
+    return float(prec @ w), float(rec @ w), float(f1 @ w)
+
+
+def compute_classif_metrics(labels_true, labels_pred, nb_labels=None):
+    """ARS, accuracy, the confusion matrix and the macro and weighted
+    precision, recall and F1, under the reference's names."""
+    p_ma, r_ma, f_ma = precision_recall_f1(labels_true, labels_pred,
+                                           nb_labels, 'macro')
+    p_w, r_w, f_w = precision_recall_f1(labels_true, labels_pred, nb_labels,
+                                        'weighted')
+    return {
+        'ARS': adjusted_rand_score(labels_true, labels_pred),
+        'accuracy': accuracy(labels_true, labels_pred),
+        'confusion': confusion_matrix(labels_true, labels_pred,
+                                      nb_labels).tolist(),
+        'precision_macro': p_ma, 'recall_macro': r_ma, 'f1_macro': f_ma,
+        'precision_weighted': p_w, 'recall_weighted': r_w, 'f1_weighted': f_w,
+    }

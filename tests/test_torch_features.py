@@ -145,13 +145,47 @@ def test_gray_descriptors_match_jax(scene):
 
 @pytest.mark.parametrize('key', ['tLM', 'tLM_short', 'tGabor', 'tLBP'])
 def test_texture_keys_raise(scene, key):
-    """Texture of colour images is ported (tests/test_torch_filters.py);
-    texture of gray images still raises, naming its slice."""
-    img, labels, _ = scene
-    with pytest.raises(NotImplementedError, match='supervised'):
-        tdesc.compute_selected_features_gray2d(
-            _t(img[..., 0]), _t(labels.reshape(-1)), 10,
-            {'color': ('mean',), key: ('mean',)})
+    """Texture of gray images is ported (this test held its former raise):
+    with a colour key, the LM keys give JAX's ``tLM_<filter>_<flag>``
+    features (names equal, values within rtol 1e-5 + 1e-4), with the grid
+    reduce and without, and the Gabor and LBP keys are left out as JAX
+    leaves them, but for the grid reduce, where JAX takes them alone as a
+    volume and raises, and so does the port; without a colour key they
+    raise alone."""
+    img, labels, cfg = scene
+    gray = img[..., 0]
+    spec = {'color': ('mean', 'std'), key: ('mean', 'energy', 'meanGrad')}
+    for grid in (False, True):
+        args = dict(grid_ctx=(jnp.asarray(labels), cfg) if grid else None)
+        targs = dict(grid_ctx=(_t(labels), tslic.slic_config(*SHAPE, SP))
+                     if grid else None)
+        if grid and not key.startswith('tLM'):
+            for desc, conv, kw in ((jdesc, jnp.asarray, args),
+                                   (tdesc, _t, targs)):
+                with pytest.raises(ValueError):
+                    desc.compute_selected_features_gray2d(
+                        conv(gray), conv(labels.reshape(-1)),
+                        cfg.n_segments, spec, **kw)
+            continue
+        fj, nj = jdesc.compute_selected_features_gray2d(
+            jnp.asarray(gray), jnp.asarray(labels.reshape(-1)),
+            cfg.n_segments, spec, **args)
+        ft, nt = tdesc.compute_selected_features_gray2d(
+            _t(gray), _t(labels.reshape(-1)), cfg.n_segments, spec, **targs)
+        assert nt == nj
+        assert len(nt) == (2 + 3 * len(tdesc._get_bank(
+            'short' if key == 'tLM_short' else 'normal').names)
+            if key.startswith('tLM') else 2)
+        np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-5,
+                                   atol=1e-4)
+    if not key.startswith('tLM'):
+        for desc in (jdesc, tdesc):
+            with pytest.raises(ValueError):
+                desc.compute_selected_features_gray2d(
+                    (jnp.asarray if desc is jdesc else _t)(gray),
+                    (jnp.asarray if desc is jdesc else _t)(
+                        labels.reshape(-1)), cfg.n_segments,
+                    {key: ('mean',)})
 
 
 def _damaged(labels, cfg, seed):

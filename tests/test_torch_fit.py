@@ -1,6 +1,6 @@
 """The port's model fitting vs the JAX package on the CPU: scaler, PCA,
-k-means, EM from labels, Otsu, BGM, every ``estim_class_model`` option and
-the NaN-restart selection.
+k-means, EM from labels, Otsu, BGM, every ``estim_class_model`` option,
+the NaN-restart selection and the float64 refit of collinear features.
 
 Deterministic fits are held to about 1e-5 relative.  The random fits draw
 from a ``torch.Generator``, not ``jax.random``, so they are held by the
@@ -233,3 +233,51 @@ def test_estim_class_model_unknown_option_raises(data):
         tcm.estim_class_model(x, 3, 'nope', device='cpu')
     with pytest.raises(ValueError):
         tcm.estim_class_model(x, 3, 'Otsu', device='cpu')
+
+
+def _collinear(n=600, d=23, rank=3, seed=0, scale=30.0):
+    """Two blobs of rank-3 features in 23 columns, scaled so that a float32
+    covariance's rounding (~1e-3) dwarfs ``reg_covar`` (1e-6): every f32
+    factor breaks down, a float64 one does not."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 2, n)
+    lat = rng.normal(size=(n, rank)) + 4.0 * y[:, None]
+    x = scale * (lat @ rng.normal(size=(rank, d)))
+    return x.astype(np.float32), np.ones(n, np.float32), y
+
+
+@pytest.mark.parametrize('fit', ['GMM', 'BGM'])
+def test_collinear_features_refit_in_float64(data, fit):
+    """Where every f32 restart is NaN (JAX's fit is NaN there too), the port
+    refits from the same start in float64: finite, covariances kept in
+    float64, and the two blobs separated; ordinary data keeps the f32 fit."""
+    x, w, y = _collinear()
+    xt, wt = _t(x), _t(w)
+    if fit == 'GMM':
+        labels = tgmm.kmeans_fit(torch.Generator().manual_seed(0), xt, wt, 2,
+                                 n_iter=15, batch=9)[1]
+        resp = torch.nn.functional.one_hot(labels, 2).to(torch.float32)
+        assert torch.isnan(tgmm._em_fit(xt, wt, 99, 1e-6, resp)[1]).all()
+        pj = jgmm.gmm_fit(jax.random.PRNGKey(0), jnp.asarray(x),
+                          jnp.asarray(w), 2, n_init=9)
+        pt = tgmm.gmm_fit(torch.Generator().manual_seed(0), xt, wt, 2,
+                          n_init=9)
+    else:
+        pj = jbgm.bgm_fit(jax.random.PRNGKey(0), jnp.asarray(x),
+                          jnp.asarray(w), 2, n_init=4)
+        pt = tbgm.bgm_fit(torch.Generator().manual_seed(0), xt, wt, 2,
+                          n_init=4)
+    assert np.isnan(np.asarray(pj.covs)).any()
+    assert pt.covs.dtype == torch.float64
+    assert pt.weights.dtype == pt.means.dtype == torch.float32
+    assert all(bool(torch.isfinite(a).all()) for a in pt)
+    proba = tgmm.gmm_predict_proba(pt, xt)
+    assert proba.dtype == torch.float32 and torch.isfinite(proba).all()
+    assert adjusted_rand_score(proba.argmax(-1).numpy(), y) >= 0.98
+    model = tcm.estim_class_model(x, 2, fit, use_scaler=False, device='cpu')
+    assert model.covs.dtype == torch.float64
+    assert adjusted_rand_score(model.predict(xt).numpy(), y) >= 0.98
+    xd, wd = data
+    fits = {'GMM': tgmm.gmm_fit, 'BGM': tbgm.bgm_fit}
+    ordinary = fits[fit](torch.Generator().manual_seed(0), _t(xd), _t(wd), 3)
+    assert ordinary.covs.dtype == torch.float32

@@ -1,7 +1,8 @@
 """The ported slices end to end vs the JAX package on the CPU:
 ``segment_color2d_slic_features_model_graphcut`` with ``connectivity=False``
 and at its default ``connectivity=True``, with one fitted GMM class model
-handed to both packages; the unsupervised fit path
+handed to both packages, and with a duck-typed numpy model; the
+unsupervised fit path
 (``pipe_color2d_slic_features_model_graphcut``,
 ``estim_model_classes_group``, ``compute_color2d_superpixels_features``)
 with the full colour feature set; ``segment_slic_img2d`` with and without
@@ -183,7 +184,7 @@ def test_bench_geometry_connectivity_matches_committed_jax_output():
 
 
 # texture keys of colour images are ported (tests/test_torch_supervised.py);
-# those of gray images still raise
+# those of gray images too: their cases hold the port to JAX
 @pytest.mark.parametrize('kwargs', [
     {'gray': True, 'dict_features': {'color': ['mean'], 'tLM': ['mean']}},
     {'connectivity': False, 'sp_compat': True},
@@ -192,16 +193,59 @@ def test_bench_geometry_connectivity_matches_committed_jax_output():
     {'gray': True,
      'dict_features': {'color_hsv': ['mean'], 'tGabor': ['mean']}},
 ], ids=['texture', 'sp_compat', 'texture_short', 'gabor'])
-def test_unported_options_raise(models, kwargs):
-    _, tm = models
+def test_unported_options_raise(kwargs):
+    """``sp_compat`` still raises.  A gray image with LM texture (formerly a
+    raise) segments as JAX's does with a GMM the JAX package fits on its
+    features, carried across: SLIC labels >= 0.999 equal, ARS >= 0.98.
+    Gray Gabor beside a colour key over the grid reduce raises ValueError
+    in both packages (the reference takes the non-colour keys as a volume,
+    which has no Gabor)."""
     kwargs = dict(kwargs)
     feats = kwargs.pop('dict_features', FEATURES)
     img = _image(SHAPES[0], 0)
-    if kwargs.pop('gray', False):
-        img = np.ascontiguousarray(img[..., 0])
-    with pytest.raises(NotImplementedError):
-        tpipe.segment_color2d_slic_features_model_graphcut(
-            img, tm, feats, sp_size=SP, **kwargs)
+    if not kwargs.pop('gray', False):
+        with pytest.raises(NotImplementedError):
+            tpipe.segment_color2d_slic_features_model_graphcut(
+                img, class_model_from_numpy({
+                    'weights': np.ones(1), 'means': np.zeros((1, 9)),
+                    'covs': np.eye(9)[None]}), feats, sp_size=SP, **kwargs)
+        return
+    img = np.ascontiguousarray(img[..., 0])
+    conn = kwargs.get('connectivity', True)
+    cfg = jslic.slic_config(*SHAPES[0], SP)
+    m = jslic.compactness_from_regul(SP, REGUL)
+    spec = jpipe._features_spec(feats)
+    if 'tGabor' in feats:
+        for call in (lambda: jpipe._slic_features_core(
+                jnp.asarray(img), cfg, spec, m, connectivity=conn),
+                lambda: tpipe.segment_color2d_slic_features_model_graphcut(
+                    img, class_model_from_numpy({
+                        'weights': np.ones(1), 'means': np.zeros((1, 1)),
+                        'covs': np.eye(1)[None]}), feats, sp_size=SP,
+                    **kwargs)):
+            with pytest.raises(ValueError):
+                call()
+        return
+    _, f, counts, _ = jpipe._slic_features_core(jnp.asarray(img), cfg, spec,
+                                                m, connectivity=conn)
+    jm = estim_class_model(f, 3, 'GMM',
+                           sample_weight=(counts > 0).astype(jnp.float32))
+    tm = class_model_from_numpy({k: np.asarray(v) for k, v in {
+        'weights': jm.gmm.weights, 'means': jm.gmm.means,
+        'covs': jm.gmm.covs, 'scaler_mean': jm.scaler_mean,
+        'scaler_scale': jm.scaler_scale}.items()})
+    dj, dt = {}, {}
+    segm_j, _ = jpipe.segment_color2d_slic_features_model_graphcut(
+        img, jm, feats, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dj, **kwargs)
+    segm_t, soft_t = tpipe.segment_color2d_slic_features_model_graphcut(
+        torch.as_tensor(img), tm, feats, sp_size=SP, sp_regul=REGUL,
+        gc_regul=GC, debug_visual=dt, **kwargs)
+    assert np.isfinite(soft_t).all()
+    assert (dt['slic'] == np.asarray(dj['slic'])).mean() >= 0.999
+    ars = adjusted_rand_score(segm_t, np.asarray(segm_j))
+    print('gray %s: ARS %.6f against JAX' % (list(feats), ars))
+    assert ars >= 0.98
 
 
 def test_numpy_input_needs_a_card_or_device_cpu():
@@ -395,10 +439,70 @@ def test_color_edge_weights_match_jax(models):
     assert adjusted_rand_score(segm_t, np.asarray(segm_j)) >= 0.98
 
 
-def test_classifier_raises():
-    with pytest.raises(NotImplementedError):
-        tpipe.segment_color2d_slic_features_model_graphcut(
-            _image(SHAPES[0], 0), object(), FEATURES, connectivity=False)
+class _DuckModel:
+    """An sklearn-style model: numpy ``predict_proba`` (here the JAX GMM's)
+    and ``classes_``."""
+
+    def __init__(self, model):
+        self.model = model
+        self.classes_ = np.array([3, 5, 7])
+
+    def predict_proba(self, x):
+        return np.asarray(self.model.predict_proba(jnp.asarray(x)))
+
+
+def test_classifier_raises(models):
+    """A model that is neither a ClassModel nor a Classifier (formerly a
+    raise) takes the reference's generic route: the same duck-typed model
+    in both packages gives SLIC labels >= 0.999 equal, the proba of the
+    unchanged superpixels within 1e-5 and a segmentation with ARS >= 0.98,
+    relabelled by ``classes_``; an object without ``predict_proba`` raises
+    AttributeError, as in JAX."""
+    jm, _ = models
+    duck = _DuckModel(jm)
+    img = _image(SHAPES[1], 4)
+    dj, dt = {}, {}
+    segm_j, soft_j = jpipe.segment_color2d_slic_features_model_graphcut(
+        img, duck, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dj)
+    segm_t, soft_t = tpipe.segment_color2d_slic_features_model_graphcut(
+        img, duck, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+        debug_visual=dt, device='cpu')
+    assert segm_t.shape == SHAPES[1] and soft_t.shape == SHAPES[1] + (3,)
+    assert set(np.unique(segm_t)) <= {3, 5, 7}
+    assert (dt['slic'] == np.asarray(dj['slic'])).mean() >= 0.999
+    same = _same_superpixels(dt['slic'], np.asarray(dj['slic']),
+                             len(dt['proba']))
+    np.testing.assert_allclose(dt['proba'][same], dj['proba'][same],
+                               atol=1e-5)
+    ars = adjusted_rand_score(segm_t, segm_j)
+    print('duck-typed model: ARS %.6f against JAX' % ars)
+    assert ars >= 0.98
+    for pipe, kw in ((jpipe, {}), (tpipe, {'device': 'cpu'})):
+        with pytest.raises(AttributeError):
+            pipe.segment_color2d_slic_features_model_graphcut(
+                img, object(), FEATURES, **kw)
+
+
+def test_wrapper_slic_features_labels_matches_jax():
+    """SLIC, features and the superpixels' annotation labels of one image:
+    labels >= 0.999 equal, features of the unchanged superpixels within
+    rtol 1e-5 + 1e-5, superpixel labels equal on them."""
+    img, annot = sample_color_image_rand_segment(SHAPES[0], 3, rand_seed=5)
+    annot = annot.copy()
+    annot[:4, :6] = -1
+    slic_j, feats_j, lbs_j = \
+        jpipe.wrapper_compute_color2d_slic_features_labels(
+            (img, annot), SP, REGUL, FEATURES)
+    slic_t, feats_t, lbs_t = \
+        tpipe.wrapper_compute_color2d_slic_features_labels(
+            (img, annot), SP, REGUL, FEATURES, device='cpu')
+    assert (slic_t == np.asarray(slic_j)).mean() >= 0.999
+    same = _same_superpixels(slic_t, np.asarray(slic_j), len(lbs_t))
+    np.testing.assert_allclose(feats_t[same], feats_j[same], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_array_equal(lbs_t[same], lbs_j[same])
+    assert (lbs_t == -1).any()
 
 
 _IMPORT_CHECK = """
@@ -408,7 +512,8 @@ sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
 from pyimsegm_tpu_torch import (_build, classification, descriptors,
                                 labeling, pipelines, superpixels)
-from pyimsegm_tpu_torch.models import bgm, class_model, forest, gmm, otsu
+from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model, forest,
+                                       gbt, gmm, linear, otsu)
 from pyimsegm_tpu_torch.ops import (color, connectivity_cuda, enforce_cuda,
                                     filters, graph, graphcut, grid, grid_cuda,
                                     prep_cuda, segment_stats, slic, slic3d,

@@ -47,6 +47,21 @@ def test_prep_matches_jax(sp, spacing):
     np.testing.assert_array_equal(c0_t.numpy(), np.asarray(c0_j))
 
 
+def test_slic3d_segment_at_a_large_x_step_matches_jax():
+    """Seed steps (4, 4, 640): a tile row of 640 voxels, beyond the shared
+    memory of the kernel's unbanded layout, which takes bands of columns
+    there (chip_smoke.py holds the kernel against this twin): the twin's
+    labels >= 0.999 equal to JAX's XLA path."""
+    shape = (4, 8, 1302)
+    vol = _volume(shape, seed=3)
+    cj, ct, m = _configs(640, (160, 160, 1), shape)
+    assert ct.steps == (4, 4, 640)
+    lj = np.asarray(jslic3d._slic3d_segment_xla(jnp.asarray(vol), cj, m))
+    lt = tslic3d.slic3d_segment(torch.as_tensor(vol), ct, m)
+    assert tuple(lt.shape) == shape
+    assert (lt.numpy() == lj).mean() >= 0.999
+
+
 @pytest.mark.parametrize('sp,spacing', CASES, ids=IDS)
 def test_slic3d_segment_matches_jax(sp, spacing):
     """The whole schedule (9 rounds + labels) on the structured volume:

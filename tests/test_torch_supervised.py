@@ -1,7 +1,11 @@
 """The supervised 2D path of the port (BASELINE config 2: colour + Gabor +
 LBP features, random forest, CV search, MRF) vs the JAX package on the CPU:
 segmentation with a JAX-trained forest carried across, and training end to
-end."""
+end; and each other classifier family trained by the JAX package
+(``tests/data/torch_port_fixture_clf.npz``) carried across, on its
+features and through config 2 at the bench geometry."""
+
+import os
 
 import numpy as np
 import pytest
@@ -108,3 +112,81 @@ def test_tensor_image_runs_on_its_device(data, jax_trained):
     with pytest.raises(RuntimeError, match='not fitted'):
         tpipe.segment_color2d_slic_features_model_graphcut(img, clf_b,
                                                            FEATURES)
+
+
+FIXTURE_CLF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'data', 'torch_port_fixture_clf.npz')
+CLF_NAMES = ('GradBoost', 'AdaBoost', 'LogistRegr', 'SVM', 'KNN', 'MLP')
+CROP, SP_CFG2, REGUL_CFG2, GC_CFG2 = (884, 1200), 35, 0.2, 5.0
+
+
+@pytest.fixture(scope='module')
+def fixture_clf():
+    with np.load(FIXTURE_CLF) as npz:
+        return {k: npz[k] for k in npz.files}
+
+
+def _family(fixture, name):
+    """The JAX-trained classifier of a family, carried to the CPU."""
+    pre = name + '_clf_'
+    return tclf.classifier_from_numpy(
+        {k[len(pre):]: v for k, v in fixture.items() if k.startswith(pre)},
+        name, device='cpu')
+
+
+@pytest.mark.parametrize('name', CLF_NAMES)
+def test_carried_family_predicts_jax_proba(fixture_clf, name):
+    """Each family trained by the JAX package on config 2's features of
+    images 0-2, carried across: on image 0's features ``predict_proba``
+    within 1e-6 of JAX's, and the training accuracy equal.  The pipeline's
+    ``device_predict_proba`` within 1e-5 of the proba inside JAX's jitted
+    pipeline, whose own features differ from the stored ones in their last
+    bits; AdaBoost's, clipped at 1e-10 there (1e-7 in ``predict_proba``;
+    tests/test_torch_boost.py shows the two apart), within 1e-6."""
+    clf = _family(fixture_clf, name)
+    x = fixture_clf['features']
+    got = clf.predict_proba(x)
+    want = fixture_clf[name + '_proba_clf']
+    print('%s carried: predict_proba max diff %.3g'
+          % (name, np.abs(got - want).max()))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    got = clf.device_predict_proba(x)
+    want = fixture_clf[name + '_proba']
+    print('%s carried: device_predict_proba max diff %.3g'
+          % (name, np.abs(got - want).max()))
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 if name == 'AdaBoost' else 1e-5)
+    acc = clf.score(fixture_clf['train_features'],
+                    fixture_clf['train_labels'])
+    assert abs(acc - float(fixture_clf[name + '_train_acc'])) < 1e-9
+
+
+@pytest.mark.parametrize('name', CLF_NAMES)
+def test_config2_with_carried_family_matches_jax(fixture_clf, name):
+    """Config 2 at the bench geometry on the CPU with each carried family
+    against the JAX-CPU segmentation of image 0: enforced labels >= 0.999
+    equal, ARS >= 0.98, and the proba of the unchanged superpixels within
+    1e-4 but for at most 0.5 % of them.  The features agree within rtol
+    1e-5 + 1e-4 (tests/test_torch_filters.py), which the linear models'
+    weights carry into ~1e-4 of proba; a feature that sits that close to a
+    GBT threshold or to the k-th neighbour's distance moves a superpixel's
+    proba by a tree's step or a vote (1 and 2 superpixels of 875 here)."""
+    img = sample_color_image_rand_segment(CROP, 3, rand_seed=0)[0]
+    dv = {}
+    segm, soft = tpipe.segment_color2d_slic_features_model_graphcut(
+        img, _family(fixture_clf, name), FEATURES, sp_size=SP_CFG2,
+        sp_regul=REGUL_CFG2, gc_regul=GC_CFG2, debug_visual=dv)
+    slic = fixture_clf['slic'].astype(np.int64)
+    assert (dv['slic'] == slic).mean() >= 0.999
+    diff = dv['slic'] != slic
+    same = np.ones(len(dv['proba']), bool)
+    same[dv['slic'][diff]] = False
+    same[slic[diff]] = False
+    pd = np.abs(dv['proba'] - fixture_clf[name + '_proba'])[same].max(1)
+    ars = adjusted_rand_score(segm, fixture_clf[name + '_segm'])
+    print('config 2 with %s: labels equal %.6f, ARS %.6f, proba max diff '
+          '%.3g, superpixels above 1e-6: %d, above 1e-4: %d, of %d'
+          % (name, (dv['slic'] == slic).mean(), ars, pd.max(),
+             (pd > 1e-6).sum(), (pd > 1e-4).sum(), len(pd)))
+    assert (pd > 1e-4).mean() <= 0.005 and ars >= 0.98
+    assert np.isfinite(soft).all()

@@ -43,6 +43,22 @@ then segments image 0 and stores two files:
   (int16), the (K, F) ``features`` and their ``names``, ``proba``, the
   segmentation ``segm`` (uint8) and its ARS against the annotation
   (``ars_annot``);
+* ``torch_port_fixture_clf.npz``: config 2's training set (its features of
+  images 0-2 and the superpixel labels, as
+  ``train_classif_color2d_slic_features`` builds it: ``train_features``,
+  ``train_labels``) and, for each of GradBoost, AdaBoost, LogistRegr, SVM,
+  KNN and MLP (keys prefixed ``<name>_``), the classifier the JAX package
+  trains on it with a 3-candidate search (its arrays ``clf_*``, as
+  ``classifier_from_numpy`` reads them, and ``hyper``), its accuracy on
+  the training set (``train_acc``), and image 0 segmented with it (gc_regul
+  5.0): ``proba`` as the pipeline takes it, ``proba_clf`` of
+  ``Classifier.predict_proba`` on the same features, ``segm`` (uint8) and
+  its ARS against the annotation (``ars_annot``); the enforced SLIC labels
+  ``slic`` (int16), ``features`` and ``names`` of image 0 are shared;
+* ``torch_port_fixture_3d_tlm.npz``: the 3D gray-volume pipe with LM
+  texture (colour mean / std / energy and ``tLM`` mean: 23 features) on
+  the structured volume at 8x160x192 (the 3D workload's sp_size 15 and
+  spacing (4, 1, 1)), with the same arrays as the 3D file;
 * ``torch_port_fixture_noise.npz``: the first two images of ``bench.py``'s
   noise fallback (``default_rng(0)``, 884x1200) segmented with the group
   model of ``torch_port_fixture.npz``: for image i, the SLIC labels
@@ -55,10 +71,11 @@ committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
 JAX.
 
 Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
-``--only-sup`` the supervised one, ``--only-noise`` the noise one)::
+``--only-sup`` the supervised one, ``--only-noise`` the noise one,
+``--only-clf`` the classifier one, ``--only-3d-tlm`` the 3D texture one)::
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [--only-3d | --only-sup | --only-noise]
+        [--only-3d | --only-sup | --only-noise | --only-clf | --only-3d-tlm]
 """
 
 import os
@@ -74,6 +91,9 @@ OUT_3D = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_3d.npz')
 OUT_SUP = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_sup.npz')
 OUT_NOISE = os.path.join(ROOT, 'tests', 'data',
                          'torch_port_fixture_noise.npz')
+OUT_CLF = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_clf.npz')
+OUT_3D_TLM = os.path.join(ROOT, 'tests', 'data',
+                          'torch_port_fixture_3d_tlm.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -90,6 +110,11 @@ FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
 FEATURES_TLM = {'color': ['mean', 'std', 'energy'],
                 'tLM': ['mean', 'std', 'energy']}
 GC_REGUL_SUP, N_TRAIN_SUP, SEARCH_SUP = 5.0, 3, 3
+#: the classifier families of the classifier file
+CLF_NAMES = ('GradBoost', 'AdaBoost', 'LogistRegr', 'SVM', 'KNN', 'MLP')
+#: the 3D texture file's volume, features and stored slices
+CASE_3D_TLM = ((8, 160, 192), 15, (4, 1, 1), (0, 3, 7))
+FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
 _MODEL_ARRAYS = ('scaler_mean', 'scaler_scale', 'pca_components', 'pca_mean',
                  'pca_mask')
 
@@ -118,6 +143,13 @@ def main():
 
     if '--only-sup' in sys.argv[1:]:
         _save(OUT_SUP, _sup_outputs(pipelines))
+        return
+    if '--only-clf' in sys.argv[1:]:
+        _save(OUT_CLF, _clf_outputs(pipelines))
+        return
+    if '--only-3d-tlm' in sys.argv[1:]:
+        _save(OUT_3D_TLM, _gray3d_outputs(pipelines, '', *CASE_3D_TLM,
+                                          features=FEATURES_3D_TLM))
         return
     if '--only-noise' in sys.argv[1:]:
         model = _group_model(pipelines)
@@ -149,6 +181,9 @@ def main():
     _save(OUT_FIT, _fit_outputs(pipelines, imgs[0]))
     _save(OUT_SUP, _sup_outputs(pipelines))
     _save(OUT_NOISE, _noise_outputs(pipelines, model))
+    _save(OUT_CLF, _clf_outputs(pipelines))
+    _save(OUT_3D_TLM, _gray3d_outputs(pipelines, '', *CASE_3D_TLM,
+                                      features=FEATURES_3D_TLM))
 
 
 def _group_model(pipelines):
@@ -266,7 +301,84 @@ def _sup_outputs(pipelines):
     return out
 
 
-def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices):
+def _clf_arrays(classif):
+    """The arrays of a JAX classifier that ``classifier_from_numpy`` of the
+    port reads."""
+    out = {'classes': np.asarray(classif.classes_),
+           'scaler_mean': np.asarray(classif._scaler[0], np.float32),
+           'scaler_std': np.asarray(classif._scaler[1], np.float32)}
+    for k, v in classif._params._asdict().items():
+        v = np.asarray(v)
+        out[k] = (v.astype(np.int32) if v.dtype.kind in 'iub' and v.ndim
+                  else v.astype(np.float32) if v.ndim else v)
+    return out
+
+
+def _clf_outputs(pipelines):
+    """Config 2's training set, a JAX classifier of each family trained on
+    it, and image 0 segmented with each."""
+    import json
+    import jax.numpy as jnp
+    from pyimsegm_tpu import classification, descriptors
+    from pyimsegm_tpu.ops import slic as slic_ops
+    from pyimsegm_tpu.utils.data_samples import sample_color_image_rand_segment
+    from pyimsegm_tpu.utils.metrics import adjusted_rand_score
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    pairs = [sample_color_image_rand_segment(CROP, NB_CLASSES, rand_seed=s)
+             for s in range(N_TRAIN_SUP)]
+    imgs, annots = [p[0] for p in pairs], [p[1] for p in pairs]
+    # the first family through the training entry point; the others on the
+    # same training set with its search (10-fold CV for 3 images)
+    first, _slic, list_feats, list_lbs = \
+        pipelines.train_classif_color2d_slic_features(
+            imgs, annots, FEATURES_SUP, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            clf_name=CLF_NAMES[0], nb_classif_search=SEARCH_SUP)
+    x, y, _ = classification.convert_set_features_labels_2_dataset(
+        dict(enumerate(list_feats)), dict(enumerate(list_lbs)),
+        balance_type='unique', drop_labels=[-1])
+    x = np.nan_to_num(x)
+    out = {'train_features': np.asarray(x, np.float32),
+           'train_labels': np.asarray(y, np.int8)}
+    for name in CLF_NAMES:
+        if name == CLF_NAMES[0]:
+            classif, hyper = first, first.hyper
+        else:
+            classif, hyper = \
+                classification.create_classif_search_train_export(
+                    name, x, y, cross_val=10, nb_search_iter=SEARCH_SUP,
+                    seed=0)
+        dv = {}
+        segm, _soft = pipelines.segment_color2d_slic_features_model_graphcut(
+            imgs[0], classif, FEATURES_SUP, sp_size=SP_SIZE,
+            sp_regul=SP_REGUL, gc_regul=GC_REGUL_SUP, debug_visual=dv)
+        slic = np.asarray(dv['slic'])
+        if 'slic' not in out:
+            features, names = descriptors.compute_selected_features_color2d(
+                jnp.asarray(imgs[0]), jnp.asarray(slic.ravel()),
+                cfg.n_segments, FEATURES_SUP,
+                grid_ctx=(jnp.asarray(slic), cfg))
+            features = np.nan_to_num(np.asarray(features, np.float32))
+            out.update(slic=slic.astype(np.int16), features=features,
+                       names=np.asarray(names))
+        arrays = {'clf_' + k: v for k, v in _clf_arrays(classif).items()}
+        arrays.update(
+            hyper=np.asarray(json.dumps(hyper)),
+            train_acc=np.asarray(classif.score(x, y), np.float64),
+            proba=np.asarray(dv['proba'], np.float32),
+            proba_clf=np.asarray(classif.predict_proba(out['features']),
+                                 np.float32),
+            segm=np.asarray(segm).astype(np.uint8),
+            ars_annot=np.asarray(adjusted_rand_score(segm, annots[0]),
+                                 np.float64))
+        print('%s: %d training samples, accuracy %.4f, hyper %r, image 0 ARS '
+              'vs annotation %.4f' % (name, len(y), float(arrays['train_acc']),
+                                      hyper, float(arrays['ars_annot'])))
+        out.update({'%s_%s' % (name, k): v for k, v in arrays.items()})
+    return out
+
+
+def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices,
+                    features=FEATURES_3D):
     """The 3D pipe's stages (SLIC, counts, standardised features, GMM fit)
     as ``_pipe_gray3d_core`` runs them, and the public call's
     segmentation."""
@@ -287,7 +399,7 @@ def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices):
         jnp.ones(labels.shape + (1,), jnp.float32), labels, cfg)[:, 0]
     mask = (counts > 0).astype(jnp.float32)
     feats, _ = descriptors.compute_selected_features_gray3d(
-        volj, labels.ravel(), cfg.n_segments, FEATURES_3D,
+        volj, labels.ravel(), cfg.n_segments, features,
         grid_ctx3d=(labels, cfg))
     mu = jnp.sum(feats * mask[:, None], 0) / jnp.maximum(jnp.sum(mask), 1.0)
     sd = jnp.sqrt(jnp.sum(((feats - mu) ** 2) * mask[:, None], 0)
@@ -296,7 +408,7 @@ def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices):
     model = estim_class_model(feats, NB_CLASSES_3D, 'GMM', sample_weight=mask,
                               seed=0)
     segm = pipelines.pipe_gray3d_slic_features_model_graphcut(
-        vol, NB_CLASSES_3D, FEATURES_3D, spacing=spacing, sp_size=sp_size,
+        vol, NB_CLASSES_3D, features, spacing=spacing, sp_size=sp_size,
         sp_regul=SP_REGUL_3D, gc_regul=GC_REGUL_3D)
     labels = np.asarray(labels)
     out = dict(_model_arrays(model),

@@ -32,6 +32,11 @@ from a profile of each warm call: host ms per range and the range's span
 on the device; the call's own host-clock ms are taken in turns with the
 profiled calls, and one warm call is profiled as above.
 
+``--path 3d_tlm`` does the same with LM texture beside the intensity
+statistics (colour mean / std / energy and ``tLM`` mean, 23 features,
+as ``chip_smoke.py`` drives it), the bank's convolution in its features
+stage.
+
 ``--path sup`` drives the supervised path (BASELINE config 2:
 ``segment_color2d_slic_features_model_graphcut`` with colour + tGabor +
 tLBP features, gc_regul 5.0, the JAX-trained forest of
@@ -58,7 +63,7 @@ of rows 6 and 7 by F on the paths it drives).
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
-        [--path bench|fit|3d|sup|kernels] [--root CHECKOUT]
+        [--path bench|fit|3d|3d_tlm|sup|kernels] [--root CHECKOUT]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -83,6 +88,7 @@ FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
                 'tGabor': ['mean', 'energy'], 'tLBP': ['mean']}
 GC_REGUL_SUP = 5.0
 TILES = ((2048, 3600), (4096, 4096))
+FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
 
 
 def _stages(torch, image, model):
@@ -226,15 +232,15 @@ def _profile_ranges(torch, run, inputs, out_dir, kind):
     _profile(torch, lambda: run(inputs[0]), out_dir, kind)
 
 
-def _profile_gray3d(torch, volumes, out_dir):
+def _profile_gray3d(torch, volumes, out_dir, features, kind):
     from pyimsegm_tpu_torch import pipelines
 
     def run(vol):
         return pipelines.pipe_gray3d_slic_features_model_graphcut(
-            vol, 2, FEATURES, spacing=SPACING_3D, sp_size=SP_3D,
+            vol, 2, features, spacing=SPACING_3D, sp_size=SP_3D,
             sp_regul=REGUL_3D, gc_regul=GC_REGUL_3D)
 
-    _profile_ranges(torch, run, volumes, out_dir, '3d')
+    _profile_ranges(torch, run, volumes, out_dir, kind)
 
 
 def _profile_sup(torch, images, out_dir):
@@ -331,8 +337,9 @@ def _profile(torch, run, out_dir, kind):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
-    parser.add_argument('--path', choices=('bench', 'fit', '3d', 'sup',
-                                           'kernels'), default='bench')
+    parser.add_argument('--path', choices=('bench', 'fit', '3d', '3d_tlm',
+                                           'sup', 'kernels'),
+                        default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
     parser.add_argument('--root', default=ROOT,
@@ -367,9 +374,11 @@ def main():
                               'torch_port_fixture.npz')) as npz:
         model = class_model_from_numpy(
             {k: npz[k] for k in npz.files}).to('cuda')
-    if args.path == '3d':
+    if args.path in ('3d', '3d_tlm'):
         _profile_gray3d(torch, [sample_gray_volume_3d(SHAPE_3D, rand_seed=s)[0]
-                                for s in range(args.images)], args.out)
+                                for s in range(args.images)], args.out,
+                        FEATURES_3D_TLM if args.path == '3d_tlm' else FEATURES,
+                        args.path)
         return
     if args.path == 'sup':
         _profile_sup(torch, [sample_color_image_rand_segment(
