@@ -161,7 +161,29 @@ Phases (any failure raises and exits non-zero):
    count equal to the tile's pixels rounded once to f32, sum f within
    rtol 1e-3 of a float64 reduction, and the anchor seed of rows 13 / 14
    on the same labels, whose one anchor is the centre pixel; then a line
-   saying whether scipy and pandas import on this machine.
+   saying whether scipy and pandas import on this machine;
+12. centre detection and ellipse fitting (BASELINE config 4) at the ovary
+   image's size, 647x1024, on the synthetic scenes of
+   ``sample_ovary_scene`` against ``tests/data/torch_port_fixture_centers.npz``:
+   (a) rows 1, 2, 4, 6, 7, 9, 10 and 12 against their twins at sp_size 25
+   on the colour scene and at sp_size 15 on the gray segmentation (last
+   tile rows and columns partial) (``slice_kernel_phases``); (b) the fused
+   ``load_compute_detect_centers`` with the JAX-trained forest carried
+   across (``path_centers``: SLIC labels >= 0.999, the same non-empty
+   superpixels, points and the histograms at them exact on those whose
+   pixels agree, raw rays equal on >= ``RAY_BAR`` of entries,
+   shifts on >= ``SHIFT_BAR`` of rows with the aligned rays equal there,
+   centres one to one within 1 px, recall and precision against the true
+   centres at least JAX's; warm ms, the device ms of each
+   ``pyimsegm:<stage>`` range and the CUDA kernels of one call); (c)
+   ``train_center_classifier`` on three scenes with one search candidate,
+   its forest's detection within one centre of the JAX forest's (TP, FP),
+   training ms (``path_train_centers``); (d) the ellipse chain on the true
+   centres: gray SLIC at sp_size 15, ray-edge boundary points, RANSAC under
+   ``np.random.seed(0)`` with the example's table, ``add_overlap_ellipse``
+   (labels >= 0.999, points >= ``RAY_BAR``, parameters within 1e-6
+   relative where the inlier counts agree, object map >= 0.999; warm ms)
+   (``path_ellipses``).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -197,6 +219,8 @@ FIXTURE_3D_TLM = os.path.join(ROOT, 'tests', 'data',
                               'torch_port_fixture_3d_tlm.npz')
 FIXTURE_NOISE = os.path.join(ROOT, 'tests', 'data',
                              'torch_port_fixture_noise.npz')
+FIXTURE_CENTERS = os.path.join(ROOT, 'tests', 'data',
+                               'torch_port_fixture_centers.npz')
 #: least share of enforced labels equal to JAX's on bench.py's noise images:
 #: near-tie SLIC assignments flip between the port and XLA, and a moved
 #: centroid of a fragmented superpixel moves its anchor
@@ -2531,6 +2555,334 @@ def path_tiles(torch, clf):
     return counts
 
 
+#: BASELINE config 4 at the ovary image's size, on the synthetic scenes of
+#: ``sample_ovary_scene`` (tools/make_torch_port_fixture.py --only-centers):
+#: the scenes' seeds and egg count, the ellipse chain's tissue table
+#: (background, follicle, nurse, oocyte), SLIC, RANSAC and overlap
+#: parameters, and the annuli radii x labels of the features
+OVARY = (647, 1024)
+CENTER_TRAIN_SEEDS, CENTER_TEST_SEED, N_EGGS = (0, 1, 2), 3, 4
+TABLE_PROB = [0.01, 0.95, 0.95, 0.85]
+ELL_SLIC, ELL_REGUL, ELL_INLIERS, ELL_THR, ELL_TRIALS, ELL_OVERLAP = \
+    15, 0.1, 0.35, 3, 30, 0.45
+N_HIST = 5 * 4
+#: bars of the centre chain against JAX: ray distances equal on >= RAY_BAR
+#: of (position, angle) entries (any other one step length off), shifts
+#: equal on >= SHIFT_BAR of the rows (tests/test_torch_centers.py)
+RAY_BAR, SHIFT_BAR = 0.999, 0.99
+#: kernels the fused centre detection launches at 647x1024, sp_size 25
+#: (and the ellipse chain's gray SLIC at sp_size 15, and the training's
+#: SLIC, whose centres come from a segment sum, not row 6)
+PATH_CENTERS = ('blur_lab', 'slic_multi_update', 'slic_assign',
+                'grid_reduce', 'grid_moments', 'grid_lookup',
+                'grid_pair_count', 'enforce_fused')
+PATH_SLIC_ENFORCED = tuple(k for k in PATH_CENTERS if k != 'grid_reduce')
+#: the centre chain's stages (``pyimsegm:<stage>`` profiler ranges)
+CENTER_STAGES = ('slic', 'enforce', 'geometry', 'hist', 'rays', 'shift',
+                 'classify', 'cluster')
+
+
+def _ovary_scenes():
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    return [sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)
+            for s in CENTER_TRAIN_SEEDS + (CENTER_TEST_SEED,)]
+
+
+def slice_kernel_phases(torch, scene):
+    """Rows 1, 2, 4, 6, 7, 9, 10 and 12 against their twins at the centre
+    slice's geometries, 647x1024 at sp_size 25 (the colour scene: the last
+    tile row and column 22 and 24 pixels) and at sp_size 15 (the gray
+    image of the segmentation, as the ellipse chain's SLIC takes it: 2 and
+    4 pixels), each on the labels the kernels produce there."""
+    from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda, prep_cuda
+    from pyimsegm_tpu_torch.ops import grid as grid_ops
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.ops import slic_cuda
+    img, segm, _ = scene
+    gray = segm / float(segm.max())
+    for what, image, step, regul in (
+            ('colour scene, sp_size 25', img, 25, 0.3),
+            ('gray segmentation, sp_size 15', gray, ELL_SLIC, ELL_REGUL)):
+        t = torch.as_tensor(np.asarray(image, np.float32), device=DEVICE)
+        cfg = slic_ops.slic_config(OVARY[0], OVARY[1], step)
+        m = slic_ops.compactness_from_regul(step, regul)
+        rgb = t if t.ndim == 3 else torch.stack([t] * 3, dim=-1)
+        equal, ulps, _ = _check_blur_lab(torch, prep_cuda, rgb, what)
+        lab_chw, centers0 = slic_ops._prepare_chw(t, cfg)
+        n_upd = slic_ops.DEFAULT_SLIC_ITERS - 1
+        cen = _one_schedule(lambda: slic_cuda.slic_multi_update(
+            lab_chw, centers0, m, cfg, n_upd))
+        cen_p = slic_cuda._slic_multi_update_plain(lab_chw, centers0, m, cfg,
+                                                   n_upd)
+        lab_k = slic_cuda.slic_assign(lab_chw, cen, m, cfg)
+        lab_p = slic_cuda._slic_assign_plain(lab_chw, cen, m, cfg)
+        torch.cuda.synchronize()
+        c_err = float((cen - cen_p).abs().max())
+        if not (c_err <= 1e-3 and torch.equal(lab_k, lab_p)):
+            raise AssertionError('%s: row 2 centres within %g, row 4 %d '
+                                 'labels differ' % (what, c_err, int(
+                                     (lab_k != lab_p).sum())))
+        labels = lab_k[:cfg.height, :cfg.width].contiguous()
+        h, w = labels.shape
+        py, px = torch.meshgrid(
+            torch.arange(h, dtype=torch.float32, device=DEVICE),
+            torch.arange(w, dtype=torch.float32, device=DEVICE),
+            indexing='ij')
+        coords = torch.stack([torch.ones_like(py), py, px], dim=-1)
+        ok6, e6 = _sums_agree(grid_cuda.grid_reduce(coords, labels, cfg),
+                              grid_cuda._grid_reduce_plain(coords, labels,
+                                                           cfg))
+        zeros = torch.zeros((h, w, 3), dtype=torch.float32, device=DEVICE)
+        mom = grid_cuda.grid_moments_apply(zeros, labels, None, cfg)[1]
+        ok7, e7 = _sums_agree(mom, grid_cuda._grid_moments_apply_plain(
+            zeros, labels, None, cfg)[1])
+        cyx = mom[:, 7:9] / torch.clamp_min(mom[:, 6:7], 1.0)
+        enf = enforce_cuda.enforce_fused(labels, cyx, cfg)
+        enf_p = enforce_cuda._enforce_fused_plain(labels, cyx, cfg)
+        torch.cuda.synchronize()
+        if not (ok6 and ok7 and torch.equal(enf, enf_p)):
+            raise AssertionError('%s: row 6 within %g (%s), row 7 within %g '
+                                 '(%s), row 12 %d pixels differ'
+                                 % (what, e6, ok6, e7, ok7,
+                                    int((enf != enf_p).sum())))
+        _check_pair_count(torch, grid_cuda, enf, cfg, what)
+        counts, sym25, counts9 = grid_ops.counts_and_contacts(enf, cfg)
+        donor = grid_ops.donor_chain_table(
+            counts, sym25, cfg.grid_h, cfg.grid_w,
+            int(0.5 * cfg.step * cfg.step), counts9=counts9).to(torch.int32)
+        for table in (donor[:, None], _window_donor(torch, cfg,
+                                                    DEVICE)[:, None]):
+            got = grid_cuda.grid_lookup(table, enf, cfg)
+            want = grid_cuda._grid_lookup_plain(table, enf, cfg).to(
+                table.dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError('%s: row 9 %d words differ'
+                                     % (what, int((got != want).sum())))
+        print('slice kernels, %s, K = %d: row 1 bf16 equal %.6f (max %d '
+              'ulp), row 2 centres within %.3g, rows 4 / 9 / 10 / 12 exact, '
+              'row 6 within %.3g, row 7 within %.3g; %.6f of pixels '
+              'relabelled by row 12'
+              % (what, cfg.n_segments, equal, ulps, c_err, e6, e7,
+                 float((enf != labels).float().mean())), flush=True)
+
+
+def _stage_device_ms(torch, fn):
+    """{stage: device ms} of the ``pyimsegm:<stage>`` ranges in one
+    profiled call of ``fn`` (the range's span on the device), the call's
+    device busy ms and its kernel launches."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyimsegm_tpu_torch.utils.device import STAGE_PREFIX
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    stages = {}
+    for e in prof.events():
+        if e.name.startswith(STAGE_PREFIX) and \
+                not str(e.device_type).endswith('CPU'):
+            name = e.name[len(STAGE_PREFIX):]
+            stages[name] = stages.get(name, 0.0) + e.device_time_total / 1e3
+    device = [e for e in prof.events() if str(e.device_type).endswith('CUDA')
+              and not e.name.startswith(STAGE_PREFIX)]
+    return (stages, sum(e.time_range.elapsed_us() for e in device) / 1e3,
+            sum(1 for e in device
+                if not e.name.startswith(('Memcpy', 'Memset'))))
+
+
+def _match_centres(got, want, tol=1.0):
+    """True when the centres match one to one within ``tol`` px."""
+    got, want = np.asarray(got).reshape(-1, 2), np.asarray(want).reshape(-1, 2)
+    if got.shape != want.shape:
+        return False
+    if not len(want):
+        return True
+    d = np.sqrt(((got[:, None] - want[None]) ** 2).sum(-1))
+    nearest = np.argmin(d, axis=1)
+    return bool((d.min(axis=1) <= tol).all()
+                and len(set(nearest.tolist())) == len(want))
+
+
+def _centre_features(torch, segm, points):
+    """The fused route's features at ``points``, by its own pieces on the
+    card: (histograms (P, 20), rays before the alignment (P, 24), aligned
+    rays, shifts) as numpy."""
+    from pyimsegm_tpu_torch import centers
+    return [t.cpu().numpy() for t in centers._fused_features(
+        torch.as_tensor(segm.astype(np.int32), device=DEVICE),
+        torch.as_tensor(points, device=DEVICE), 4, centers.CENTER_PARAMS)]
+
+
+def path_centers(torch, scenes, fixture):
+    """The fused centre detection on the test scene with the JAX-trained
+    forest carried across, against the fixture; returns the launch
+    counts."""
+    from pyimsegm_tpu_torch import centers
+    from pyimsegm_tpu_torch.classification import classifier_from_numpy
+    clf = classifier_from_numpy({k[4:]: v for k, v in fixture.items()
+                                 if k.startswith('clf_')}, device=DEVICE)
+    img, segm, true_centres = scenes[-1]
+    if not centers._fused_ok(clf, dict(centers.CENTER_PARAMS,
+                                       **centers.CLUSTER_PARAMS)):
+        raise AssertionError('the carried forest does not take the fused '
+                             'route')
+
+    def run():
+        return centers.load_compute_detect_centers(img, segm, clf)
+
+    out, launches = _drive('centre detection', PATH_CENTERS, run,
+                           forbidden=WIDE)
+    slic_eq = float((out['slic'] == fixture['slic']).mean())
+    # points are the centres of the non-empty superpixels in id order; a
+    # superpixel that a differing pixel touches may move, every other one
+    # must not
+    ids = np.unique(out['slic'])
+    diff = out['slic'] != fixture['slic']
+    touched = np.isin(ids, np.concatenate([out['slic'][diff],
+                                           fixture['slic'][diff]]))
+    same_ids = np.array_equal(ids, np.unique(fixture['slic']))
+    same_pts = ~touched if same_ids else np.zeros(len(ids), bool)
+    points_eq = same_ids and np.array_equal(out['points'][same_pts],
+                                            fixture['points'][same_pts])
+    hists, raw, aligned, shifts = _centre_features(torch, segm, out['points'])
+    want = fixture['features']
+    hist_eq = bool(same_ids and np.array_equal(hists[same_pts],
+                                               want[same_pts, :N_HIST]))
+    ray_eq = float((raw[same_pts] == fixture['rays'][same_pts]).mean())
+    rows = np.abs(shifts[same_pts] - fixture['shifts'][same_pts]) <= 1e-3
+    aligned_ok = np.array_equal(aligned[same_pts][rows],
+                                want[same_pts, N_HIST:][rows])
+    centres_ok = _match_centres(out['centers'], fixture['centers'])
+    stats = centers.evaluate_detected_centers(out['centers'], true_centres)
+    print('centre detection 647x1024 vs JAX-CPU: SLIC labels equal %.6f (>= '
+          '0.999), same superpixels %s, points exact on the %d of %d whose '
+          'pixels agree %s, histograms there exact %s, rays equal %.6f (>= '
+          '%g), shifts equal %.6f of rows (>= %g), aligned rays on those '
+          'rows equal %s, %d candidates (JAX %d), centres %d one to one '
+          'within 1 px %s; recall %.4f precision %.4f (JAX %.4f / %.4f)'
+          % (slic_eq, same_ids, int(same_pts.sum()), len(ids), points_eq,
+             hist_eq, ray_eq,
+             RAY_BAR, float(rows.mean()), SHIFT_BAR, aligned_ok,
+             len(out['candidates']), len(fixture['candidates']),
+             len(out['centers']), centres_ok, stats['recall'],
+             stats['precision'], float(fixture['recall']),
+             float(fixture['precision'])), flush=True)
+    if not (slic_eq >= 0.999 and points_eq and hist_eq and ray_eq >= RAY_BAR
+            and rows.mean() >= SHIFT_BAR and aligned_ok and centres_ok
+            and stats['recall'] >= float(fixture['recall'])
+            and stats['precision'] >= float(fixture['precision'])):
+        raise AssertionError('centre detection disagrees with the JAX '
+                             'reference')
+    ms = [_warm_ms(torch, run, 1) for _ in range(3)]
+    stages, busy, n_kernels = _stage_device_ms(torch, run)
+    wall = _warm_ms(torch, run, 1)
+    print('centre detection warm ms per 647x1024 image: %s (best %.3f ms); '
+          'stage device ms %s (sum %.3f); device busy %.3f ms of a %.3f ms '
+          'call in %d CUDA kernels'
+          % (['%.3f' % t for t in ms], min(ms), json.dumps(
+              {k: round(stages.get(k, 0.0), 4) for k in CENTER_STAGES}),
+             sum(stages.values()), busy, wall, n_kernels), flush=True)
+    return launches
+
+
+def path_train_centers(torch, scenes, fixture):
+    """``train_center_classifier`` on the three training scenes at full size
+    with one search candidate, then the detection with that forest; held
+    by quality against the JAX-trained forest's detection (TP and FP
+    within one centre); returns the launch counts."""
+    from pyimsegm_tpu_torch import centers
+
+    def train():
+        return centers.train_center_classifier(
+            [s[1] for s in scenes[:-1]], [s[0] for s in scenes[:-1]],
+            [s[2] for s in scenes[:-1]], params={'nb_classif_search': 1})
+
+    t0 = time.perf_counter()
+    (clf, data), launches = _drive('centre training', PATH_SLIC_ENFORCED,
+                                   train, forbidden=WIDE)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    warm_ms = _warm_ms(torch, train, 1)
+    img, segm, true_centres = scenes[-1]
+    out = centers.load_compute_detect_centers(img, segm, clf)
+    got = centers.evaluate_detected_centers(out['centers'], true_centres)
+    tp_jax = round(float(fixture['recall']) * len(true_centres))
+    fp_jax = round(tp_jax / float(fixture['precision'])) - tp_jax \
+        if float(fixture['precision']) > 0 else len(fixture['centers'])
+    acc = clf.score(fixture['train_features'], fixture['train_labels'])
+    print('centre training on the card: %d points, forest accuracy on the '
+          'JAX training points %.4f; detection with it TP %d FP %d FN %d '
+          '(JAX forest TP %d FP %d, within one centre); training ms %.3f '
+          '(first call) and %.3f (warm)'
+          % (sum(len(d['points']) for d in data.values()), acc, got['TP'],
+             got['FP'], got['FN'], tp_jax, fp_jax, first_ms, warm_ms),
+          flush=True)
+    if got['TP'] < tp_jax - 1 or got['FP'] > fp_jax + 1:
+        raise AssertionError('the card-trained forest misses the JAX '
+                             'forest\'s detection')
+    return launches
+
+
+def path_ellipses(torch, scenes, fixture):
+    """The ellipse chain on the test scene's true centres against the
+    fixture: the gray SLIC (>= 0.999), the ray-edge boundary points (>=
+    RAY_BAR equal), RANSAC under ``np.random.seed(0)`` (parameters within
+    1e-6 relative), the object map (>= 0.999); returns the launch
+    counts."""
+    from pyimsegm_tpu_torch import ellipse_fitting as ell
+    _, segm, true_centres = scenes[-1]
+
+    def run():
+        slic, points_all, labels = ell.get_slic_points_labels(
+            segm, slic_size=ELL_SLIC, slic_regul=ELL_REGUL)
+        weights = np.bincount(slic.ravel())
+        boundary = ell.prepare_boundary_points_ray_edge(segm, true_centres,
+                                                        close_points=5)
+        np.random.seed(0)
+        obj = np.zeros(segm.shape, dtype=int)
+        fits = []
+        for i, pts in enumerate(boundary):
+            model, inliers = ell.ransac_segm(
+                np.asarray(pts), ell.EllipseModelSegm, points_all, weights,
+                labels, [TABLE_PROB], ELL_INLIERS, ELL_THR,
+                max_trials=ELL_TRIALS)
+            if model is None:
+                fits.append((np.full(5, np.nan), -1))
+                continue
+            fits.append((np.asarray(model.params), int(inliers.sum())))
+            obj = ell.add_overlap_ellipse(obj, model.params, i + 1,
+                                          thr_overlap=ELL_OVERLAP)
+        return slic, boundary, fits, obj
+
+    (slic, boundary, fits, obj), launches = _drive(
+        'ellipse chain', PATH_SLIC_ENFORCED, run, forbidden=WIDE)
+    slic_eq = float((slic == fixture['ell_slic']).mean())
+    counts_eq = [len(b) for b in boundary] == fixture['ell_counts'].tolist()
+    pts = np.concatenate(boundary)
+    pts_eq = float(np.all(pts == fixture['ell_points'], axis=1).mean()) \
+        if counts_eq else 0.0
+    inl_eq = [n == m for (_, n), m in zip(fits, fixture['ell_inliers'])]
+    rel = [float(np.max(np.abs(p - q) / np.abs(q)))
+           for (p, _), q in zip(fits, fixture['ell_params'])]
+    obj_eq = float((obj == fixture['ell_segm']).mean())
+    print('ellipse chain 647x1024 vs JAX-CPU: gray SLIC labels equal %.6f '
+          '(>= 0.999), boundary points equal %.6f (>= %g), inlier counts '
+          'equal %s, parameters max relative diff %s (<= 1e-6 where the '
+          'inliers agree), object map equal %.6f (>= 0.999)'
+          % (slic_eq, pts_eq, RAY_BAR, inl_eq, ['%.3g' % r for r in rel],
+             obj_eq), flush=True)
+    if not (slic_eq >= 0.999 and pts_eq >= RAY_BAR and obj_eq >= 0.999
+            and all(r <= 1e-6 for r, same in zip(rel, inl_eq) if same)):
+        raise AssertionError('the ellipse chain disagrees with the JAX '
+                             'reference')
+    ms = [_warm_ms(torch, run, 1) for _ in range(3)]
+    print('ellipse chain warm ms per 647x1024 image (%d centres): %s (best '
+          '%.3f ms)' % (len(true_centres), ['%.3f' % t for t in ms],
+                        min(ms)), flush=True)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2560,7 +2912,7 @@ def main():
 
     fixtures = []
     for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
-                 FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM):
+                 FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM, FIXTURE_CENTERS):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
@@ -2603,6 +2955,11 @@ def main():
     path_families(torch, images, fixtures[6])
     path_train_families(torch, images, [p[1] for p in pairs], fixtures[6])
     big_step_8_phase(torch)
+    scenes = _ovary_scenes()
+    slice_kernel_phases(torch, scenes[-1])
+    centre_paths = (path_centers(torch, scenes, fixtures[8]),
+                    path_train_centers(torch, scenes, fixtures[8]),
+                    path_ellipses(torch, scenes, fixtures[8]))
     for rec in records:
         name = rec['name']
         rec['launches'] = (
@@ -2612,6 +2969,8 @@ def main():
             else bench[name] if name in PATH_BENCH else
             op[name] if name in PATH_OP else
             gray3d[name] if name in PATH_3D + PASSES_3D else fit[name])
+        if name in PATH_CENTERS:
+            rec['launches'] += sum(p[name] for p in centre_paths)
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
          for m in ('scipy', 'pandas')}), flush=True)

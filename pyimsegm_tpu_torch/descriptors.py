@@ -345,3 +345,151 @@ def compute_selected_features_img2d(image, seg_ids, num_segments,
         return compute_selected_features_gray2d(
             image, seg_ids, num_segments, dict_features, grid_ctx=grid_ctx)
     raise ValueError('invalid image size - %r' % (tuple(image.shape),))
+
+
+# -------------------------------------------------- windowed label hists ---
+
+def adjust_bounding_box_crop(image_size, element_size, position):
+    """Clip a window centred at ``position`` to the image; returns
+    (im_begin, im_end, el_begin, el_end) per axis.
+
+    >>> adjust_bounding_box_crop((10, 10), (5, 5), (2, 2))
+    ((0, 0), (5, 5), (0, 0), (5, 5))
+    """
+    im_begin, im_end, el_begin, el_end = [], [], [], []
+    for dim in range(len(element_size)):
+        half = element_size[dim] // 2
+        lo = int(position[dim]) - half
+        hi = lo + element_size[dim]
+        im_begin.append(max(lo, 0))
+        im_end.append(min(hi, image_size[dim]))
+        el_begin.append(max(-lo, 0))
+        el_end.append(element_size[dim] - max(hi - image_size[dim], 0))
+    return tuple(im_begin), tuple(im_end), tuple(el_begin), tuple(el_end)
+
+
+def compute_label_hist_segm(segm, position, struc_elem, nb_labels):
+    """Label histogram inside a structuring element around a point (host).
+
+    >>> segm = np.zeros((10, 10), dtype=int)
+    >>> segm[1:9, 2:8] = 1
+    >>> segm[3:7, 4:6] = 2
+    >>> compute_label_hist_segm(segm, [6, 6], np.ones((3, 3)), 3)
+    (array([0., 7., 2.]), 9.0)
+    """
+    segm = np.asarray(segm)
+    struc_elem = np.asarray(struc_elem)
+    if segm.ndim != len(position):
+        raise ValueError('dim of position %r should match the segmentation'
+                         ' %r dim' % (position, segm.shape))
+    ib, ie, bb, be = adjust_bounding_box_crop(segm.shape, struc_elem.shape,
+                                              position)
+    sel = segm[ib[0]:ie[0], ib[1]:ie[1]]
+    el = struc_elem[bb[0]:be[0], bb[1]:be[1]]
+    if sel.shape != el.shape:
+        raise ValueError('segmentation %s and element %s should match'
+                         % (sel.shape, el.shape))
+    hist = np.zeros(nb_labels)
+    for lb in range(nb_labels):
+        hist[lb] = np.sum((sel == lb) & (el == 1))
+    return hist, float(np.sum(struc_elem))
+
+
+def compute_label_hist_proba(segm, position, struc_elem):
+    """Windowed histogram over per-label probability planes (host).
+
+    >>> seg = np.zeros((50, 50, 2), dtype=float)
+    >>> seg[15:35, 20:40, 1] = 1
+    >>> seg[:, :, 0] = 1 - seg[:, :, 1]
+    >>> compute_label_hist_proba(seg, (15, 20), np.ones((12, 13), dtype=int))
+    (array([114.,  42.]), 156)
+    """
+    segm = np.asarray(segm)
+    struc_elem = np.asarray(struc_elem)
+    if segm.ndim != (len(position) + 1):
+        raise ValueError('segment. (%r) should have larger (+1) dim than'
+                         ' position %i' % (segm.shape, len(position)))
+    ib, ie, bb, be = adjust_bounding_box_crop(segm.shape[:struc_elem.ndim],
+                                              struc_elem.shape, position)
+    sel = segm[ib[0]:ie[0], ib[1]:ie[1], :]
+    el = struc_elem[bb[0]:be[0], bb[1]:be[1]]
+    hist = np.sum(sel * el[..., None], axis=(0, 1))
+    return hist, int(np.sum(struc_elem))
+
+
+# ------------------------------------------------------- ray twins ---------
+
+def numpy_ray_features_seg2d(seg_binary, position, angle_step=5., edge='up'):
+    """Host march, one ray at a time: from ``position`` step along each
+    angle until the boundary condition is met; -1 when the ray leaves the
+    image.
+
+    >>> seg = np.ones((100, 150), dtype=bool)
+    >>> yy, xx = np.mgrid[:100, :150]
+    >>> seg[((yy - 50) ** 2 + (xx - 75) ** 2) <= 40 ** 2] = False
+    >>> numpy_ray_features_seg2d(seg, (50, 75), 45).astype(int)[:4]
+    array([41, 41, 41, 41])
+    """
+    seg_binary = np.asarray(seg_binary).astype(bool)
+    angles = np.arange(0, 360, angle_step)
+    ray_dist = np.full(len(angles), -1.0)
+    if seg_binary[int(position[0]), int(position[1])] and edge == 'up':
+        return ray_dist * 0
+    height, width = seg_binary.shape
+    diag = int(np.hypot(height, width))
+    for i, ang in enumerate(angles):
+        rad = np.deg2rad(ang)
+        grad = np.array([np.sin(rad), np.cos(rad)])
+        grad = grad / max(np.abs(grad))
+        pos = np.array(position, float)
+        last = seg_binary[int(position[0]), int(position[1])]
+        for _ in range(diag):
+            pos = pos + grad
+            r, c = int(round(pos[0])), int(round(pos[1]))
+            if pos[0] < 0 or r >= height or pos[1] < 0 or c >= width:
+                break
+            actual = seg_binary[r, c]
+            if (edge == 'up' and actual) or (edge == 'down' and last
+                                             and not actual):
+                ray_dist[i] = np.hypot(*(pos - np.asarray(position, float)))
+                break
+            last = actual
+    return ray_dist
+
+
+def cython_ray_features_seg2d(seg_binary, position, angle_step=5., edge='up',
+                              device='cuda'):
+    """The batched march of :mod:`pyimsegm_tpu_torch.ops.ray` for one
+    position, under the reference's name of its compiled twin."""
+    from pyimsegm_tpu_torch.ops import ray as ray_ops
+    return np.asarray(ray_ops.compute_ray_features_segm_2d(
+        seg_binary, position, angle_step=angle_step, smooth_coef=0,
+        edge=edge, device=device), float)
+
+
+def compute_ray_features_segm_2d_vectors(seg_binary, position, angle_step=5.,
+                                         smooth_coef=0, edge='up',
+                                         device='cuda'):
+    """The reference's rotation-based ray variant, with the same output
+    contract as :func:`compute_ray_features_segm_2d`, computed by the
+    direct march."""
+    from pyimsegm_tpu_torch.ops import ray as ray_ops
+    return np.asarray(ray_ops.compute_ray_features_segm_2d(
+        seg_binary, position, angle_step=angle_step, smooth_coef=smooth_coef,
+        edge=edge, device=device), float)
+
+
+# -------------------------- public re-exports under the reference's names ---
+
+from pyimsegm_tpu_torch.ops.histogram import (  # noqa: E402,F401
+    HIST_CIRCLE_DIAGONALS,
+    compute_label_histograms_positions,
+)
+from pyimsegm_tpu_torch.ops.ray import (  # noqa: E402,F401
+    compute_ray_features_positions,
+    compute_ray_features_segm_2d,
+    interpolate_ray_dist,
+    reconstruct_ray_features_2d,
+    reduce_close_points,
+    shift_ray_features,
+)

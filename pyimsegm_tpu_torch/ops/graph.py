@@ -1,13 +1,15 @@
-"""Supervoxel adjacency with a static (padded) edge list, and edge weights
-(port of the parts of ``pyimsegm_tpu.ops.graph`` that the 3D path runs).
+"""Superpixel adjacency with a static (padded) edge list, and edge weights
+(port of ``pyimsegm_tpu.ops.graph``).
 
-The JAX package hashes every conn6 voxel pair ``lo * K + hi`` and keeps the
-``8 * K`` smallest distinct codes (``jnp.unique(..., size=8K)``).  Here the
-same edge list comes from the grid invariant of SLIC supervoxels instead:
-two adjacent voxels carry labels whose cells lie at most 3 apart in every
-axis, so a (K, 7**3) presence table, filled from the three axis-neighbour
-compares, holds exactly the set of distinct pairs, and one sort of its
-present codes gives the reference's first ``8 * K`` of them.
+The JAX package hashes every neighbouring pixel pair ``lo * K + hi`` and
+keeps the ``8 * K`` smallest distinct codes (``jnp.unique(..., size=8K)``).
+:func:`adjacency_edges_2d` does the same for any 2D label map.  For SLIC
+supervoxels :func:`adjacency_edges_3d` gets the same edge list from their
+grid invariant instead: two adjacent voxels carry labels whose cells lie at
+most 3 apart in every axis, so a (K, 7**3) presence table, filled from the
+three axis-neighbour compares, holds exactly the set of distinct pairs, and
+one sort of its present codes gives the reference's first ``8 * K`` of
+them.
 """
 
 import torch
@@ -22,6 +24,45 @@ NEAR_OFFSETS3 = [(a, b, c) for a in range(-3, 4) for b in range(-3, 4)
 def edge_capacity(num_segments):
     """Static padded edge count of the reference (``8 * K``)."""
     return 8 * num_segments
+
+
+def adjacency_edges_2d(labels, num_segments):
+    """conn4 region adjacency of a 2D label map.
+
+    :param labels: (H, W) integer tensor in [0, num_segments)
+    :returns: (edges (8K, 2) int32 pairs lo < hi in ascending ``lo*K + hi``
+        order, valid (8K,) bool); invalid slots hold (0, 0)
+    """
+    a = torch.cat([labels[:, :-1].reshape(-1), labels[:-1, :].reshape(-1)])
+    b = torch.cat([labels[:, 1:].reshape(-1), labels[1:, :].reshape(-1)])
+    return _unique_edges(a, b, num_segments)
+
+
+def _unique_edges(a, b, num_segments):
+    """The ``8 * K`` smallest distinct pair codes of (a, b), padded with
+    the sentinel ``K * K`` (which same-label pairs map to)."""
+    lo = torch.minimum(a, b).to(torch.int64)
+    hi = torch.maximum(a, b).to(torch.int64)
+    k = num_segments
+    sentinel = k * k
+    codes = torch.where(lo == hi, sentinel, lo * k + hi)
+    return _padded_edges(torch.unique(codes), k)
+
+
+def _padded_edges(uniq, k):
+    """Sorted distinct codes ``lo * k + hi`` (the sentinel ``k * k`` among
+    them or not) -> (edges (8k, 2) int32, valid (8k,) bool)."""
+    sentinel = k * k
+    e_max = edge_capacity(k)
+    uniq = uniq[:e_max]
+    if uniq.numel() < e_max:
+        uniq = torch.cat([uniq, uniq.new_full((e_max - uniq.numel(),),
+                                              sentinel)])
+    valid = uniq < sentinel
+    uniq = torch.where(valid, uniq, 0)
+    edges = torch.stack([torch.div(uniq, k, rounding_mode='floor'),
+                         uniq % k], dim=-1)
+    return edges.to(torch.int32), valid
 
 
 def _cell3d(labels, gy, gx):
@@ -76,18 +117,8 @@ def adjacency_edges_3d(labels, num_segments, cfg):
     off = torch.tensor(NEAR_OFFSETS3, device=dev)
     delta = (off[:, 0] * gy + off[:, 1]) * gx + off[:, 2]
     lo = torch.arange(k, device=dev)[:, None]
-    sentinel = k * k
-    codes = torch.where(pres, lo * (k + 1) + delta, sentinel).reshape(-1)
-    e_max = edge_capacity(k)
-    uniq = torch.sort(codes).values[:e_max]
-    if uniq.numel() < e_max:
-        uniq = torch.cat([uniq, uniq.new_full((e_max - uniq.numel(),),
-                                              sentinel)])
-    valid = uniq < sentinel
-    uniq = torch.where(valid, uniq, 0)
-    edges = torch.stack([torch.div(uniq, k, rounding_mode='floor'),
-                         uniq % k], dim=-1)
-    return edges.to(torch.int32), valid
+    codes = torch.where(pres, lo * (k + 1) + delta, k * k).reshape(-1)
+    return _padded_edges(torch.sort(codes).values, k)
 
 
 def adjacency3d_counts(labels, cfg):

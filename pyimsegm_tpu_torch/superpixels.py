@@ -1,17 +1,20 @@
 """Superpixel API under the reference's names (port of
 ``pyimsegm_tpu.superpixels``): :func:`segment_slic_img2d` from
-``ops/slic.py``, :func:`segment_slic_img3d_gray` from ``ops/slic3d.py`` and
-the host-side numpy edge-list helpers.  ``superpixel_centers`` and
-``get_neighboring_segments`` come with the RG2Sp slice (ROADMAP.md)."""
+``ops/slic.py``, :func:`segment_slic_img3d_gray` from ``ops/slic3d.py``,
+:func:`superpixel_centers` over ``ops/graph.py`` and the host-side numpy
+edge-list helpers.  ``get_neighboring_segments`` comes with the RG2Sp
+slice (ROADMAP.md item 8)."""
 
 import numpy as np
 
+from pyimsegm_tpu_torch.ops import graph as graph_ops
 from pyimsegm_tpu_torch.ops.slic import (  # noqa: F401  (public re-export)
     segment_slic_img2d,
 )
 from pyimsegm_tpu_torch.ops.slic3d import (  # noqa: F401
     segment_slic_img3d_gray,
 )
+from pyimsegm_tpu_torch.utils.device import as_tensor
 
 
 def get_segment_diffs_2d_conn4(grid):
@@ -56,3 +59,13 @@ def make_graph_segm_connect_grid3d_conn6(grid):
     vertices = np.unique(grid)
     return make_graph_segment_connect_edges(
         vertices, get_segment_diffs_3d_conn6(grid))
+
+
+def superpixel_centers(segments, device='cuda'):
+    """Mean coordinate per superpixel of a label map or volume, (K, ndim)
+    numpy with K = max + 1; a tensor runs on its device, anything else on
+    ``device``."""
+    segments = as_tensor(segments, device)
+    k = int(segments.max()) + 1
+    return graph_ops.superpixel_centers(segments, k,
+                                        ndim=segments.ndim).cpu().numpy()

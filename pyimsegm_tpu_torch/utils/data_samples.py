@@ -95,3 +95,63 @@ def sample_serpentine_labels(step=16, n_tiles=(4, 5)):
         if y + 2 < span:
             labels[y + 1, span - 1 if k % 2 == 0 else 0] = target
     return labels
+
+
+#: RGB colour of each tissue class of :func:`sample_ovary_scene`:
+#: background, follicle ring, nurse cells, oocyte
+OVARY_COLOURS = ((0.92, 0.90, 0.86), (0.55, 0.25, 0.45), (0.78, 0.58, 0.72),
+                 (0.35, 0.62, 0.32))
+
+
+def sample_ovary_scene(size=(647, 1024), n_eggs=4, rand_seed=0, noise=0.05):
+    """Synthetic ovary slice: separate eggs (ellipses of semi-axes 0.12-0.23
+    of the image's shorter side, 78-149 px at 647x1024, random orientation,
+    at least 3% of that side apart), each a follicle ring (label 1, 8% of
+    the minor semi-axis thick, at least 2 px) around nurse cells (label 2)
+    and an oocyte at one end of the major axis (label 3), on background
+    (label 0); the image is each class's :data:`OVARY_COLOURS` plus
+    N(0, ``noise``), clipped to [0, 1].  Eggs are drawn from
+    ``np.random.default_rng(rand_seed)`` until ``n_eggs`` fit (at most 1000
+    tries).
+
+    :returns: (image (H, W, 3) float32, segm (H, W) int32, egg centres
+        (E, 2) float64 (row, col))
+    """
+    rng = np.random.default_rng(rand_seed)
+    h, w = size
+    scale = min(h, w)
+    eggs = []
+    for _ in range(1000):
+        if len(eggs) == n_eggs:
+            break
+        a = rng.uniform(0.12, 0.23) * scale
+        b = a * rng.uniform(0.65, 0.95)
+        theta = rng.uniform(0.0, np.pi)
+        margin = a + 2.0
+        if 2 * margin >= min(h, w):
+            continue
+        cy = rng.uniform(margin, h - margin)
+        cx = rng.uniform(margin, w - margin)
+        if any(np.hypot(cy - e[0], cx - e[1]) < a + e[2] + 0.03 * scale
+               for e in eggs):
+            continue
+        eggs.append((cy, cx, a, b, theta))
+    yy, xx = np.mgrid[:h, :w].astype(np.float64)
+    segm = np.zeros((h, w), dtype=np.int32)
+    for cy, cx, a, b, theta in eggs:
+        dy, dx = yy - cy, xx - cx
+        along = dy * np.cos(theta) + dx * np.sin(theta)   # major axis
+        across = -dy * np.sin(theta) + dx * np.cos(theta)
+        inside = (along / a) ** 2 + (across / b) ** 2 <= 1
+        thick = max(2.0, 0.08 * b)
+        inner = ((along / (a - thick)) ** 2
+                 + (across / (b - thick)) ** 2 <= 1)
+        oocyte = (((along / a - 0.45) / 0.5) ** 2
+                  + (across / b / 0.8) ** 2 <= 1)
+        segm[inside] = 2
+        segm[inside & oocyte] = 3
+        segm[inside & ~inner] = 1
+    img = np.asarray(OVARY_COLOURS, np.float32)[segm]
+    img += rng.normal(0.0, noise, img.shape).astype(np.float32)
+    centres = np.array([(e[0], e[1]) for e in eggs], dtype=np.float64)
+    return np.clip(img, 0, 1), segm, centres.reshape(-1, 2)

@@ -510,14 +510,17 @@ import sys
 sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
-from pyimsegm_tpu_torch import (_build, classification, descriptors,
-                                labeling, pipelines, superpixels)
-from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model, forest,
-                                       gbt, gmm, linear, otsu)
+from pyimsegm_tpu_torch import (_build, centers, classification,
+                                descriptors, ellipse_fitting, labeling,
+                                pipelines, superpixels)
+from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model,
+                                       clustering, forest, gbt, gmm, linear,
+                                       otsu)
 from pyimsegm_tpu_torch.ops import (color, connectivity_cuda, enforce_cuda,
                                     filters, graph, graphcut, grid, grid_cuda,
-                                    prep_cuda, segment_stats, slic, slic3d,
-                                    slic3d_cuda, slic_cuda)
+                                    histogram, morphology, prep_cuda, ray,
+                                    segment_stats, slic, slic3d, slic3d_cuda,
+                                    slic_cuda)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import data_samples, device, metrics
 import torch

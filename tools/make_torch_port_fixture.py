@@ -64,7 +64,25 @@ then segments image 0 and stores two files:
   model of ``torch_port_fixture.npz``: for image i, the SLIC labels
   ``slic<i>`` of the ``connectivity=False`` call, and the enforced labels
   ``enforced<i>`` (int16) and segmentation ``segm<i>`` (uint8) of the
-  default call.
+  default call;
+* ``torch_port_fixture_centers.npz``: BASELINE config 4 at the ovary
+  image's size (647x1024) on the synthetic scenes of
+  ``pyimsegm_tpu_torch.utils.data_samples.sample_ovary_scene`` (seeds
+  ``CENTER_TRAIN_SEEDS`` to train, ``CENTER_TEST_SEED`` to detect): the
+  forest of ``centers.train_center_classifier`` with one search candidate
+  (``clf_*``), its training set (``train_features``, ``train_labels``);
+  on the test scene, the fused ``load_compute_detect_centers`` outputs
+  (``slic`` int16, ``points``, ``candidates``, ``centers``,
+  ``clust_labels``), the (P, 44) ``features`` at the points (annuli
+  histograms and aligned rays), the rays before the alignment (``rays``)
+  and their ``shifts``, and the
+  detection's ``recall`` / ``precision`` against the true centres; then the
+  ellipse chain on the true centres: the gray SLIC of
+  ``get_slic_points_labels`` (``ell_slic``, int16), the boundary points of
+  ``prepare_boundary_points_ray_edge`` (``ell_points``, stacked, with
+  ``ell_counts`` per centre), the RANSAC parameters (``ell_params``, NaN
+  rows for no model) and inlier counts under ``np.random.seed(0)``, and the
+  object map of ``add_overlap_ellipse`` (``ell_segm``, uint8).
 
 A file whose arrays are unchanged is not rewritten, so its bytes stay as
 committed.  ``chip_smoke.py`` reads both on the GPU machine, which has no
@@ -72,10 +90,12 @@ JAX.
 
 Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
 ``--only-sup`` the supervised one, ``--only-noise`` the noise one,
-``--only-clf`` the classifier one, ``--only-3d-tlm`` the 3D texture one)::
+``--only-clf`` the classifier one, ``--only-3d-tlm`` the 3D texture one,
+``--only-centers`` the centre-detection one, ~10 min)::
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
-        [--only-3d | --only-sup | --only-noise | --only-clf | --only-3d-tlm]
+        [--only-3d | --only-sup | --only-noise | --only-clf | --only-3d-tlm
+         | --only-centers]
 """
 
 import os
@@ -94,6 +114,8 @@ OUT_NOISE = os.path.join(ROOT, 'tests', 'data',
 OUT_CLF = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_clf.npz')
 OUT_3D_TLM = os.path.join(ROOT, 'tests', 'data',
                           'torch_port_fixture_3d_tlm.npz')
+OUT_CENTERS = os.path.join(ROOT, 'tests', 'data',
+                           'torch_port_fixture_centers.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -115,6 +137,14 @@ CLF_NAMES = ('GradBoost', 'AdaBoost', 'LogistRegr', 'SVM', 'KNN', 'MLP')
 #: the 3D texture file's volume, features and stored slices
 CASE_3D_TLM = ((8, 160, 192), 15, (4, 1, 1), (0, 3, 7))
 FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
+#: config 4: the ovary image's size, the scenes' seeds and egg count, the
+#: ellipse chain's tissue table (background, follicle, nurse, oocyte),
+#: SLIC, RANSAC and overlap parameters
+OVARY = (647, 1024)
+CENTER_TRAIN_SEEDS, CENTER_TEST_SEED, N_EGGS = (0, 1, 2), 3, 4
+TABLE_PROB = [0.01, 0.95, 0.95, 0.85]
+ELL_SLIC, ELL_REGUL, ELL_INLIERS, ELL_THR, ELL_TRIALS, ELL_OVERLAP = \
+    15, 0.1, 0.35, 3, 30, 0.45
 _MODEL_ARRAYS = ('scaler_mean', 'scaler_scale', 'pca_components', 'pca_mean',
                  'pca_mask')
 
@@ -143,6 +173,9 @@ def main():
 
     if '--only-sup' in sys.argv[1:]:
         _save(OUT_SUP, _sup_outputs(pipelines))
+        return
+    if '--only-centers' in sys.argv[1:]:
+        _save(OUT_CENTERS, _centers_outputs())
         return
     if '--only-clf' in sys.argv[1:]:
         _save(OUT_CLF, _clf_outputs(pipelines))
@@ -184,6 +217,7 @@ def main():
     _save(OUT_CLF, _clf_outputs(pipelines))
     _save(OUT_3D_TLM, _gray3d_outputs(pipelines, '', *CASE_3D_TLM,
                                       features=FEATURES_3D_TLM))
+    _save(OUT_CENTERS, _centers_outputs())
 
 
 def _group_model(pipelines):
@@ -375,6 +409,87 @@ def _clf_outputs(pipelines):
                                       hyper, float(arrays['ars_annot'])))
         out.update({'%s_%s' % (name, k): v for k, v in arrays.items()})
     return out
+
+
+def _centers_outputs():
+    """Config 4's training, detection and ellipse chain on the synthetic
+    ovary scenes."""
+    import jax.numpy as jnp
+    from pyimsegm_tpu import centers, ellipse_fitting
+    from pyimsegm_tpu.ops import histogram, ray
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    scenes = [sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)
+              for s in CENTER_TRAIN_SEEDS + (CENTER_TEST_SEED,)]
+    classif, data = centers.train_center_classifier(
+        [s[1] for s in scenes[:-1]], [s[0] for s in scenes[:-1]],
+        [s[2] for s in scenes[:-1]], params={'nb_classif_search': 1})
+    img, segm, true_centres = scenes[-1]
+    out = centers.load_compute_detect_centers(img, segm, classif)
+    params = dict(centers.CENTER_PARAMS)
+    points = out['points']
+    hist, _ = histogram.compute_label_histograms_positions(
+        segm, points.astype(np.int32), tuple(params['fts_hist_diams']))
+    raw = ray.ray_features_positions_core(
+        jnp.asarray(segm == 0), jnp.asarray(points, jnp.float32),
+        angle_step=float(params['fts_ray_step']), edge='up')
+    rays, shifts = ray.shift_ray_features_batched(raw)
+    stats = centers.evaluate_detected_centers(
+        out['centers'], true_centres, params['center_dist_thr'])
+    print('centres: %d training points, %d points, %d candidates, %d '
+          'centres, recall %.4f, precision %.4f'
+          % (sum(len(d['points']) for d in data.values()), len(points),
+             len(out['candidates']), len(out['centers']), stats['recall'],
+             stats['precision']))
+    train_x = np.concatenate([d['features'] for d in data.values()])
+    train_y = np.concatenate([d['labels'] for d in data.values()])
+    arrays = {'clf_' + k: v for k, v in _clf_arrays(classif).items()}
+    arrays.update(
+        train_features=train_x.astype(np.float32),
+        train_labels=train_y.astype(np.int8),
+        slic=np.asarray(out['slic']).astype(np.int16),
+        points=np.asarray(points, np.float32),
+        candidates=np.asarray(out['candidates'], np.float32),
+        centers=np.asarray(out['centers'], np.float64).reshape(-1, 2),
+        clust_labels=np.asarray(out['clust_labels'], np.int32),
+        features=np.concatenate([np.asarray(hist), np.asarray(rays)],
+                                axis=1).astype(np.float32),
+        rays=np.asarray(raw, np.float32),
+        shifts=np.asarray(shifts, np.float32),
+        recall=np.asarray(stats['recall'], np.float64),
+        precision=np.asarray(stats['precision'], np.float64))
+
+    slic, points_all, labels = ellipse_fitting.get_slic_points_labels(
+        segm, slic_size=ELL_SLIC, slic_regul=ELL_REGUL)
+    weights = np.bincount(slic.ravel())
+    boundary = ellipse_fitting.prepare_boundary_points_ray_edge(
+        segm, true_centres, close_points=5)
+    np.random.seed(0)
+    obj = np.zeros(segm.shape, dtype=int)
+    ell, n_in = [], []
+    for i, pts in enumerate(boundary):
+        model, inliers = ellipse_fitting.ransac_segm(
+            np.asarray(pts), ellipse_fitting.EllipseModelSegm, points_all,
+            weights, labels, [TABLE_PROB], ELL_INLIERS, ELL_THR,
+            max_trials=ELL_TRIALS)
+        if model is None:
+            ell.append(np.full(5, np.nan))
+            n_in.append(-1)
+            continue
+        ell.append(np.asarray(model.params, np.float64))
+        n_in.append(int(np.sum(inliers)))
+        obj = ellipse_fitting.add_overlap_ellipse(obj, model.params, i + 1,
+                                                  thr_overlap=ELL_OVERLAP)
+    print('ellipses: %d centres, boundary points %s, inliers %s, object '
+          'pixels %d' % (len(boundary), [len(b) for b in boundary], n_in,
+                         int((obj > 0).sum())))
+    arrays.update(
+        ell_slic=np.asarray(slic).astype(np.int16),
+        ell_points=np.concatenate(boundary).astype(np.float64),
+        ell_counts=np.asarray([len(b) for b in boundary], np.int32),
+        ell_params=np.asarray(ell, np.float64),
+        ell_inliers=np.asarray(n_in, np.int32),
+        ell_segm=obj.astype(np.uint8))
+    return arrays
 
 
 def _gray3d_outputs(pipelines, prefix, shape, sp_size, spacing, slices,

@@ -46,6 +46,13 @@ the enforcement); its stages (upload, slic, enforce, geometry, features,
 predict_proba, edges, mrf, fetch) are the pipeline's own ``pyimsegm:``
 ranges, read as for ``--path 3d``.
 
+``--path centers`` drives the fused centre detection of BASELINE config 4
+(``centers.load_compute_detect_centers`` with the JAX-trained forest of
+``tests/data/torch_port_fixture_centers.npz``) on 647x1024 synthetic
+ovary scenes (``sample_ovary_scene``, seeds 3, 4, ...); its stages (slic,
+enforce, geometry, hist, rays, shift, classify, cluster) are the chain's
+own ``pyimsegm:`` ranges, read as for ``--path 3d``.
+
 ``--path kernels`` measures kernel rows 1 (as ``_prepare_chw`` calls it,
 with its host-to-device copies), 2 (plain and SLICO), 3 (with its routing
 to per-seed sums), 4 (plain and SLICO), 5, 8, 9, 10 (as the bench path's
@@ -63,7 +70,7 @@ of rows 6 and 7 by F on the paths it drives).
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
-        [--path bench|fit|3d|3d_tlm|sup|kernels] [--root CHECKOUT]
+        [--path bench|fit|3d|3d_tlm|sup|centers|kernels] [--root CHECKOUT]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -89,6 +96,7 @@ FEATURES_SUP = {'color': ['mean', 'std', 'energy'],
 GC_REGUL_SUP = 5.0
 TILES = ((2048, 3600), (4096, 4096))
 FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
+OVARY = (647, 1024)
 
 
 def _stages(torch, image, model):
@@ -267,6 +275,26 @@ def _profile_sup(torch, images, out_dir):
                         'sup_%dx%d' % shape)
 
 
+def _profile_centers(torch, n_images, out_dir):
+    """The fused centre detection with the carried forest on the ovary
+    scenes."""
+    from pyimsegm_tpu_torch import centers
+    from pyimsegm_tpu_torch.classification import classifier_from_numpy
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    with np.load(os.path.join(ROOT, 'tests', 'data',
+                              'torch_port_fixture_centers.npz')) as npz:
+        clf = classifier_from_numpy({k[len('clf_'):]: npz[k]
+                                     for k in npz.files
+                                     if k.startswith('clf_')})
+    scenes = [sample_ovary_scene(OVARY, 4, rand_seed=3 + s)[:2]
+              for s in range(n_images)]
+
+    def run(scene):
+        return centers.load_compute_detect_centers(scene[0], scene[1], clf)
+
+    _profile_ranges(torch, run, scenes, out_dir, 'centers')
+
+
 def _report(kind, rows, walls, n_images):
     names = list(rows[0])
     mean = {n: round(float(np.mean([r[n] for r in rows])), 3) for n in names}
@@ -338,7 +366,7 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
     parser.add_argument('--path', choices=('bench', 'fit', '3d', '3d_tlm',
-                                           'sup', 'kernels'),
+                                           'sup', 'centers', 'kernels'),
                         default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
@@ -379,6 +407,9 @@ def main():
                                 for s in range(args.images)], args.out,
                         FEATURES_3D_TLM if args.path == '3d_tlm' else FEATURES,
                         args.path)
+        return
+    if args.path == 'centers':
+        _profile_centers(torch, args.images, args.out)
         return
     if args.path == 'sup':
         _profile_sup(torch, [sample_color_image_rand_segment(
