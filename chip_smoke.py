@@ -183,7 +183,27 @@ Phases (any failure raises and exits non-zero):
    ``np.random.seed(0)`` with the example's table, ``add_overlap_ellipse``
    (labels >= 0.999, points >= ``RAY_BAR``, parameters within 1e-6
    relative where the inlier counts agree, object map >= 0.999; warm ms)
-   (``path_ellipses``).
+   (``path_ellipses``);
+13. region growing with shape priors (BASELINE config 5) at 647x1024 on the
+   test scene against ``tests/data/torch_port_fixture_rg2sp.npz``: (a)
+   rows 1, 2, 4, 6, 7, 9, 10 and 12 against their twins at sp_size 15 on
+   the colour scene (``slice_kernel_phases``); (b) the SLIC on the card,
+   then GraphCut RG2Sp with the JAX-fitted shape model carried across
+   (``path_rg2sp``: SLIC labels >= 0.999, each egg's object pixel IoU >=
+   ``RG_IOU_BAR`` against JAX's and its IoU with the true egg at most
+   ``RG_TRUE_SLACK`` below JAX's; the route the labels take, warm ms per
+   call and per iteration, the stage device ms, device busy ms and idle
+   share), on the test scene (the edge-list solve) and on a second one
+   whose labels take the grid solve; (c) greedy RG2Sp, the chain with the
+   SLIC on the card and then on JAX's SLIC, held there
+   (``path_rg2sp_greedy``); (d) the
+   shape model fitted on the card from the training scenes' eggs, and
+   RG2Sp with it (``path_rg2sp_fitted``: the true-egg bar); (e) the
+   one-shot object GraphCuts on the superpixels (object map >= 0.99) and
+   on the 662,528 pixels (energy at most ``RG_ENERGY_SLACK`` above JAX's)
+   (``path_object_graphcuts``); (f) the compat SLIC (raw labels >=
+   ``COMPAT_RAW_BAR``), its host postprocess (exact) and ``sp_compat``
+   (ARS >= ``COMPAT_ARS_BAR``) (``path_compat``).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -221,6 +241,8 @@ FIXTURE_NOISE = os.path.join(ROOT, 'tests', 'data',
                              'torch_port_fixture_noise.npz')
 FIXTURE_CENTERS = os.path.join(ROOT, 'tests', 'data',
                                'torch_port_fixture_centers.npz')
+FIXTURE_RG2SP = os.path.join(ROOT, 'tests', 'data',
+                             'torch_port_fixture_rg2sp.npz')
 #: least share of enforced labels equal to JAX's on bench.py's noise images:
 #: near-tie SLIC assignments flip between the port and XLA, and a moved
 #: centroid of a fragmented superpixel moves its anchor
@@ -2588,21 +2610,25 @@ def _ovary_scenes():
             for s in CENTER_TRAIN_SEEDS + (CENTER_TEST_SEED,)]
 
 
-def slice_kernel_phases(torch, scene):
+def slice_kernel_phases(torch, scene, cases=None):
     """Rows 1, 2, 4, 6, 7, 9, 10 and 12 against their twins at the centre
     slice's geometries, 647x1024 at sp_size 25 (the colour scene: the last
     tile row and column 22 and 24 pixels) and at sp_size 15 (the gray
     image of the segmentation, as the ellipse chain's SLIC takes it: 2 and
-    4 pixels), each on the labels the kernels produce there."""
+    4 pixels), each on the labels the kernels produce there; ``cases``
+    (what, 'colour' or 'gray', sp_size, regul) names other geometries."""
     from pyimsegm_tpu_torch.ops import enforce_cuda, grid_cuda, prep_cuda
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     from pyimsegm_tpu_torch.ops import slic as slic_ops
     from pyimsegm_tpu_torch.ops import slic_cuda
     img, segm, _ = scene
     gray = segm / float(segm.max())
-    for what, image, step, regul in (
-            ('colour scene, sp_size 25', img, 25, 0.3),
-            ('gray segmentation, sp_size 15', gray, ELL_SLIC, ELL_REGUL)):
+    if cases is None:
+        cases = (('colour scene, sp_size 25', 'colour', 25, 0.3),
+                 ('gray segmentation, sp_size 15', 'gray', ELL_SLIC,
+                  ELL_REGUL))
+    for what, kind, step, regul in cases:
+        image = img if kind == 'colour' else gray
         t = torch.as_tensor(np.asarray(image, np.float32), device=DEVICE)
         cfg = slic_ops.slic_config(OVARY[0], OVARY[1], step)
         m = slic_ops.compactness_from_regul(step, regul)
@@ -2883,6 +2909,357 @@ def path_ellipses(torch, scenes, fixture):
     return launches
 
 
+#: config 5 (bench_all.py cfg5) on the synthetic ovary scenes, as
+#: tools/make_torch_port_fixture.py writes its fixture: the shape model's
+#: training scenes (24 eggs), the test scene (its K = 3,034 labels take the
+#: edge-list solve) and a second one whose K = 3,036 take the grid solve,
+#: the SLIC, the tissue table, the RG2Sp energy,
+#: the one-shot GraphCut's radial prior and the compat model's classes
+RG_SHAPE_SEEDS, RG_TEST_SEED, RG_GRID_SEED = (0, 1, 2, 4, 5, 6), 3, 10
+RG_SP, RG_REGUL, RG_RAY_STEP = 15, 0.2, 25
+RG_TABLE = [0.1, 0.9, 0.75, 0.9, 0.9]
+RG_PARAMS = dict(coef_shape=5., coef_pairwise=15.,
+                 prob_label_trans=[0.1, 0.03], nb_iter=100)
+RG_OBJ_SHAPE = dict(coef_shape=1., shape_mean_std=(100., 20.))
+#: bars of phase 13: each egg's object pixel IoU against JAX's; each egg's
+#: IoU against the true egg no worse than JAX's by more than RG_TRUE_SLACK;
+#: the pixel GraphCut's energy at most RG_ENERGY_SLACK above JAX's; the
+#: compat SLIC's raw labels equal on >= COMPAT_RAW_BAR of the pixels and
+#: the sp_compat segmentation's ARS
+RG_IOU_BAR, RG_TRUE_SLACK, RG_ENERGY_SLACK = 0.95, 0.02, 0.005
+COMPAT_RAW_BAR, COMPAT_ARS_BAR = 0.999, 0.98
+#: (the second scene's enforced SLIC labels are held to NOISE_ENFORCED_BAR:
+#: 0.9997 of its raw labels agree with JAX's, and the near-tie flips move
+#: enforced labels as on the noise images: 0.99898 from the CPU twins)
+#: the ranges of an RG2Sp round (``pyimsegm:<stage>``)
+RG_STAGES = ('slic', 'upload', 'candidates', 'shape_update', 'unary',
+             'solve', 'score', 'fetch')
+
+
+def _rg_model(fixture):
+    from pyimsegm_tpu_torch.region_growing import shape_model_from_numpy
+    return shape_model_from_numpy({k[len('shape_'):]: v
+                                   for k, v in fixture.items()
+                                   if k.startswith('shape_')}, device=DEVICE)
+
+
+def _egg_masks(segm, centres):
+    """The true egg of each centre: its conn4 component of ``segm > 0``."""
+    from scipy import ndimage
+    comp, _ = ndimage.label(segm > 0)
+    return [comp == comp[int(round(c[0])), int(round(c[1]))]
+            for c in centres]
+
+
+def _object_ious(labels, slic, masks):
+    """Pixel IoU of object i + 1 of the superpixel ``labels`` (over
+    ``slic``) with ``masks[i]``."""
+    obj = np.asarray(labels)[slic]
+    return [float(((obj == i + 1) & m).sum() / max(((obj == i + 1) | m)
+                                                   .sum(), 1))
+            for i, m in enumerate(masks)]
+
+
+def _observed(launches):
+    return {k: v for k, v in launches.items() if v}
+
+
+def _rg_slic(img, segm):
+    """Config 5's SLIC of the scene and its superpixels' foreground
+    probabilities."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch import superpixels
+    from pyimsegm_tpu_torch.utils.device import stage_range
+    with stage_range('slic'):
+        slic = superpixels.segment_slic_img2d(
+            img, sp_size=RG_SP, relative_compact=RG_REGUL, device=DEVICE)
+    return slic, rg.compute_segm_prob_fg(slic, segm, RG_TABLE)
+
+
+def _timed_rg(torch, call, what):
+    """Three warm calls of ``call(history)`` on the host clock, ms per call
+    and per iteration, then one profiled call's stage device ms, device
+    busy ms and idle share (against a fourth call's wall)."""
+    ms, iters = [], []
+    for _ in range(3):
+        hist = {}
+        ms.append(_warm_ms(torch, lambda: call(hist), 1))
+        iters.append(len(hist['labels']))
+    stages, busy, n_kernels = _stage_device_ms(torch, lambda: call({}))
+    wall = _warm_ms(torch, lambda: call({}), 1)
+    per_it = [t / n for t, n in zip(ms, iters)]
+    print('%s warm: %s ms in %s iterations, %s ms per iteration (best %.3f); '
+          'stage device ms %s; device busy %.3f ms of a %.3f ms call in %d '
+          'CUDA kernels, idle share %.4f'
+          % (what, ['%.3f' % t for t in ms], iters,
+             ['%.3f' % t for t in per_it], min(per_it), json.dumps(
+                 {k: round(v, 4) for k, v in stages.items()
+                  if k in RG_STAGES}), busy, wall, n_kernels,
+             1.0 - busy / wall if wall > 0 else float('nan')), flush=True)
+
+
+def _grid_invariant(slic, cfg):
+    """True when every pixel's label lies within one tile of its own tile
+    (the invariant of enforced grid labels)."""
+    h, w = slic.shape
+    ly, lx = np.divmod(slic, cfg.grid_w)
+    ty = (np.arange(h) // cfg.step)[:, None]
+    tx = (np.arange(w) // cfg.step)[None, :]
+    return bool((np.abs(ly - ty) <= 1).all() and (np.abs(lx - tx) <= 1).all())
+
+
+def path_rg2sp(torch, scene, fixture, keys=('slic', 'gc_labels', 'gc_iters'),
+               what='RG2Sp GraphCut', slic_bar=0.999):
+    """BASELINE config 5 on a test scene: SLIC on the card (its enforced
+    labels >= ``slic_bar`` equal to JAX's), then GraphCut RG2Sp with the
+    JAX-fitted shape model carried across, against the fixture's ``keys``
+    (SLIC, labels, iterations); returns (launches, slic, prob)."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch.ops.slic import slic_config
+    img, segm, centres = scene
+    want_slic, want_labels, want_iters = (fixture[k] for k in keys)
+    model = _rg_model(fixture)
+    cfg = slic_config(OVARY[0], OVARY[1], RG_SP)
+    hist = {}
+
+    def gc(slic, prob, history):
+        return rg.region_growing_shape_slic_graphcut(
+            slic, prob, centres, model, 'cdf', optim_global=True,
+            debug_history=history, grid_cfg=cfg, device=DEVICE, **RG_PARAMS)
+
+    def run():
+        slic, prob = _rg_slic(img, segm)
+        return slic, prob, gc(slic, prob, hist)
+
+    (slic, prob, labels), launches = _drive(what, PATH_SLIC_ENFORCED, run,
+                                            forbidden=WIDE)
+    k = int(slic.max()) + 1
+    eggs = _egg_masks(segm, centres)
+    jax_objs = [np.asarray(want_labels)[want_slic] == i + 1
+                for i in range(len(centres))]
+    iou_jax = _object_ious(labels, slic, jax_objs)
+    true_port = _object_ious(labels, slic, eggs)
+    true_jax = _object_ious(want_labels, want_slic, eggs)
+    slic_eq = float((slic == want_slic).mean())
+    print('%s 647x1024 vs JAX-CPU: kernels observed %s; SLIC labels equal '
+          '%.6f (>= %g), K = %d of the grid\'s %d (the %s solve), the '
+          '3x3-tile invariant holds %s; %d iterations (JAX %d); each egg\'s '
+          'IoU with JAX\'s object %s (>= %g), with the true egg %s (JAX %s, '
+          'at most %g lower)'
+          % (what, json.dumps(_observed(launches)), slic_eq, slic_bar, k,
+             cfg.n_segments, 'grid' if k == cfg.n_segments else 'edge-list',
+             _grid_invariant(slic, cfg), len(hist['labels']), int(want_iters),
+             ['%.4f' % v for v in iou_jax], RG_IOU_BAR,
+             ['%.4f' % v for v in true_port], ['%.4f' % v for v in true_jax],
+             RG_TRUE_SLACK), flush=True)
+    if not (slic_eq >= slic_bar and min(iou_jax) >= RG_IOU_BAR
+            and all(p >= j - RG_TRUE_SLACK
+                    for p, j in zip(true_port, true_jax))):
+        raise AssertionError('%s disagrees with the JAX reference' % what)
+    _timed_rg(torch, lambda h: gc(slic, prob, h),
+              '%s (cfg5_rg2sp_gc_per_iteration)' % what)
+    return launches, slic, prob
+
+
+def path_rg2sp_greedy(torch, scene, fixture):
+    """Greedy RG2Sp: the chain with the SLIC on the card (the launches; its
+    objects against JAX's reported), then on JAX's SLIC, held to JAX's
+    objects; returns the launches."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    img, segm, centres = scene
+    model = _rg_model(fixture)
+    jax_slic = fixture['slic'].astype(np.int32)
+    jax_objs = [np.asarray(fixture['greedy_labels'])[jax_slic] == i + 1
+                for i in range(len(centres))]
+
+    def greedy(slic, prob, history):
+        return rg.region_growing_shape_slic_greedy(
+            slic, prob, centres, model, 'cdf', debug_history=history,
+            device=DEVICE, **RG_PARAMS)
+
+    def run():
+        slic, prob = _rg_slic(img, segm)
+        return slic, greedy(slic, prob, {})
+
+    (slic, labels), launches = _drive('RG2Sp greedy', PATH_SLIC_ENFORCED,
+                                      run, forbidden=WIDE)
+    iou_chain = _object_ious(labels, slic, jax_objs)
+    prob = rg.compute_segm_prob_fg(jax_slic, segm, RG_TABLE)
+    hist = {}
+    labels = greedy(jax_slic, prob, hist)
+    iou_jax = _object_ious(labels, jax_slic, jax_objs)
+    print('RG2Sp greedy 647x1024 vs JAX-CPU: on the card\'s SLIC each egg\'s '
+          'IoU with JAX\'s object %s; on JAX\'s SLIC labels equal %.6f, %d '
+          'iterations (JAX %d), each egg\'s IoU %s (>= %g)'
+          % (['%.4f' % v for v in iou_chain],
+             float((labels == fixture['greedy_labels']).mean()),
+             len(hist['labels']), int(fixture['greedy_iters']),
+             ['%.4f' % v for v in iou_jax], RG_IOU_BAR), flush=True)
+    if min(iou_jax) < RG_IOU_BAR:
+        raise AssertionError('greedy RG2Sp disagrees with the JAX reference')
+    _timed_rg(torch, lambda h: greedy(jax_slic, prob, h), 'RG2Sp greedy')
+    return launches
+
+
+def path_rg2sp_fitted(torch, scene, fixture):
+    """The shape model fitted on the card (rays of the training scenes'
+    eggs, mean shift, the variational mixture from a torch.Generator), then
+    GraphCut RG2Sp with it: each egg's IoU with the true egg no worse than
+    JAX's (carried model) by more than RG_TRUE_SLACK; returns the
+    launches."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch.ops.slic import slic_config
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    img, segm, centres = scene
+    annots = [(sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)[1] > 0)
+              .astype(np.int32) for s in RG_SHAPE_SEEDS]
+    cfg = slic_config(OVARY[0], OVARY[1], RG_SP)
+
+    def fit():
+        rays, _ = rg.compute_object_shapes(
+            annots, ray_step=RG_RAY_STEP, smooth_coef=1,
+            interp_order='spline', device=DEVICE)
+        return rays, rg.transform_rays_model_cdf_mixture(rays, device=DEVICE)
+
+    def run():
+        rays, model = fit()
+        slic, prob = _rg_slic(img, segm)
+        return rays, model, slic, rg.region_growing_shape_slic_graphcut(
+            slic, prob, centres, model, 'cdf', optim_global=True,
+            grid_cfg=cfg, device=DEVICE, **RG_PARAMS)
+
+    (rays, model, slic, labels), launches = _drive(
+        'RG2Sp with the card-fitted shape model', PATH_SLIC_ENFORCED, run,
+        forbidden=WIDE)
+    eggs = _egg_masks(segm, centres)
+    true_port = _object_ious(labels, slic, eggs)
+    true_jax = _object_ious(fixture['gc_labels'], fixture['slic'], eggs)
+    rays_eq = float((np.asarray(rays) == fixture['rays']).mean())
+    table = np.asarray(model[1])
+    fit_ms = _warm_ms(torch, fit, 1)
+    print('RG2Sp with the card-fitted shape model: rays equal to JAX\'s '
+          '%.6f, %d components (JAX %d), table %s finite %s; each egg\'s '
+          'IoU with the true egg %s (JAX with its model %s, at most %g '
+          'lower); fit ms %.3f (warm)'
+          % (rays_eq, len(model[0].weights_), len(fixture['shape_weights']),
+             table.shape, bool(np.isfinite(table).all()),
+             ['%.4f' % v for v in true_port], ['%.4f' % v for v in true_jax],
+             RG_TRUE_SLACK, fit_ms), flush=True)
+    if not (np.isfinite(table).all() and all(
+            p >= j - RG_TRUE_SLACK for p, j in zip(true_port, true_jax))):
+        raise AssertionError('RG2Sp with the card-fitted model falls behind '
+                             'the JAX reference')
+    return launches
+
+
+def path_object_graphcuts(torch, scene, fixture, slic):
+    """The one-shot object GraphCuts: on the superpixels (object map >=
+    0.99 of the pixels equal to JAX's) and on the 662,528 pixels (energy at
+    most RG_ENERGY_SLACK above JAX's); returns the launches."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch.ops.graphcut import mrf_energy
+    _, segm, centres = scene
+
+    def on_slic():
+        return rg.object_segmentation_graphcut_slic(
+            slic, segm, centres, labels_fg_prob=RG_TABLE, device=DEVICE,
+            **RG_OBJ_SHAPE)
+
+    def on_pixels(debug=None):
+        return rg.object_segmentation_graphcut_pixels(
+            segm, centres, labels_fg_prob=RG_TABLE, debug_visual=debug,
+            device=DEVICE)
+
+    debug = {}
+    (obj_slic, obj_px), launches = _drive(
+        'object GraphCuts', (), lambda: (on_slic(), on_pixels(debug)))
+    slic_eq = float((obj_slic[slic] == fixture['obj_slic_labels'][
+        fixture['slic']]).mean())
+    c = len(centres) + 1
+    unary = torch.as_tensor(np.stack(debug['unary_imgs'], -1).reshape(-1, c),
+                            dtype=torch.float32, device=DEVICE)
+    edges = torch.as_tensor(rg._grid_edges(*OVARY), device=DEVICE)
+    ones = torch.ones(len(edges), device=DEVICE)
+    pw = torch.as_tensor(1 - np.eye(c), dtype=torch.float32, device=DEVICE)
+
+    def energy(lab):
+        return float(mrf_energy(torch.as_tensor(
+            lab.reshape(-1).astype(np.int64), device=DEVICE), unary, edges,
+            ones, pw))
+    e_port, e_jax = energy(obj_px), float(fixture['obj_px_energy'])
+    px_eq = float((obj_px == fixture['obj_px_labels']).mean())
+    ms_slic = _warm_ms(torch, on_slic, 1)
+    ms_px = [_warm_ms(torch, on_pixels, 1) for _ in range(2)]
+    print('object GraphCuts 647x1024 vs JAX-CPU: on the superpixels object '
+          'map equal %.6f (>= 0.99), %.3f ms; on the pixels (%d nodes, %d '
+          'edges) energy %.3f against JAX\'s %.3f (%+.4f%%, at most %+.1f%%), '
+          'JAX\'s labels there %.3f, map equal %.6f, %s ms'
+          % (slic_eq, ms_slic, OVARY[0] * OVARY[1], len(edges), e_port,
+             e_jax, 100 * (e_port / e_jax - 1), 100 * RG_ENERGY_SLACK,
+             energy(fixture['obj_px_labels']), px_eq,
+             ['%.3f' % t for t in ms_px]), flush=True)
+    if not (slic_eq >= 0.99 and e_port <= e_jax * (1 + RG_ENERGY_SLACK)):
+        raise AssertionError('an object GraphCut disagrees with the JAX '
+                             'reference')
+    return launches
+
+
+def path_compat(torch, scene, fixture):
+    """The skimage-compat SLIC (raw labels >= COMPAT_RAW_BAR of the pixels
+    equal to JAX's), its host postprocess (exact on JAX's raw labels) and
+    ``sp_compat`` with the JAX-fitted class model (ARS >= COMPAT_ARS_BAR);
+    returns the launches."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.ops.connectivity_host import enforce_connectivity
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    img, _, _ = scene
+    cfg = slic_ops.slic_config(OVARY[0], OVARY[1], RG_SP)
+    m = slic_ops.compactness_from_regul(RG_SP, RG_REGUL)
+    model = class_model_from_numpy({k[len('compat_model_'):]: v
+                                    for k, v in fixture.items()
+                                    if k.startswith('compat_model_')}).to(
+                                        DEVICE)
+    img_t = torch.as_tensor(img, device=DEVICE)
+
+    def raw():
+        return slic_ops._slic_segment_skimage(img_t, cfg, m)
+
+    def segment():
+        return pipelines.segment_color2d_slic_features_model_graphcut(
+            img, model, FEATURES, sp_size=RG_SP, sp_regul=RG_REGUL,
+            gc_regul=GC_REGUL, sp_compat=True)
+
+    (labels, (segm, soft)), launches = _drive(
+        'compat SLIC and sp_compat', (), lambda: (raw(), segment()))
+    raw_eq = float((labels.cpu().numpy() == fixture['compat_raw']).mean())
+    min_size = int(0.5 * cfg.step * cfg.step)
+    t0 = time.perf_counter()
+    enforced = enforce_connectivity(fixture['compat_raw'].astype(np.int32),
+                                    min_size)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    exact = bool(np.array_equal(enforced, fixture['compat_enforced']))
+    ars = adjusted_rand_score(segm, fixture['compat_segm'])
+    raw_ms = _time_ms(raw, reps=3)
+    full_ms = _warm_ms(torch, lambda: slic_ops.segment_slic_img2d(
+        img_t, sp_size=RG_SP, relative_compact=RG_REGUL, compat=True), 1)
+    seg_ms = _warm_ms(torch, segment, 1)
+    print('compat SLIC 647x1024 vs JAX-CPU: raw labels equal %.6f (>= %g), '
+          '%.3f device ms (25 offsets x 10 rounds of eager passes); the host '
+          'postprocess exact on JAX\'s raw labels %s, %d labels, %.1f ms; '
+          'segment_slic_img2d(compat=True) %.3f ms; sp_compat ARS %.6f (>= '
+          '%g), soft finite %s, %.3f ms'
+          % (raw_eq, COMPAT_RAW_BAR, raw_ms, exact, int(enforced.max()) + 1,
+             host_ms, full_ms, ars, COMPAT_ARS_BAR,
+             bool(np.isfinite(soft).all()), seg_ms), flush=True)
+    if not (raw_eq >= COMPAT_RAW_BAR and exact and ars >= COMPAT_ARS_BAR
+            and np.isfinite(soft).all()):
+        raise AssertionError('the compat SLIC disagrees with the JAX '
+                             'reference')
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2912,7 +3289,8 @@ def main():
 
     fixtures = []
     for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
-                 FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM, FIXTURE_CENTERS):
+                 FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM, FIXTURE_CENTERS,
+                 FIXTURE_RG2SP):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
@@ -2960,6 +3338,20 @@ def main():
     centre_paths = (path_centers(torch, scenes, fixtures[8]),
                     path_train_centers(torch, scenes, fixtures[8]),
                     path_ellipses(torch, scenes, fixtures[8]))
+    slice_kernel_phases(torch, scenes[-1], cases=(
+        ('colour scene, sp_size 15', 'colour', RG_SP, RG_REGUL),))
+    rg_launches, rg_slic, _ = path_rg2sp(torch, scenes[-1], fixtures[9])
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    grid_launches = path_rg2sp(
+        torch, sample_ovary_scene(OVARY, N_EGGS, rand_seed=RG_GRID_SEED),
+        fixtures[9], keys=('grid_slic', 'grid_labels', 'grid_iters'),
+        what='RG2Sp GraphCut, grid route', slic_bar=NOISE_ENFORCED_BAR)[0]
+    centre_paths += (rg_launches, grid_launches,
+                     path_rg2sp_greedy(torch, scenes[-1], fixtures[9]),
+                     path_rg2sp_fitted(torch, scenes[-1], fixtures[9]),
+                     path_object_graphcuts(torch, scenes[-1], fixtures[9],
+                                           rg_slic),
+                     path_compat(torch, scenes[-1], fixtures[9]))
     for rec in records:
         name = rec['name']
         rec['launches'] = (

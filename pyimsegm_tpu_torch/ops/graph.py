@@ -3,8 +3,9 @@
 
 The JAX package hashes every neighbouring pixel pair ``lo * K + hi`` and
 keeps the ``8 * K`` smallest distinct codes (``jnp.unique(..., size=8K)``).
-:func:`adjacency_edges_2d` does the same for any 2D label map.  For SLIC
-supervoxels :func:`adjacency_edges_3d` gets the same edge list from their
+:func:`adjacency_edges_2d` does the same for any 2D label map, and
+:func:`adjacency_edges_3d` for any 3D one.  Given the grid of SLIC
+supervoxels, :func:`adjacency_edges_3d` gets the same edge list from their
 grid invariant instead: two adjacent voxels carry labels whose cells lie at
 most 3 apart in every axis, so a (K, 7**3) presence table, filled from the
 three axis-neighbour compares, holds exactly the set of distinct pairs, and
@@ -102,8 +103,13 @@ def grid3d_adjacency_presence(labels, cfg):
     return pres[:k * 343].reshape(k, 343)
 
 
-def adjacency_edges_3d(labels, num_segments, cfg):
+def adjacency_edges_3d(labels, num_segments, cfg=None):
     """conn6 supervoxel adjacency from a 3D label volume.
+
+    Any label volume takes the reference's hashing of every neighbouring
+    voxel pair; SLIC supervoxels on the grid of ``cfg`` (a
+    ``Slic3DConfig``) take the presence table of
+    :func:`grid3d_adjacency_presence` instead, with the same result.
 
     :returns: (edges (8K, 2) int32 pairs lo < hi in ascending ``lo*K + hi``
         order, valid (8K,) bool); invalid slots hold (0, 0).  Beyond 8K
@@ -111,6 +117,14 @@ def adjacency_edges_3d(labels, num_segments, cfg):
         ``jnp.unique(size=8K)`` does.
     """
     k = num_segments
+    if cfg is None:
+        a = torch.cat([labels[:, :, :-1].reshape(-1),
+                       labels[:, :-1, :].reshape(-1),
+                       labels[:-1, :, :].reshape(-1)])
+        b = torch.cat([labels[:, :, 1:].reshape(-1),
+                       labels[:, 1:, :].reshape(-1),
+                       labels[1:, :, :].reshape(-1)])
+        return _unique_edges(a, b, k)
     gz, gy, gx = cfg.grid
     pres = grid3d_adjacency_presence(labels, cfg)
     dev = pres.device

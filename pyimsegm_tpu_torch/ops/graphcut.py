@@ -1,16 +1,24 @@
-"""MRF regularisation of superpixel class probabilities.
+"""MRF regularisation of superpixel class probabilities (port of
+``pyimsegm_tpu.ops.graphcut``).
 
-Port of the grid branches of ``pyimsegm_tpu.ops.graphcut``: clipped
-``|log p|`` unary costs, the Potts / matrix pairwise costs, the dense
-25-neighbour grid solve of 2D SLIC superpixels
-(:func:`pyimsegm_tpu_torch.ops.grid.solve_mrf_grid`), and for 3D SLIC
-supervoxels the edge list with every edge type
-(:func:`compute_edge_weights`) folded into the dense 125-neighbour solve
-(:func:`pyimsegm_tpu_torch.ops.slic3d.solve_mrf_grid3d`).
+Clipped ``|log p|`` unary costs, the Potts / matrix pairwise costs, the
+edge list of any 2D or 3D label map with every edge type
+(:func:`compute_edge_weights`), and three solvers of
+``E(l) = sum_i U_i(l_i) + sum_e w_e P(l_a, l_b)``: the dense 25-neighbour
+grid solve of 2D SLIC superpixels
+(:func:`pyimsegm_tpu_torch.ops.grid.solve_mrf_grid`), the 125-neighbour
+one of 3D SLIC supervoxels
+(:func:`pyimsegm_tpu_torch.ops.slic3d.solve_mrf_grid3d`), and for any
+other graph the edge-list :func:`solve_mrf`: damped mean field, ICM with
+best-energy tracking, then stochastic expansion-move chains batched over
+a chain dimension.  Its messages are ``index_add_`` sums over the edge
+list, whose float atomics on a CUDA device add in a varying order, so its
+result is held by energy, not by bits.
 """
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pyimsegm_tpu_torch.utils.device import stage_range
 
@@ -59,25 +67,26 @@ def compute_pairwise_cost(gc_regul, nb_classes, max_cost=MAX_PAIRWISE_COST):
 def compute_edge_weights(labels, num_segments, image=None, features=None,
                          proba=None, edge_type='', centers=None,
                          grid_cfg3d=None):
-    """Edge list + weights of 3D supervoxels, every edge type of the
+    """Edge list + weights of a 2D or 3D label map, every edge type of the
     reference.
 
-    :param labels: (Z, H, W) supervoxel labels on the grid of
-        ``grid_cfg3d`` (a ``Slic3DConfig``)
+    :param labels: (H, W) or (Z, H, W) integer tensor in [0, num_segments)
     :param edge_type: '' | 'spatial' | 'color' | 'features' |
         'model[_l1|_l2|_lT]'
-    :param centers: optional (K, 3) supervoxel centres (reduced from the
+    :param centers: optional (K, ndim) superpixel centres (reduced from the
         labels when not given)
+    :param grid_cfg3d: the ``Slic3DConfig`` of SLIC supervoxels, whose edge
+        list then comes from their grid (the same list)
     :returns: (edges (8K, 2) int32, weights (8K,), valid (8K,) bool)
     """
     from pyimsegm_tpu_torch.ops import graph as graph_ops
     from pyimsegm_tpu_torch.ops import segment_stats
-    if labels.ndim != 3 or grid_cfg3d is None:
-        raise NotImplementedError(
-            'edge lists of 2D or non-grid labels come with the RG2Sp slice '
-            '(ROADMAP.md)')
-    edges, valid = graph_ops.adjacency_edges_3d(labels, num_segments,
-                                                grid_cfg3d)
+    ndim = labels.ndim
+    if ndim == 2:
+        edges, valid = graph_ops.adjacency_edges_2d(labels, num_segments)
+    else:
+        edges, valid = graph_ops.adjacency_edges_3d(labels, num_segments,
+                                                    grid_cfg3d)
     if edge_type.startswith('model'):
         if proba is None:
             raise ValueError('"proba" is required for edge_type=model')
@@ -107,7 +116,7 @@ def compute_edge_weights(labels, num_segments, image=None, features=None,
                      'features', 'color', 'spatial'):
         if centers is None:
             centers = graph_ops.superpixel_centers(labels, num_segments,
-                                                   ndim=3)
+                                                   ndim=ndim)
         spatial = graph_ops.compute_spatial_dist(centers, edges, valid,
                                                  relative=True)
         weights = weights / torch.clamp_min(spatial, 1e-12)
@@ -117,11 +126,139 @@ def compute_edge_weights(labels, num_segments, image=None, features=None,
     return edges, torch.where(valid, weights, 0.0), valid
 
 
+def mrf_energy(labels, unary, edges, weights, pairwise):
+    """E(l) = sum_i U_i(l_i) + sum_e w_e * P(l_a, l_b); ``labels`` may
+    carry leading batch dimensions, (..., K) -> (...)."""
+    lab = labels.to(torch.int64)
+    nodes = torch.arange(lab.shape[-1], device=lab.device)
+    u = torch.sum(unary[nodes, lab], dim=-1)
+    e = edges.to(torch.int64)
+    p = pairwise[lab[..., e[:, 0]], lab[..., e[:, 1]]]
+    return u + torch.sum(weights * p, dim=-1)
+
+
+def _adjacency(edges, weights, num_segments):
+    """The (K, K) symmetric weight matrix of an edge list in CSR form: each
+    edge in both directions, padding edges (weight 0) included."""
+    e = edges.to(torch.int64)
+    idx = torch.cat([e, e.flip(1)], dim=0).T
+    val = torch.cat([weights, weights]).to(torch.float32)
+    return torch.sparse_coo_tensor(
+        idx, val, (num_segments, num_segments),
+        check_invariants=False).coalesce().to_sparse_csr()
+
+
+def _neighbor_expectation(q, adj, pairwise):
+    """For every node i: sum_{j in N(i)} w_ij * (P @ q_j): the product with
+    P on the nodes, then one sparse product with the symmetric weight
+    matrix ``adj`` (:func:`_adjacency`); ``q`` is (K, C) or (B, K, C)."""
+    qp = q @ pairwise.T
+    if q.ndim == 2:
+        return adj @ qp
+    b, k, c = qp.shape
+    agg = adj @ qp.transpose(0, 1).reshape(k, b * c)
+    return agg.reshape(k, b, c).transpose(0, 1)
+
+
+def _chain_orders(c, n_expand_rounds, n_chains):
+    """(chains, rounds * c) label orders, from ``np.random.RandomState(0)``
+    as the reference draws them."""
+    order_rng = np.random.RandomState(0)
+    return np.stack([
+        np.concatenate([order_rng.permutation(c)
+                        for _ in range(n_expand_rounds)])
+        for _ in range(n_chains)]).astype(np.int64)
+
+
+def solve_mrf(unary, edges, weights, pairwise, n_mf_iters=30, n_icm_iters=12,
+              damping=0.5, n_expand_rounds=12, n_move_steps=8, n_chains=4,
+              move_noise=0.6):
+    """Minimise the MRF of an edge list on the device of ``unary``, with no
+    host synchronisation.
+
+    Damped mean field, then synchronous ICM keeping the best-energy
+    labelling, then ``n_chains`` stochastic expansion-move chains, batched
+    over a chain dimension: each sweeps the labels alpha in its order of
+    :func:`_chain_orders`, relaxes the keep-vs-alpha move with a damped
+    binary mean field from ``0.5 + (u - 0.5) * move_noise`` (``u`` uniform,
+    from a ``torch.Generator`` seeded 42), steps to the hardened move and
+    tracks its best-energy labelling; the best chain wins over the ICM
+    state only when lower.
+
+    :param unary: (K, C) float costs
+    :param edges: (E, 2) integer edge list
+    :param weights: (E,) float, 0 on padding
+    :param pairwise: (C, C) cost matrix
+    :returns: (K,) int32 labels
+    """
+    unary = unary.to(torch.float32)
+    dev = unary.device
+    k, c = unary.shape
+    pairwise = torch.as_tensor(pairwise, dtype=torch.float32, device=dev)
+    weights = weights.to(torch.float32)
+    edges = edges.to(torch.int64)
+
+    adj = _adjacency(edges, weights, k)
+
+    def message(q):
+        return _neighbor_expectation(q, adj, pairwise)
+
+    q = torch.softmax(-unary, dim=-1)
+    for _ in range(n_mf_iters):
+        q_new = torch.softmax(-(unary + message(q)), dim=-1)
+        q = damping * q_new + (1.0 - damping) * q
+    labels = torch.argmin(unary + message(q), dim=-1)
+
+    best_labels = labels
+    best_e = mrf_energy(labels, unary, edges, weights, pairwise)
+    for _ in range(n_icm_iters):
+        onehot = F.one_hot(labels, c).to(torch.float32)
+        labels = torch.argmin(unary + message(onehot), dim=-1)
+        e = mrf_energy(labels, unary, edges, weights, pairwise)
+        improved = e < best_e
+        best_labels = torch.where(improved, labels, best_labels)
+        best_e = torch.where(improved, e, best_e)
+    if n_expand_rounds == 0 or n_chains == 0:
+        return best_labels.to(torch.int32)
+
+    orders = torch.as_tensor(_chain_orders(c, n_expand_rounds, n_chains),
+                             device=dev)                  # (B, T)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    rows = torch.arange(n_chains, device=dev)
+    cur = best_labels.expand(n_chains, k)
+    bl, be = cur, best_e.expand(n_chains)
+    for t in range(n_expand_rounds * c):
+        alpha = orders[:, t]                              # (B,)
+        u_alpha = unary.T[alpha]                          # (B, K)
+        noise = torch.rand((n_chains, k), generator=gen, device=dev)
+        b = 0.5 + (noise - 0.5) * move_noise
+        oh_cur = F.one_hot(cur, c).to(torch.float32)      # (B, K, C)
+        oh_alpha = F.one_hot(alpha, c).to(torch.float32)[:, None, :]
+        u_cur = unary[torch.arange(k, device=dev)[None, :], cur]
+        for _ in range(n_move_steps):
+            q = (1.0 - b[..., None]) * oh_cur + b[..., None] * oh_alpha
+            msg = message(q)                              # (B, K, C)
+            c_keep = u_cur + torch.gather(msg, 2, cur[..., None])[..., 0]
+            c_alpha = u_alpha + msg[rows, :, alpha]
+            b_new = torch.sigmoid(c_keep - c_alpha)
+            b = damping * b_new + (1.0 - damping) * b
+        cur = torch.where(b > 0.5, alpha[:, None], cur)
+        e = mrf_energy(cur, unary, edges, weights, pairwise)
+        improved = e < be
+        bl = torch.where(improved[:, None], cur, bl)
+        be = torch.where(improved, e, be)
+    winner = torch.argmin(be)
+    out = torch.where(be[winner] < best_e, bl[winner], best_labels)
+    return out.to(torch.int32)
+
+
 def segment_graph_cut_general(labels, proba, num_segments, image=None,
                               features=None, gc_regul=1.0, edge_type='model',
                               edge_cost=1.0, grid_ctx=None, centers=None,
                               grid_ctx3d=None):
-    """MRF stage on the superpixel graph; the grid branches are ported.
+    """MRF stage on the superpixel graph: the dense grid solve for SLIC
+    labels given with their grid, the edge-list :func:`solve_mrf` for any
+    other label map.
 
     :param labels: (H, W) superpixel map or (Z, H, W) supervoxel volume
     :param proba: (K, C) class probabilities
@@ -134,12 +271,15 @@ def segment_graph_cut_general(labels, proba, num_segments, image=None,
     unary = compute_unary_cost(proba)
     if np.isscalar(gc_regul) and gc_regul <= 0:
         return torch.argmin(unary, dim=-1).to(torch.int32)
-    if grid_ctx is None and grid_ctx3d is None:
-        raise NotImplementedError(
-            'the edge-list MRF of generic labels comes with the RG2Sp slice '
-            '(ROADMAP.md)')
     pairwise = torch.as_tensor(compute_pairwise_cost(gc_regul, proba.shape[1]),
                                dtype=torch.float32, device=unary.device)
+    if grid_ctx is None and grid_ctx3d is None:
+        with stage_range('edges'):
+            edges, weights, _valid = compute_edge_weights(
+                labels, num_segments, image=image, features=features,
+                proba=proba, edge_type=edge_type, centers=centers)
+        with stage_range('mrf'):
+            return solve_mrf(unary, edges, weights * edge_cost, pairwise)
     if grid_ctx is None:
         from pyimsegm_tpu_torch.ops import slic3d as slic3d_ops
         _labels3d, cfg3 = grid_ctx3d
@@ -170,3 +310,40 @@ def segment_graph_cut_general(labels, proba, num_segments, image=None,
             centers=centers) * edge_cost
     with stage_range('mrf'):
         return grid_ops.solve_mrf_grid(unary, wgrid, pairwise, cfg)
+
+
+def count_label_transitions_connected_segments(list_slics, list_labels,
+                                               nb_labels, device='cuda'):
+    """Class transitions along the superpixel adjacency over a dataset,
+    (nb_labels, nb_labels) float64 counts (the diagonal halved); the edge
+    lists are built on ``device`` (a tensor label map on its own)."""
+    from pyimsegm_tpu_torch.ops import graph as graph_ops
+    from pyimsegm_tpu_torch.utils.device import as_tensor
+    trans = np.zeros((nb_labels, nb_labels))
+    for slic, labels in zip(list_slics, list_labels):
+        slic_t = as_tensor(slic, device)
+        k = int(slic_t.max()) + 1
+        edges, valid = graph_ops.adjacency_edges_2d(slic_t, k)
+        edges = edges[valid].cpu().numpy()
+        pairs = np.asarray(labels)[edges]
+        np.add.at(trans, (pairs[:, 0], pairs[:, 1]), 1)
+        np.add.at(trans, (pairs[:, 1], pairs[:, 0]), 1)
+    trans[np.diag_indices_from(trans)] /= 2
+    return trans
+
+
+def compute_pairwise_cost_from_transitions(trans, min_prob=1e-9):
+    """``log(1 / ratio)`` pairwise costs from transition counts (host,
+    float64)."""
+    trans = np.asarray(trans, np.float64)
+    if trans.ndim == 1:
+        trans = np.tile(trans, (len(trans), 1))
+    ratio = trans / np.sum(trans, axis=0, keepdims=True)
+    n = len(ratio)
+    for i in range(1, n):
+        for j in range(i):
+            el = max(ratio[i, j], ratio[j, i])
+            ratio[i, j] = el
+            ratio[j, i] = el
+    ratio = np.maximum(ratio, min_prob)
+    return np.log(1.0 / ratio)

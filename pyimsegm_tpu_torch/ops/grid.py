@@ -220,6 +220,32 @@ def grid_mrf_energy(label_grid, unary_grid, wgrid, pairwise):
     return u + 0.5 * torch.sum(wgrid * pair)
 
 
+def wgrid_from_edges(edges, valid, weights, cfg: SlicConfig):
+    """(gh, gw, 25) symmetric edge-weight tensor from an edge list of grid
+    labels (adjacent only within +-2 cells), so that custom edge weights
+    ride :func:`solve_mrf_grid`.  Each (node, channel) slot receives one
+    weight at most, so the two ``index_put_`` adds are exact in any order.
+
+    :param edges: (E, 2) integer tensor
+    :param valid: (E,) bool
+    :param weights: (E,) float
+    """
+    gh, gw = cfg.grid_h, cfg.grid_w
+    a = edges[:, 0].to(torch.int64)
+    b = edges[:, 1].to(torch.int64)
+    ay, ax = torch.div(a, gw, rounding_mode='floor'), a % gw
+    by, bx = torch.div(b, gw, rounding_mode='floor'), b % gw
+
+    def chan(dy, dx):
+        return (torch.clamp(dy, -2, 2) + 2) * 5 + (torch.clamp(dx, -2, 2) + 2)
+
+    w = torch.where(valid, weights.to(torch.float32), 0.0)
+    wg = torch.zeros(gh * gw * 25, dtype=torch.float32, device=w.device)
+    wg.index_put_((a * 25 + chan(by - ay, bx - ax),), w, accumulate=True)
+    wg.index_put_((b * 25 + chan(ay - by, ax - bx),), w, accumulate=True)
+    return wg.reshape(gh, gw, 25)
+
+
 def solve_mrf_grid(unary, wgrid, pairwise, cfg: SlicConfig, n_mf_iters=30,
                    n_icm_iters=12, damping=0.5):
     """Damped mean-field, then synchronous ICM keeping the best-energy

@@ -310,6 +310,104 @@ def slic_segment_with_features(image, feat_image, cfg: SlicConfig,
     return labels, counts, centers, sums
 
 
+#: distance of a seed outside the grid (the reference's ``_BIG``)
+_BIG = 1e10
+
+
+def _slic_segment_skimage(image, cfg: SlicConfig, compactness,
+                          n_iter=DEFAULT_SLIC_ITERS):
+    """skimage-faithful SLIC iterations (the JAX package's
+    ``_slic_segment_xla_skimage``), in plain PyTorch on the image's device:
+    a 5x5 window of seeds around each pixel's tile, f32 Lab pixels (no bf16
+    rounding), skimage's seeds (positions clipped into the image, colours
+    at the rounded seed pixel), and empty clusters reset to zero on update.
+    Each round is 25 passes over the image, one per window offset, and
+    the update sums every offset's pixels by tile in a fixed order.
+
+    :returns: (H, W) int32 raw grid labels in [0, K)
+    """
+    gh, gw, step = cfg.grid_h, cfg.grid_w, cfg.step
+    dev = image.device
+    lab = _prepare_image(image)                      # (H, W, 3) f32
+    rows = torch.arange(cfg.pad_h, device=dev).clamp_max(cfg.height - 1)
+    cols = torch.arange(cfg.pad_w, device=dev).clamp_max(cfg.width - 1)
+    lab_p = lab[rows][:, cols]
+    hp, wp = cfg.pad_h, cfg.pad_w
+    valid = ((torch.arange(hp, device=dev) < cfg.height)[:, None]
+             & (torch.arange(wp, device=dev) < cfg.width)[None, :])
+    valid = valid.to(torch.float32)
+    py, px = torch.meshgrid(torch.arange(hp, dtype=torch.float32, device=dev),
+                            torch.arange(wp, dtype=torch.float32, device=dev),
+                            indexing='ij')
+
+    cy0 = torch.clamp_max((torch.arange(gh, dtype=torch.float32, device=dev)
+                           + 0.5) * step - 0.5, cfg.height - 1.0)
+    cx0 = torch.clamp_max((torch.arange(gw, dtype=torch.float32, device=dev)
+                           + 0.5) * step - 0.5, cfg.width - 1.0)
+    iy = torch.clamp(torch.round(cy0).to(torch.int64), 0, cfg.height - 1)
+    ix = torch.clamp(torch.round(cx0).to(torch.int64), 0, cfg.width - 1)
+    init_color = lab[iy][:, ix]
+    cyg, cxg = torch.meshgrid(cy0, cx0, indexing='ij')
+    centers = torch.cat([init_color, cyg[..., None], cxg[..., None]], dim=-1)
+
+    sw = (torch.tensor(compactness, dtype=torch.float32)
+          / torch.tensor(step, dtype=torch.float32)) ** 2
+    sw = float(sw)
+    offsets = [(di, dj) for di in (-2, -1, 0, 1, 2)
+               for dj in (-2, -1, 0, 1, 2)]
+    ty = torch.arange(gh, device=dev)[:, None].expand(gh, gw)
+    tx = torch.arange(gw, device=dev)[None, :].expand(gh, gw)
+    data = torch.cat([lab_p, py[..., None], px[..., None],
+                      torch.ones((hp, wp, 1), device=dev)],
+                     dim=-1) * valid[..., None]
+
+    def shift(grid, di, dj):
+        """grid[y - di, x - dj], zero outside."""
+        pad = [0, 0] * (grid.ndim - 2) + [max(dj, 0), max(-dj, 0),
+                                          max(di, 0), max(-di, 0)]
+        padded = torch.nn.functional.pad(grid, pad)
+        return padded[max(-di, 0):max(-di, 0) + gh,
+                      max(-dj, 0):max(-dj, 0) + gw]
+
+    def assign(centers):
+        best_d = torch.full((hp, wp), _BIG, dtype=torch.float32, device=dev)
+        best_lb = torch.zeros((hp, wp), dtype=torch.int32, device=dev)
+        best_o = torch.zeros((hp, wp), dtype=torch.int8, device=dev)
+        for oi, (di, dj) in enumerate(offsets):
+            sy, sx = ty + di, tx + dj
+            inb = (sy >= 0) & (sy < gh) & (sx >= 0) & (sx < gw)
+            nb = torch.roll(centers, (-di, -dj), dims=(0, 1))
+            nb_id = torch.where(inb, sy * gw + sx, 0).to(torch.int32)
+            nb = torch.where(inb[..., None], nb, _BIG)
+            cfield = _upsample_grid(nb, step)
+            lbf = _upsample_grid(nb_id[..., None], step)[..., 0]
+            dl = lab_p - cfield[..., :3]
+            dc2 = dl[..., 0] * dl[..., 0] + dl[..., 1] * dl[..., 1] \
+                + dl[..., 2] * dl[..., 2]
+            ds2 = (py - cfield[..., 3]) ** 2 + (px - cfield[..., 4]) ** 2
+            d = dc2 + ds2 * sw
+            take = d < best_d
+            best_d = torch.where(take, d, best_d)
+            best_lb = torch.where(take, lbf, best_lb)
+            best_o = torch.where(take, oi, best_o)
+        return best_lb, best_o
+
+    def update(best_o):
+        sums = torch.zeros((gh, gw, 6), dtype=torch.float32, device=dev)
+        for oi, (di, dj) in enumerate(offsets):
+            part = (data * (best_o == oi)[..., None]) \
+                .reshape(gh, step, gw, step, 6).sum(dim=(1, 3))
+            sums = sums + shift(part, di, dj)
+        # skimage's update: an empty cluster becomes zero
+        return sums[..., :5] / torch.clamp_min(sums[..., 5:6], 1.0)
+
+    for _ in range(max(n_iter - 1, 0)):
+        _labels, best_o = assign(centers)
+        centers = update(best_o)
+    labels, _ = assign(centers)
+    return labels[:cfg.height, :cfg.width].contiguous()
+
+
 def segment_slic_img2d(img, sp_size=50, relative_compact=0.1, slico=False,
                        n_iter=DEFAULT_SLIC_ITERS, enforce_connectivity=True,
                        compat=False, device='cuda'):
@@ -319,16 +417,26 @@ def segment_slic_img2d(img, sp_size=50, relative_compact=0.1, slico=False,
         else on ``device``
     :param enforce_connectivity: make every superpixel one 4-connected
         region and merge those below half a tile into a neighbour
-    :param compat: the skimage-faithful mode of the JAX package (5x5 window,
-        dynamic label count) is not ported
+    :param compat: the skimage-faithful mode (:func:`_slic_segment_skimage`
+        on the device, then skimage's split, sequential relabel and merge
+        on the host, :mod:`pyimsegm_tpu_torch.ops.connectivity_host`): the
+        labels are component ids in raster order, their count depends on
+        the image, and they are not on the seed grid
     :returns: (H, W) int32 numpy labels
     """
-    if compat:
-        raise NotImplementedError('the skimage-compat SLIC mode comes with '
-                                  'the RG2Sp slice (ROADMAP.md)')
     img = as_tensor(img, device)
     cfg = slic_config(img.shape[0], img.shape[1], sp_size)
     m = compactness_from_regul(sp_size, relative_compact)
+    if compat:
+        if slico:
+            raise ValueError('compat mode does not support slico')
+        labels = _slic_segment_skimage(img, cfg, m, n_iter=n_iter)
+        labels = labels.cpu().numpy().astype(np.int32)
+        if enforce_connectivity:
+            from pyimsegm_tpu_torch.ops.connectivity_host import \
+                enforce_connectivity as _enforce
+            labels = _enforce(labels, min_size=int(0.5 * cfg.step * cfg.step))
+        return labels
     labels = slic_segment(img, cfg, m, n_iter=n_iter, slico=slico)
     if enforce_connectivity:
         from pyimsegm_tpu_torch.ops.grid import enforce_grid_connectivity

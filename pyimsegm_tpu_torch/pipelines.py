@@ -23,8 +23,9 @@ median / meanGrad) and the texture keys ``tLM[_short]``, ``tGabor`` and
 ``tLBP``; the classifiers are every name of
 :mod:`pyimsegm_tpu_torch.classification`, and any other model with a numpy
 ``predict_proba`` and ``classes_`` segments through a host round trip;
-SLICO and ``connectivity`` on or off are ported.  ``sp_compat`` raises
-``NotImplementedError`` naming the item of ROADMAP.md that brings it.
+SLICO, ``connectivity`` on or off and ``sp_compat`` (the skimage-compat
+SLIC with its host connectivity postprocess, then the generic features
+and the edge-list MRF) are ported.
 """
 
 import numpy as np
@@ -236,8 +237,9 @@ def segment_color2d_slic_features_model_graphcut(
     :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) ndarray)
     """
     if sp_compat:
-        raise NotImplementedError('sp_compat (skimage-compat SLIC) comes '
-                                  'with the RG2Sp slice (ROADMAP.md)')
+        return _segment_compat_core(image, model_pipeline, dict_features,
+                                    sp_size, sp_regul, gc_regul, gc_edge_type,
+                                    device)
     if not isinstance(model_pipeline, (ClassModel, Classifier)):
         return _segment_duck_typed(image, model_pipeline, dict_features,
                                    sp_size, sp_regul, gc_regul, gc_edge_type,
@@ -261,6 +263,47 @@ def segment_color2d_slic_features_model_graphcut(
         return _fetch_reconstruct(labels, proba, graph_labels, cfg)
     # raw labels may hold out-of-window pixels: the device lookup holds
     return segm.cpu().numpy(), segm_soft.cpu().numpy()
+
+
+def _segment_compat_core(image, model, dict_features, sp_size, sp_regul,
+                         gc_regul, gc_edge_type, device):
+    """The reference-compat route: the skimage-semantics SLIC (5x5 window,
+    f32, split-relabel-merge connectivity on the host, a label count that
+    depends on the image) feeding the generic feature and edge-list MRF
+    ops.  It runs on the model's device (a :class:`ClassModel` or
+    :class:`Classifier`), or for any other model with a numpy
+    ``predict_proba`` on the image's (``device`` for a numpy image)."""
+    device_model = isinstance(model, (ClassModel, Classifier))
+    with stage_range('upload'):
+        image = _to_model_device(image, model) if device_model \
+            else as_tensor(image, device)
+    dev = image.device
+    with stage_range('slic'):
+        labels_np = slic_ops.segment_slic_img2d(
+            image, sp_size=sp_size, relative_compact=sp_regul, compat=True)
+    n_lb = int(labels_np.max()) + 1
+    labels = torch.as_tensor(labels_np.astype(np.int64), device=dev)
+    img32 = image.to(torch.float32)
+    with stage_range('features'):
+        features, _names = descriptors.compute_selected_features_img2d(
+            img32, labels.reshape(-1), n_lb, dict_features)
+        features = torch.nan_to_num(features)
+    with stage_range('classify'):
+        if device_model:
+            proba = model.predict_proba(features).to(torch.float32)
+        else:
+            proba = torch.as_tensor(np.asarray(model.predict_proba(
+                features.cpu().numpy()), np.float32), device=dev)
+    graph_labels = graphcut.segment_graph_cut_general(
+        labels, proba, n_lb, image=img32, features=features,
+        gc_regul=float(gc_regul), edge_type=gc_edge_type)
+    with stage_range('fetch'):
+        graph_labels = graph_labels.cpu().numpy()
+        proba = proba.cpu().numpy()
+    classes = getattr(model, 'classes_', None)
+    classes = np.arange(proba.shape[1]) if classes is None \
+        else np.asarray(classes)
+    return classes[graph_labels][labels_np], proba[labels_np]
 
 
 def _segment_duck_typed(image, model, dict_features, sp_size, sp_regul,

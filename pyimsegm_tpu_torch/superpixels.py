@@ -1,9 +1,8 @@
 """Superpixel API under the reference's names (port of
 ``pyimsegm_tpu.superpixels``): :func:`segment_slic_img2d` from
 ``ops/slic.py``, :func:`segment_slic_img3d_gray` from ``ops/slic3d.py``,
-:func:`superpixel_centers` over ``ops/graph.py`` and the host-side numpy
-edge-list helpers.  ``get_neighboring_segments`` comes with the RG2Sp
-slice (ROADMAP.md item 8)."""
+:func:`superpixel_centers` over ``ops/graph.py``, and the host-side numpy
+edge-list helpers with :func:`get_neighboring_segments`."""
 
 import numpy as np
 
@@ -69,3 +68,10 @@ def superpixel_centers(segments, device='cuda'):
     k = int(segments.max()) + 1
     return graph_ops.superpixel_centers(segments, k,
                                         ndim=segments.ndim).cpu().numpy()
+
+
+def get_neighboring_segments(edges):
+    """Edge list -> per-node neighbour lists."""
+    from pyimsegm_tpu_torch.region_growing import \
+        get_neighboring_segments as _gns
+    return _gns(edges)

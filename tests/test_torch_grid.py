@@ -249,10 +249,25 @@ def test_graph_cut_costs_and_argmin_shortcut(scene):
         torch.as_tensor(labels), torch.as_tensor(proba), cfg.n_segments,
         gc_regul=0)
     np.testing.assert_array_equal(out.numpy(), ref)
-    with pytest.raises(NotImplementedError):
-        tgc.segment_graph_cut_general(torch.as_tensor(labels),
-                                      torch.as_tensor(proba), cfg.n_segments,
-                                      gc_regul=1.0)
+    # without its grid the map takes the edge-list solve (a raise until it
+    # was ported): held to JAX's labels by energy
+    got = tgc.segment_graph_cut_general(torch.as_tensor(labels),
+                                        torch.as_tensor(proba),
+                                        cfg.n_segments, gc_regul=1.0).numpy()
+    want = np.asarray(jgc.segment_graph_cut_general(
+        jnp.asarray(labels), jnp.asarray(proba), cfg.n_segments,
+        gc_regul=1.0))
+    edges, w, _ = jgc.compute_edge_weights(jnp.asarray(labels),
+                                           cfg.n_segments,
+                                           proba=jnp.asarray(proba),
+                                           edge_type='model')
+    unary = jgc.compute_unary_cost(jnp.asarray(proba))
+    pw = jnp.asarray(jgc.compute_pairwise_cost(1.0, proba.shape[1]),
+                     jnp.float32)
+
+    def energy(lab):
+        return float(jgc.mrf_energy(jnp.asarray(lab), unary, edges, w, pw))
+    assert energy(got) <= energy(want) * 1.005
 
 
 @pytest.mark.parametrize('edge_type', ['model', 'color'])

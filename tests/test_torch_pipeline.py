@@ -194,21 +194,32 @@ def test_bench_geometry_connectivity_matches_committed_jax_output():
      'dict_features': {'color_hsv': ['mean'], 'tGabor': ['mean']}},
 ], ids=['texture', 'sp_compat', 'texture_short', 'gabor'])
 def test_unported_options_raise(kwargs):
-    """``sp_compat`` still raises.  A gray image with LM texture (formerly a
-    raise) segments as JAX's does with a GMM the JAX package fits on its
-    features, carried across: SLIC labels >= 0.999 equal, ARS >= 0.98.
-    Gray Gabor beside a colour key over the grid reduce raises ValueError
-    in both packages (the reference takes the non-colour keys as a volume,
-    which has no Gabor)."""
+    """Options that once raised.  ``sp_compat`` (formerly a raise)
+    segments as JAX's does with a class model the JAX package fits on the
+    image, carried across: ARS >= 0.98.  A gray image with LM texture
+    (formerly a raise) segments as JAX's does with a GMM the JAX package
+    fits on its features, carried across: SLIC labels >= 0.999 equal, ARS
+    >= 0.98.  Gray Gabor beside a colour key over the grid reduce raises
+    ValueError in both packages (the reference takes the non-colour keys
+    as a volume, which has no Gabor)."""
     kwargs = dict(kwargs)
     feats = kwargs.pop('dict_features', FEATURES)
     img = _image(SHAPES[0], 0)
     if not kwargs.pop('gray', False):
-        with pytest.raises(NotImplementedError):
-            tpipe.segment_color2d_slic_features_model_graphcut(
-                img, class_model_from_numpy({
-                    'weights': np.ones(1), 'means': np.zeros((1, 9)),
-                    'covs': np.eye(9)[None]}), feats, sp_size=SP, **kwargs)
+        jm, _ = jpipe.estim_model_classes_group([img], 3, feats, sp_size=SP,
+                                                sp_regul=REGUL)
+        tm = class_model_from_numpy({k: np.asarray(v) for k, v in {
+            'weights': jm.gmm.weights, 'means': jm.gmm.means,
+            'covs': jm.gmm.covs, 'scaler_mean': jm.scaler_mean,
+            'scaler_scale': jm.scaler_scale}.items()})
+        segm_j, _ = jpipe.segment_color2d_slic_features_model_graphcut(
+            img, jm, feats, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+            **kwargs)
+        segm_t, soft_t = tpipe.segment_color2d_slic_features_model_graphcut(
+            img, tm, feats, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+            **kwargs)
+        assert np.isfinite(soft_t).all()
+        assert adjusted_rand_score(segm_t, np.asarray(segm_j)) >= 0.98
         return
     img = np.ascontiguousarray(img[..., 0])
     conn = kwargs.get('connectivity', True)
@@ -414,8 +425,8 @@ def test_segment_slic_img2d_matches_jax(slico):
                                 slico=slico, device='cpu')
     assert lt.dtype == np.int32 and lt.shape == SHAPES[1]
     assert (lt == lj).mean() >= 0.999
-    with pytest.raises(NotImplementedError):
-        tsp.segment_slic_img2d(img, compat=True, device='cpu')
+    with pytest.raises(ValueError):
+        tsp.segment_slic_img2d(img, compat=True, slico=True, device='cpu')
     np.testing.assert_array_equal(
         tsp.make_graph_segm_connect_grid2d_conn4(lt)[1],
         jsp.make_graph_segm_connect_grid2d_conn4(lt)[1])
@@ -511,16 +522,18 @@ sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
 import pyimsegm_tpu_torch
 from pyimsegm_tpu_torch import (_build, centers, classification,
-                                descriptors, ellipse_fitting, labeling,
-                                pipelines, superpixels)
+                                descriptors, ellipse_fitting, graph_cuts,
+                                labeling, pipelines, region_growing,
+                                superpixels)
 from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model,
                                        clustering, forest, gbt, gmm, linear,
                                        otsu)
-from pyimsegm_tpu_torch.ops import (color, connectivity_cuda, enforce_cuda,
-                                    filters, graph, graphcut, grid, grid_cuda,
+from pyimsegm_tpu_torch.ops import (color, connectivity_cuda,
+                                    connectivity_host, enforce_cuda, filters,
+                                    graph, graphcut, grid, grid_cuda,
                                     histogram, morphology, prep_cuda, ray,
-                                    segment_stats, slic, slic3d, slic3d_cuda,
-                                    slic_cuda)
+                                    segment_stats, shape_prior, slic, slic3d,
+                                    slic3d_cuda, slic_cuda)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import data_samples, device, metrics
 import torch

@@ -151,12 +151,41 @@ def test_compute_edge_weights_match_jax(edge_type):
 
 
 def test_edge_lists_of_2d_or_non_grid_labels_raise():
+    """Edge lists of 2D labels and of 3D labels without their grid (which
+    raised until the edge-list MRF was ported) equal JAX's, and the
+    generic MRF stage solves them: a single-label map gives class 0
+    (the lower unary), a non-grid volume JAX's labels by energy."""
     lab = torch.zeros((8, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match='RG2Sp'):
-        tgc.compute_edge_weights(lab, 1)
-    with pytest.raises(NotImplementedError, match='RG2Sp'):
-        tgc.segment_graph_cut_general(lab, torch.full((1, 2), 0.5), 1,
-                                      gc_regul=1.0)
+    edges, weights, valid = tgc.compute_edge_weights(lab, 1)
+    assert not bool(valid.any()) and float(weights.sum()) == 0.0
+    out = tgc.segment_graph_cut_general(
+        lab, torch.tensor([[0.6, 0.4]]), 1, gc_regul=1.0)
+    assert out.tolist() == [0]
+    _vol, lab3, _cj, _ct = _slic((8, 32, 48), 6)
+    k = int(lab3.max()) + 1
+    perm = np.random.default_rng(3).permutation(k)
+    lab3 = perm[lab3].astype(np.int32)
+    ej, vj = jgraph.adjacency_edges_3d(jnp.asarray(lab3), k)
+    et, wt, vt = tgc.compute_edge_weights(torch.as_tensor(lab3), k)
+    np.testing.assert_array_equal(et.numpy(), np.asarray(ej))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+    proba = np.random.default_rng(4).dirichlet(np.ones(2), k) \
+        .astype(np.float32)
+    want = np.asarray(jgc.segment_graph_cut_general(
+        jnp.asarray(lab3), jnp.asarray(proba), k, gc_regul=1.0,
+        edge_type='model'))
+    got = tgc.segment_graph_cut_general(
+        torch.as_tensor(lab3), torch.as_tensor(proba), k, gc_regul=1.0,
+        edge_type='model').numpy()
+    _, wj, _ = jgc.compute_edge_weights(jnp.asarray(lab3), k,
+                                        proba=jnp.asarray(proba),
+                                        edge_type='model')
+    unary = jgc.compute_unary_cost(jnp.asarray(proba))
+    pw = jnp.asarray(jgc.compute_pairwise_cost(1.0, 2), jnp.float32)
+
+    def energy(labels):
+        return float(jgc.mrf_energy(jnp.asarray(labels), unary, ej, wj, pw))
+    assert energy(got) <= energy(want) * 1.005
 
 
 def test_solve_mrf_grid3d_matches_jax():

@@ -91,11 +91,24 @@ JAX.
 Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
 ``--only-sup`` the supervised one, ``--only-noise`` the noise one,
 ``--only-clf`` the classifier one, ``--only-3d-tlm`` the 3D texture one,
-``--only-centers`` the centre-detection one, ~10 min)::
+``--only-centers`` the centre-detection one, ~10 min, ``--only-rg2sp`` the
+region-growing one, ~5 min)::
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
         [--only-3d | --only-sup | --only-noise | --only-clf | --only-3d-tlm
-         | --only-centers]
+         | --only-centers | --only-rg2sp]
+
+``torch_port_fixture_rg2sp.npz`` holds BASELINE config 5 on the synthetic
+ovary scenes at 647x1024: the shape model JAX fits on the egg masks of the
+training scenes (``shape_*`` arrays of
+``pyimsegm_tpu_torch.region_growing.shape_model_to_numpy``, and their
+``rays``), the test scene's SLIC (int16), ``prob_fg`` and true centres,
+the GraphCut and greedy RG2Sp labels with their iteration counts, those
+of GraphCut RG2Sp on a second scene whose labels take the grid solve
+(``grid_*``), the
+one-shot object GraphCut on the superpixels and on the pixels (labels and
+energy), the compat SLIC's raw and enforced labels (int16), and the
+``sp_compat`` segmentation with the class model it used.
 """
 
 import os
@@ -116,6 +129,7 @@ OUT_3D_TLM = os.path.join(ROOT, 'tests', 'data',
                           'torch_port_fixture_3d_tlm.npz')
 OUT_CENTERS = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_fixture_centers.npz')
+OUT_RG2SP = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_rg2sp.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -145,6 +159,21 @@ CENTER_TRAIN_SEEDS, CENTER_TEST_SEED, N_EGGS = (0, 1, 2), 3, 4
 TABLE_PROB = [0.01, 0.95, 0.95, 0.85]
 ELL_SLIC, ELL_REGUL, ELL_INLIERS, ELL_THR, ELL_TRIALS, ELL_OVERLAP = \
     15, 0.1, 0.35, 3, 30, 0.45
+#: config 5 (bench_all.py): the shape model's training scenes (24 eggs: on
+#: the 12 of seeds 0-2 alone, fewer than the 15 ray directions, JAX's f32
+#: mixture fit is NaN), the SLIC, the tissue table, the RG2Sp energy, the
+#: one-shot GraphCut's radial prior, and the compat SLIC's class count
+RG_SHAPE_SEEDS, RG_TEST_SEED = (0, 1, 2, 4, 5, 6), 3
+#: a second test scene whose SLIC keeps all K = 3,036 labels, so that RG2Sp
+#: takes the grid solve (seed 3's merge empties the last two labels, and
+#: K = 3,034 takes the edge-list solve in both packages)
+RG_GRID_SEED = 10
+RG_SP, RG_REGUL, RG_RAY_STEP = 15, 0.2, 25
+RG_TABLE = [0.1, 0.9, 0.75, 0.9, 0.9]
+RG_PARAMS = dict(coef_shape=5., coef_pairwise=15.,
+                 prob_label_trans=[0.1, 0.03], nb_iter=100)
+RG_OBJ_SHAPE = dict(coef_shape=1., shape_mean_std=(100., 20.))
+RG_COMPAT_CLASSES = 3
 _MODEL_ARRAYS = ('scaler_mean', 'scaler_scale', 'pca_components', 'pca_mean',
                  'pca_mask')
 
@@ -176,6 +205,9 @@ def main():
         return
     if '--only-centers' in sys.argv[1:]:
         _save(OUT_CENTERS, _centers_outputs())
+        return
+    if '--only-rg2sp' in sys.argv[1:]:
+        _save(OUT_RG2SP, _rg2sp_outputs(pipelines))
         return
     if '--only-clf' in sys.argv[1:]:
         _save(OUT_CLF, _clf_outputs(pipelines))
@@ -218,6 +250,7 @@ def main():
     _save(OUT_3D_TLM, _gray3d_outputs(pipelines, '', *CASE_3D_TLM,
                                       features=FEATURES_3D_TLM))
     _save(OUT_CENTERS, _centers_outputs())
+    _save(OUT_RG2SP, _rg2sp_outputs(pipelines))
 
 
 def _group_model(pipelines):
@@ -409,6 +442,106 @@ def _clf_outputs(pipelines):
                                       hyper, float(arrays['ars_annot'])))
         out.update({'%s_%s' % (name, k): v for k, v in arrays.items()})
     return out
+
+
+def _rg2sp_outputs(pipelines):
+    """Config 5's shape model, RG2Sp runs, one-shot GraphCuts and the
+    compat SLIC on the synthetic ovary scenes."""
+    import time
+
+    import jax.numpy as jnp
+    from pyimsegm_tpu import native
+    from pyimsegm_tpu import region_growing as rg
+    from pyimsegm_tpu.ops import graphcut
+    from pyimsegm_tpu.ops import slic as slic_ops
+    from pyimsegm_tpu.superpixels import segment_slic_img2d
+    from pyimsegm_tpu_torch.region_growing import shape_model_to_numpy
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    annots = [(sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)[1] > 0)
+              .astype(np.int32) for s in RG_SHAPE_SEEDS]
+    rays, _ = rg.compute_object_shapes(annots, ray_step=RG_RAY_STEP,
+                                       smooth_coef=1, interp_order='spline')
+    model, cdfs = rg.transform_rays_model_cdf_mixture(rays)
+    img, segm, centres = sample_ovary_scene(OVARY, N_EGGS,
+                                            rand_seed=RG_TEST_SEED)
+    slic = np.asarray(segment_slic_img2d(img, sp_size=RG_SP,
+                                         relative_compact=RG_REGUL))
+    cfg = slic_ops.slic_config(OVARY[0], OVARY[1], RG_SP)
+    prob_fg = rg.compute_segm_prob_fg(slic, segm, RG_TABLE)
+    arrays = {'shape_' + k: v
+              for k, v in shape_model_to_numpy(model, cdfs).items()}
+    arrays.update(rays=np.asarray(rays, np.float64),
+                  slic=slic.astype(np.int16), prob_fg=prob_fg,
+                  centres=np.asarray(centres, np.float64))
+    for name, fn, kw in (
+            ('gc', rg.region_growing_shape_slic_graphcut,
+             dict(optim_global=True, grid_cfg=cfg)),
+            ('greedy', rg.region_growing_shape_slic_greedy, {})):
+        hist = {}
+        t0 = time.perf_counter()
+        labels = fn(slic, prob_fg, centres, (model, cdfs), 'cdf',
+                    debug_history=hist, **dict(RG_PARAMS, **kw))
+        print('%s RG2Sp: %d iterations, %.1f s, %d superpixels in objects'
+              % (name, len(hist['labels']), time.perf_counter() - t0,
+                 int((labels > 0).sum())))
+        arrays['%s_labels' % name] = np.asarray(labels, np.int8)
+        arrays['%s_iters' % name] = np.asarray(len(hist['labels']), np.int32)
+        arrays['%s_criteria' % name] = np.asarray(hist['criteria'],
+                                                  np.float64)
+    img_g, segm_g, centres_g = sample_ovary_scene(OVARY, N_EGGS,
+                                                  rand_seed=RG_GRID_SEED)
+    slic_g = np.asarray(segment_slic_img2d(img_g, sp_size=RG_SP,
+                                           relative_compact=RG_REGUL))
+    hist = {}
+    labels = rg.region_growing_shape_slic_graphcut(
+        slic_g, rg.compute_segm_prob_fg(slic_g, segm_g, RG_TABLE), centres_g,
+        (model, cdfs), 'cdf', debug_history=hist, optim_global=True,
+        grid_cfg=cfg, **RG_PARAMS)
+    print('grid-route RG2Sp (K = %d): %d iterations'
+          % (int(slic_g.max()) + 1, len(hist['labels'])))
+    arrays.update(grid_slic=slic_g.astype(np.int16),
+                  grid_labels=np.asarray(labels, np.int8),
+                  grid_iters=np.asarray(len(hist['labels']), np.int32),
+                  grid_criteria=np.asarray(hist['criteria'], np.float64))
+    arrays['obj_slic_labels'] = np.asarray(
+        rg.object_segmentation_graphcut_slic(
+            slic, segm, centres, labels_fg_prob=RG_TABLE, **RG_OBJ_SHAPE),
+        np.int8)
+    t0 = time.perf_counter()
+    debug = {}
+    obj_px = rg.object_segmentation_graphcut_pixels(
+        segm, centres, labels_fg_prob=RG_TABLE, debug_visual=debug)
+    unary = np.stack(debug['unary_imgs'], axis=-1).reshape(
+        -1, len(centres) + 1)
+    edges = rg._grid_edges(*OVARY)
+    pairwise = 1 - np.eye(len(centres) + 1)
+    energy = float(graphcut.mrf_energy(
+        jnp.asarray(obj_px.reshape(-1)), jnp.asarray(unary, jnp.float32),
+        jnp.asarray(edges), jnp.ones(len(edges), jnp.float32),
+        jnp.asarray(pairwise, jnp.float32)))
+    print('pixel GraphCut: %.1f s, energy %.3f, %d object pixels'
+          % (time.perf_counter() - t0, energy, int((obj_px > 0).sum())))
+    arrays.update(obj_px_labels=obj_px.astype(np.uint8),
+                  obj_px_energy=np.asarray(energy, np.float64))
+
+    m = slic_ops.compactness_from_regul(RG_SP, RG_REGUL)
+    raw = np.asarray(slic_ops._slic_segment_xla_skimage(
+        jnp.asarray(img), cfg, m)).astype(np.int32)
+    enforced = native.enforce_connectivity(
+        raw, min_size=int(0.5 * cfg.step * cfg.step))
+    cmodel, _ = pipelines.estim_model_classes_group(
+        [img], RG_COMPAT_CLASSES, FEATURES, sp_size=RG_SP, sp_regul=RG_REGUL)
+    segm_c, _ = pipelines.segment_color2d_slic_features_model_graphcut(
+        img, cmodel, FEATURES, sp_size=RG_SP, sp_regul=RG_REGUL,
+        gc_regul=GC_REGUL, sp_compat=True)
+    print('compat SLIC: %d raw labels, %d enforced' % (
+        len(np.unique(raw)), int(enforced.max()) + 1))
+    arrays.update(compat_raw=raw.astype(np.int16),
+                  compat_enforced=enforced.astype(np.int16),
+                  compat_segm=np.asarray(segm_c).astype(np.uint8),
+                  **{'compat_model_' + k: v
+                     for k, v in _model_arrays(cmodel).items()})
+    return arrays
 
 
 def _centers_outputs():

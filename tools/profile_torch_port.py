@@ -53,6 +53,15 @@ ovary scenes (``sample_ovary_scene``, seeds 3, 4, ...); its stages (slic,
 enforce, geometry, hist, rays, shift, classify, cluster) are the chain's
 own ``pyimsegm:`` ranges, read as for ``--path 3d``.
 
+``--path rg2sp`` drives BASELINE config 5 (the SLIC of
+``superpixels.segment_slic_img2d`` at sp_size 15, then GraphCut RG2Sp with
+the JAX-fitted shape model of ``tests/data/torch_port_fixture_rg2sp.npz``,
+up to 100 rounds) on 647x1024 ovary scenes (seeds 3, 10, 11, ...: seed
+3's labels take the edge-list solve, the others the grid solve); its
+stages (slic, then per round upload, candidates, shape_update, unary,
+solve, fetch) are the region growing's own ``pyimsegm:`` ranges, read as
+for ``--path 3d``, with the rounds of each call.
+
 ``--path kernels`` measures kernel rows 1 (as ``_prepare_chw`` calls it,
 with its host-to-device copies), 2 (plain and SLICO), 3 (with its routing
 to per-seed sums), 4 (plain and SLICO), 5, 8, 9, 10 (as the bench path's
@@ -70,7 +79,8 @@ of rows 6 and 7 by F on the paths it drives).
 Run from the root of a checkout on a machine with a CUDA card::
 
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
-        [--path bench|fit|3d|3d_tlm|sup|centers|kernels] [--root CHECKOUT]
+        [--path bench|fit|3d|3d_tlm|sup|centers|rg2sp|kernels]
+        [--root CHECKOUT]
 
 The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
@@ -295,6 +305,42 @@ def _profile_centers(torch, n_images, out_dir):
     _profile_ranges(torch, run, scenes, out_dir, 'centers')
 
 
+def _profile_rg2sp(torch, n_images, out_dir):
+    """Config 5 with the carried shape model on the ovary scenes."""
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch import superpixels
+    from pyimsegm_tpu_torch.ops.slic import slic_config
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    from pyimsegm_tpu_torch.utils.device import stage_range
+    with np.load(os.path.join(ROOT, 'tests', 'data',
+                              'torch_port_fixture_rg2sp.npz')) as npz:
+        model = rg.shape_model_from_numpy(
+            {k[len('shape_'):]: npz[k] for k in npz.files
+             if k.startswith('shape_')}, device='cuda')
+    cfg = slic_config(OVARY[0], OVARY[1], 15)
+    scenes = [sample_ovary_scene(OVARY, 4, rand_seed=s)
+              for s in (3, 10, 11, 12, 13)[:n_images]]
+    rounds = []
+
+    def run(scene):
+        img, segm, centres = scene
+        with stage_range('slic'):
+            slic = superpixels.segment_slic_img2d(img, sp_size=15,
+                                                  relative_compact=0.2)
+        prob = rg.compute_segm_prob_fg(slic, segm,
+                                       [0.1, 0.9, 0.75, 0.9, 0.9])
+        hist = {}
+        rg.region_growing_shape_slic_graphcut(
+            slic, prob, centres, model, 'cdf', coef_shape=5.,
+            coef_pairwise=15., prob_label_trans=[0.1, 0.03],
+            optim_global=True, nb_iter=100, debug_history=hist,
+            grid_cfg=cfg)
+        rounds.append((int(slic.max()) + 1, len(hist['labels'])))
+
+    _profile_ranges(torch, run, scenes, out_dir, 'rg2sp')
+    print('rg2sp (K, rounds) of each call, in order: %s' % rounds)
+
+
 def _report(kind, rows, walls, n_images):
     names = list(rows[0])
     mean = {n: round(float(np.mean([r[n] for r in rows])), 3) for n in names}
@@ -366,7 +412,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     parser.add_argument('--images', type=int, default=4)
     parser.add_argument('--path', choices=('bench', 'fit', '3d', '3d_tlm',
-                                           'sup', 'centers', 'kernels'),
+                                           'sup', 'centers', 'rg2sp',
+                                           'kernels'),
                         default='bench')
     parser.add_argument('--out', required=True,
                         help='directory for the traces and the op tables')
@@ -410,6 +457,9 @@ def main():
         return
     if args.path == 'centers':
         _profile_centers(torch, args.images, args.out)
+        return
+    if args.path == 'rg2sp':
+        _profile_rg2sp(torch, args.images, args.out)
         return
     if args.path == 'sup':
         _profile_sup(torch, [sample_color_image_rand_segment(
