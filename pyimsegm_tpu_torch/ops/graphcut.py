@@ -137,7 +137,7 @@ def mrf_energy(labels, unary, edges, weights, pairwise):
     return u + torch.sum(weights * p, dim=-1)
 
 
-def _adjacency(edges, weights, num_segments):
+def edge_adjacency(edges, weights, num_segments):
     """The (K, K) symmetric weight matrix of an edge list in CSR form: each
     edge in both directions, padding edges (weight 0) included."""
     e = edges.to(torch.int64)
@@ -151,7 +151,7 @@ def _adjacency(edges, weights, num_segments):
 def _neighbor_expectation(q, adj, pairwise):
     """For every node i: sum_{j in N(i)} w_ij * (P @ q_j): the product with
     P on the nodes, then one sparse product with the symmetric weight
-    matrix ``adj`` (:func:`_adjacency`); ``q`` is (K, C) or (B, K, C)."""
+    matrix ``adj`` (:func:`edge_adjacency`); ``q`` is (K, C) or (B, K, C)."""
     qp = q @ pairwise.T
     if q.ndim == 2:
         return adj @ qp
@@ -172,7 +172,7 @@ def _chain_orders(c, n_expand_rounds, n_chains):
 
 def solve_mrf(unary, edges, weights, pairwise, n_mf_iters=30, n_icm_iters=12,
               damping=0.5, n_expand_rounds=12, n_move_steps=8, n_chains=4,
-              move_noise=0.6):
+              move_noise=0.6, adj=None):
     """Minimise the MRF of an edge list on the device of ``unary``, with no
     host synchronisation.
 
@@ -189,6 +189,8 @@ def solve_mrf(unary, edges, weights, pairwise, n_mf_iters=30, n_icm_iters=12,
     :param edges: (E, 2) integer edge list
     :param weights: (E,) float, 0 on padding
     :param pairwise: (C, C) cost matrix
+    :param adj: :func:`edge_adjacency` of ``edges`` and ``weights``, built
+        once by a caller that solves the same graph again
     :returns: (K,) int32 labels
     """
     unary = unary.to(torch.float32)
@@ -198,7 +200,8 @@ def solve_mrf(unary, edges, weights, pairwise, n_mf_iters=30, n_icm_iters=12,
     weights = weights.to(torch.float32)
     edges = edges.to(torch.int64)
 
-    adj = _adjacency(edges, weights, k)
+    if adj is None:
+        adj = edge_adjacency(edges, weights, k)
 
     def message(q):
         return _neighbor_expectation(q, adj, pairwise)

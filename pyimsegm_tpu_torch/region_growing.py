@@ -35,7 +35,8 @@ from pyimsegm_tpu_torch.models.gmm import (GMMParams, gmm_predict_proba,
                                            kmeans_fit)
 from pyimsegm_tpu_torch.ops import graph as graph_ops
 from pyimsegm_tpu_torch.ops import shape_prior as sp_ops
-from pyimsegm_tpu_torch.ops.graphcut import MAX_PAIRWISE_COST, solve_mrf
+from pyimsegm_tpu_torch.ops.graphcut import (MAX_PAIRWISE_COST,
+                                             edge_adjacency, solve_mrf)
 from pyimsegm_tpu_torch.ops.ray import (compute_ray_features_segm_2d,
                                         interpolate_ray_dist,
                                         shift_ray_features)
@@ -1077,10 +1078,12 @@ def region_growing_shape_slic_graphcut(
 
     if grid_cfg is None:
         grid_cfg = _infer_grid_cfg(st.slic)
-    wgrid = None
+    wgrid = adj = None
     if grid_cfg is not None and grid_cfg.n_segments == k:
         from pyimsegm_tpu_torch.ops.grid import wgrid_from_edges
         wgrid = wgrid_from_edges(st.edges_t, st.evalid_t, edge_w, grid_cfg)
+    else:
+        adj = edge_adjacency(st.edges_t, edge_w, k)
 
     def solve_clamped(labels_t, cand_any, neigh):
         with stage_range('unary'):
@@ -1097,7 +1100,7 @@ def region_growing_shape_slic_graphcut(
                 out = solve_mrf(unary, st.edges_t, edge_w, pairwise,
                                 n_mf_iters=10, n_icm_iters=4,
                                 n_expand_rounds=2, n_move_steps=4,
-                                n_chains=2)
+                                n_chains=2, adj=adj)
         return out.to(torch.int64)
 
     for _ in range(nb_iter):
