@@ -206,7 +206,19 @@ Phases (any failure raises and exits non-zero):
    on the 662,528 pixels (energy at most ``RG_ENERGY_SLACK`` above JAX's)
    (``path_object_graphcuts``); (f) the compat SLIC (raw labels >=
    ``COMPAT_RAW_BAR``), its host postprocess (exact) and ``sp_compat``
-   (ARS >= ``COMPAT_ARS_BAR``) (``path_compat``).
+   (ARS >= ``COMPAT_ARS_BAR``) (``path_compat``);
+14. the rest of the single-card modules after the ovary zoo's SLIC
+   (``path_rest``) on the test scene against
+   ``tests/data/torch_port_fixture_rest.npz``: the zoo's SLIC (sp_size
+   40, regul 0.3; rows 1, 2, 4, 7, 9, 10 and 12; labels >= 0.999), its
+   ``morph-snakes_img`` and ``morph-snakes_seg`` (``path_snakes``: labels
+   >= ``SNAKE_BAR`` equal to JAX's, each object's IoU >= ``SNAKE_IOU_BAR``,
+   the card's run cut to ``SNAKE_CPU_ITER`` iterations against the port's
+   CPU run; warm ms, ``utils.profiling.time_jitted`` ms, CUDA kernels and
+   idle share per call), the descriptor API on the card's labels against
+   the numpy twins, the five colour inverses at 884x1200 against the CPU
+   run and the round trip, the annotation quantisation (exactly JAX's
+   indices) and the label-map functions on the card's outputs (exact).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -3296,6 +3308,266 @@ def path_compat(torch, scene, fixture):
     return launches
 
 
+#: phase 14, the ovary zoo after its SLIC (apps/run_ovary_egg_segmentation.py):
+#: the zoo's slic_size and slic_regul, the snakes' circle radius and
+#: iteration cap, and (smoothing, lambdas) of its two morph-snakes methods
+FIXTURE_REST = os.path.join(ROOT, 'tests', 'data',
+                            'torch_port_fixture_rest.npz')
+REST_SP, REST_REGUL, REST_SEED = 40, 0.3, CENTER_TEST_SEED
+SNAKE_RADIUS, SNAKE_MAX_ITER = 15, 300
+SNAKES = {'morph-snakes_img': (5, (3., 3.)), 'morph-snakes_seg': (3, (2., 1.))}
+#: bars of a snake label map against JAX's: equal pixels, each object's IoU
+SNAKE_BAR, SNAKE_IOU_BAR = 0.999, 0.99
+#: the iterations of the snakes' CPU run, held against the card's run cut
+#: to the same count (the port's CPU loop takes ~0.3 s an iteration here)
+SNAKE_CPU_ITER = 20
+#: the annotation check's perturbed share of pixels and its seed
+ANNOT_PERTURB, ANNOT_SEED = 0.05, 0
+INVERSE_SPACES = ('xyz', 'lab', 'luv', 'hsv', 'hed')
+#: bars of the descriptor API on the card against the host float64 numpy
+#: twins: rtol + atol, and for the std an absolute bar, since
+#: sqrt(E[v^2] - E[v]^2) from f32 sums of ~1,600 pixels cancels to ~5e-5
+#: (the port's CPU run, and JAX's, share this f32 limit)
+DESC_RTOL, DESC_ATOL, DESC_STD_ATOL = 1e-5, 1e-6, 2e-4
+
+
+def simplify_segm_3cls(seg, lut=(0., 0.8, 1.), smooth=True):
+    """The ovary zoo's collapse of a class map into 3 smoothed intensity
+    levels with the holes filled (a copy of the app's, host scipy)."""
+    from scipy import ndimage
+    seg = np.asarray(seg)
+    segm = seg.copy()
+    segm[seg > 1] = 2
+    if np.sum(seg > 0) > 0:
+        filled = ndimage.binary_fill_holes(seg > 0)
+        segm[np.logical_and(seg == 0, filled)] = 2
+    segm = np.array(lut)[segm]
+    if smooth:
+        segm = ndimage.gaussian_filter(segm, 5)
+    return segm
+
+
+def snake_call(method, img, segm, centres):
+    """(image (H, W), circle masks, n_iter, smoothing, lambdas) of one of
+    the zoo's morph-snakes methods, as it calls them."""
+    from pyimsegm_tpu_torch.ops.snakes import circle_masks
+    smoothing, lambdas = SNAKES[method]
+    image = simplify_segm_3cls(segm) if method == 'morph-snakes_seg' else img
+    image = np.asarray(image, float)
+    if image.ndim == 3:
+        image = image[:, :, 0]
+    n_iter = min(int(np.hypot(*image.shape) / 2.0), SNAKE_MAX_ITER)
+    return (image, circle_masks(image.shape, centres, radius=SNAKE_RADIUS),
+            n_iter, smoothing, lambdas)
+
+
+def annotation_image(segm, seed=ANNOT_SEED, perturb=ANNOT_PERTURB):
+    """The class map in ``annotation.DICT_COLOURS``, ``perturb`` of its
+    pixels moved by up to +-60 per channel (uint8)."""
+    from pyimsegm_tpu_torch.annotation import DICT_COLOURS
+    img = np.asarray(list(DICT_COLOURS.values()), np.int32)[segm]
+    rng = np.random.default_rng(seed)
+    hit = rng.random(segm.shape) < perturb
+    img[hit] += rng.integers(-60, 61, (int(hit.sum()), 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _snake_ious(got, want, n):
+    return [float(((got == lb) & (want == lb)).sum()
+                  / max(((got == lb) | (want == lb)).sum(), 1))
+            for lb in range(1, n + 1)]
+
+
+def path_snakes(torch, scene, fixture):
+    """The zoo's two morph-snakes methods on the card against JAX-CPU's
+    label maps and the port's CPU run (cut to ``SNAKE_CPU_ITER``
+    iterations), then warm ms per call (host clock and
+    ``utils.profiling.time_jitted``), CUDA kernels per call and idle
+    share; returns the card's label maps."""
+    from pyimsegm_tpu_torch.ops import snakes
+    from pyimsegm_tpu_torch.utils.profiling import time_jitted
+    img, segm, centres = scene
+    out = {}
+    for method in SNAKES:
+        image, masks, n_iter, smoothing, lambdas = snake_call(
+            method, img, segm, centres)
+        image_t = torch.as_tensor(image, dtype=torch.float32, device=DEVICE)
+        masks_t = torch.as_tensor(masks, device=DEVICE)
+
+        def run(n=n_iter, dev_img=image_t, dev_masks=masks_t):
+            return snakes.morph_acwe_multi(dev_img, dev_masks, n_iter=n,
+                                           smoothing=smoothing,
+                                           lambda1=lambdas[0],
+                                           lambda2=lambdas[1])
+
+        labels = run().cpu().numpy()
+        want = fixture[method.replace('-', '_')].astype(np.int32)
+        equal = float((labels == want).mean())
+        ious = _snake_ious(labels, want, len(centres))
+        short = run(SNAKE_CPU_ITER).cpu().numpy()
+        short_cpu = snakes.morph_acwe_multi(
+            image, masks, n_iter=SNAKE_CPU_ITER, smoothing=smoothing,
+            lambda1=lambdas[0], lambda2=lambdas[1], device='cpu').numpy()
+        equal_cpu = float((short == short_cpu).mean())
+        ms = [_warm_ms(torch, run, 1) for _ in range(3)]
+        ev_ms = time_jitted(run, reps=3) * 1e3
+        _, busy, n_kernels = _stage_device_ms(torch, run)
+        wall = _warm_ms(torch, run, 1)
+        print('%s 647x1024, %d objects, %d iterations, smoothing %d, lambdas '
+              '%s: labels equal to JAX-CPU\'s %.6f (>= %g), each object\'s '
+              'IoU %s (>= %g); at %d iterations equal to the port\'s CPU run '
+              '%.6f (>= %g); warm %s ms per call (host clock), %.3f ms '
+              '(utils.profiling.time_jitted, CUDA events); device busy %.3f '
+              'ms of a %.3f ms call in %d CUDA kernels (%.1f per iteration), '
+              'idle share %.4f'
+              % (method, len(centres), n_iter, smoothing, list(lambdas),
+                 equal, SNAKE_BAR, ['%.4f' % v for v in ious], SNAKE_IOU_BAR,
+                 SNAKE_CPU_ITER, equal_cpu, SNAKE_BAR,
+                 ['%.3f' % t for t in ms], ev_ms, busy, wall, n_kernels,
+                 n_kernels / n_iter, 1.0 - busy / wall), flush=True)
+        if not (equal >= SNAKE_BAR and min(ious) >= SNAKE_IOU_BAR
+                and equal_cpu >= SNAKE_BAR):
+            raise AssertionError('%s disagrees with the reference' % method)
+        out[method] = labels
+    return out
+
+
+def check_descriptor_api(torch, img, slic):
+    """The descriptor API on the card's SLIC labels against the host numpy
+    twins on the same labels (and the median and meanGrad against the
+    port's CPU run)."""
+    from pyimsegm_tpu_torch import descriptors as desc
+    labels = torch.as_tensor(slic, device=DEVICE)
+    flags = desc.NAMES_FEATURE_FLAGS
+    feats, names = desc.compute_image2d_color_statistic(img, labels, flags,
+                                                        device=DEVICE)
+    cpu, _ = desc.compute_image2d_color_statistic(img, slic, flags,
+                                                  device='cpu')
+    twins = {'mean': desc.numpy_img2d_color_mean(img, slic),
+             'std': desc.numpy_img2d_color_std(img, slic),
+             'energy': desc.numpy_img2d_color_energy(img, slic),
+             'median': desc.numpy_img2d_color_median(img, slic)}
+    errs = {}
+    for i, flag in enumerate(flags):
+        block = feats[:, 3 * i:3 * i + 3]
+        if flag in twins:
+            np.testing.assert_allclose(
+                block, twins[flag], rtol=DESC_RTOL, err_msg=flag,
+                atol=DESC_STD_ATOL if flag == 'std' else DESC_ATOL)
+            errs[flag] = float(np.abs(block - twins[flag]).max())
+    np.testing.assert_array_equal(feats[:, 9:12], cpu[:, 9:12])
+    np.testing.assert_allclose(feats[:, 12:], cpu[:, 12:], rtol=DESC_RTOL,
+                               atol=DESC_ATOL)
+    for stat in ('mean', 'std', 'energy'):
+        got = getattr(desc, 'cython_img2d_color_' + stat)(img, labels)
+        np.testing.assert_allclose(
+            got, twins[stat], rtol=DESC_RTOL, err_msg=stat,
+            atol=DESC_STD_ATOL if stat == 'std' else DESC_ATOL)
+    print('descriptor API on the card\'s SLIC labels, K = %d, %d features: '
+          'against the numpy twins within %s (rtol %g + atol %g, the std '
+          'atol %g), median equal to the port\'s CPU run, cython_* mean / '
+          'std / energy within the same bars'
+          % (feats.shape[0], len(names), json.dumps(
+              {k: float('%.3g' % v) for k, v in errs.items()}), DESC_RTOL,
+              DESC_ATOL, DESC_STD_ATOL), flush=True)
+
+
+def check_colour_inverses(torch):
+    """Each inverse at 884x1200 on the card against the port's CPU run on
+    the same input, and the round trip sRGB -> space -> sRGB."""
+    from pyimsegm_tpu_torch.ops import color
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    rgb = torch.as_tensor(sample_color_image_rand_segment(CROP, 3,
+                                                          rand_seed=0)[0],
+                          device=DEVICE)
+    errs = {}
+    for space in INVERSE_SPACES:
+        src = color.convert_img_color_from_rgb(rgb, space)
+        back = color.convert_img_color_to_rgb(src, space)
+        cpu = color.convert_img_color_to_rgb(src.cpu(), space)
+        err = float((back.cpu() - cpu).abs().max())
+        trip = float((back - rgb).abs().max())
+        errs[space] = (err, trip)
+        if not (err <= 1e-5 and trip <= 1e-4):
+            raise AssertionError('%s inverse: %g from the CPU run, round trip '
+                                 '%g' % (space, err, trip))
+    print('colour inverses at 884x1200 on the card: (max |card - CPU|, max '
+          'round-trip error) %s (<= 1e-5, <= 1e-4)' % json.dumps(
+              {k: ['%.3g' % e for e in v] for k, v in errs.items()}),
+          flush=True)
+
+
+def check_annotation(torch, segm, fixture):
+    """The nearest-colour quantisation of the perturbed annotation on the
+    card, exactly JAX-CPU's indices."""
+    from pyimsegm_tpu_torch import annotation
+    palette = list(annotation.DICT_COLOURS.values())
+    img = annotation_image(segm)
+    want = fixture['quant'].astype(np.int64)
+    idx = annotation.image_color_2_labels(torch.as_tensor(img, device=DEVICE),
+                                          palette)
+    quant = annotation.quantize_image_nearest_color(img, palette,
+                                                    device=DEVICE)
+    if not (np.array_equal(idx, want)
+            and np.array_equal(quant, np.asarray(palette, np.uint8)[want])):
+        raise AssertionError('quantisation: %d indices differ from JAX\'s'
+                             % int((idx != want).sum()))
+    print('annotation quantisation 647x1024 (%.4f of the pixels perturbed): '
+          'indices equal to JAX-CPU\'s, %d pixels off their class colour'
+          % (ANNOT_PERTURB, int((want != segm).sum())), flush=True)
+
+
+def check_labeling(torch, segm, slic, snake_labels):
+    """The label-map functions on the card's outputs (as tensors on the
+    card) exactly equal to the same host calls on their numpy copies."""
+    from pyimsegm_tpu_torch import labeling
+    card = torch.as_tensor(slic, device=DEVICE)
+    calls = {
+        'compute_boundary_distances': lambda s: labeling.
+        compute_boundary_distances(segm, s),
+        'assume_bg_on_boundary': labeling.assume_bg_on_boundary,
+        'relabel_max_overlap_merge': lambda s: labeling.
+        relabel_max_overlap_merge(segm, s),
+    }
+    for name, call in calls.items():
+        for labels in [slic] + list(snake_labels.values()):
+            got = call(torch.as_tensor(labels, device=DEVICE))
+            want = call(np.asarray(labels))
+            for g, w in zip(got if isinstance(got, tuple) else (got,),
+                            want if isinstance(want, tuple) else (want,)):
+                np.testing.assert_array_equal(g, w, err_msg=name)
+    points, dist = labeling.compute_boundary_distances(segm, card)
+    print('labeling on the card\'s SLIC and snake labels: %s exact; %d '
+          'class-boundary pixels, mean distance to a superpixel boundary '
+          '%.4f px' % (sorted(calls), len(points), float(dist.mean())),
+          flush=True)
+
+
+def path_rest(torch, scene, fixture):
+    """Phase 14: the ovary zoo's SLIC on the card (rows 1, 2, 4, 7, 9, 10
+    and 12), its snakes, the descriptor API, colour inverses, annotation
+    quantisation and label-map functions; returns the SLIC's launches."""
+    from pyimsegm_tpu_torch import superpixels
+    img, segm, _ = scene
+    slic, launches = _drive('ovary zoo SLIC', PATH_SLIC_ENFORCED,
+                            lambda: superpixels.segment_slic_img2d(
+                                img, sp_size=REST_SP,
+                                relative_compact=REST_REGUL, device=DEVICE))
+    equal = float((slic == fixture['slic']).mean())
+    print('ovary zoo SLIC 647x1024 at sp_size %d, regul %g: K = %d, labels '
+          'equal to JAX-CPU\'s %.6f (>= 0.999)'
+          % (REST_SP, REST_REGUL, int(slic.max()) + 1, equal), flush=True)
+    if equal < 0.999:
+        raise AssertionError('the zoo SLIC disagrees with JAX')
+    snake_labels = path_snakes(torch, scene, fixture)
+    check_descriptor_api(torch, img, slic)
+    check_colour_inverses(torch)
+    check_annotation(torch, segm, fixture)
+    check_labeling(torch, segm, slic, snake_labels)
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3326,7 +3598,7 @@ def main():
     fixtures = []
     for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
                  FIXTURE_NOISE, FIXTURE_CLF, FIXTURE_3D_TLM, FIXTURE_CENTERS,
-                 FIXTURE_RG2SP):
+                 FIXTURE_RG2SP, FIXTURE_REST):
         with np.load(path) as npz:
             fixtures.append({k: npz[k] for k in npz.files})
     pairs = [sample_color_image_rand_segment(CROP, 3, rand_seed=s)
@@ -3387,7 +3659,8 @@ def main():
                      path_rg2sp_fitted(torch, scenes[-1], fixtures[9]),
                      path_object_graphcuts(torch, scenes[-1], fixtures[9],
                                            rg_slic),
-                     path_compat(torch, scenes[-1], fixtures[9]))
+                     path_compat(torch, scenes[-1], fixtures[9]),
+                     path_rest(torch, scenes[-1], fixtures[10]))
     for rec in records:
         name = rec['name']
         rec['launches'] = (
@@ -3401,7 +3674,8 @@ def main():
             rec['launches'] += sum(p[name] for p in centre_paths)
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
-         for m in ('scipy', 'pandas')}), flush=True)
+         for m in ('scipy', 'pandas', 'PIL', 'matplotlib', 'yaml')}),
+        flush=True)
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -41,6 +41,8 @@ from pyimsegm_tpu_torch.utils.metrics import compute_classif_metrics
 
 #: default classifier
 DEFAULT_CLASSIF_NAME = 'RandForest'
+#: default clustering of the unsupervised pipelines
+DEFAULT_CLUSTERING = 'GMM'
 #: file name pattern of saved classifiers
 TEMPLATE_NAME_CLF = 'classifier_{}.pkl'
 #: every classifier name

@@ -17,6 +17,7 @@ import torch
 from pyimsegm_tpu_torch.ops import color as color_ops
 from pyimsegm_tpu_torch.ops import filters as filter_ops
 from pyimsegm_tpu_torch.ops import segment_stats
+from pyimsegm_tpu_torch.utils.device import as_tensor
 
 #: statistic flags in canonical order
 NAMES_FEATURE_FLAGS = segment_stats.NAMES_FEATURE_FLAGS
@@ -417,6 +418,277 @@ def compute_label_hist_proba(segm, position, struc_elem):
     return hist, int(np.sum(struc_elem))
 
 
+def norm_features(features, scaler=None):
+    """Standard-score normalisation with a reusable (mean, std) scaler."""
+    features = np.asarray(features, float)
+    if scaler is None:
+        scaler = (features.mean(axis=0), features.std(axis=0) + 1e-12)
+    mu, sd = scaler
+    return (features - mu) / sd, scaler
+
+
+# ------------------- per-statistic twins (host reference + device) ---------
+# The reference exposes numpy_* / cython_* implementation pairs: here the
+# numpy_* twins are host numpy and the cython_* ones the device segment
+# reduction of ``ops/segment_stats`` on ``device``.
+
+def _label_counts(seg, nb_lbs):
+    counts = np.bincount(np.asarray(seg).ravel(),
+                         minlength=nb_lbs).astype(float)
+    counts[counts == 0] = -1   # empty segments: 0 / -1 = 0
+    return counts
+
+
+def numpy_img2d_color_mean(img, seg):
+    """Per-segment channel means, host numpy.
+
+    >>> img = np.array([[[1., 0., 0.]] * 3 + [[0., 1., 0.]] * 3] * 2)
+    >>> seg = np.array([[0] * 3 + [1] * 3] * 2)
+    >>> numpy_img2d_color_mean(img, seg)
+    array([[1., 0., 0.],
+           [0., 1., 0.]])
+    """
+    img, seg = np.asarray(img, float), np.asarray(seg)
+    nb = int(seg.max()) + 1
+    counts = _label_counts(seg, nb)
+    sums = np.stack([np.bincount(seg.ravel(), weights=img[..., c].ravel(),
+                                 minlength=nb)
+                     for c in range(img.shape[-1])], 1)
+    return sums / counts[:, None]
+
+
+def numpy_img2d_color_energy(img, seg):
+    """Per-segment channel mean of squares."""
+    img = np.asarray(img, float)
+    return numpy_img2d_color_mean(img ** 2, seg)
+
+
+def numpy_img2d_color_std(img, seg, means=None):
+    """Per-segment channel standard deviation (population)."""
+    if means is None:
+        means = numpy_img2d_color_mean(img, seg)
+    energy = numpy_img2d_color_energy(img, seg)
+    return np.sqrt(np.maximum(energy - np.asarray(means) ** 2, 0.0))
+
+
+def numpy_img2d_color_median(img, seg):
+    """Per-segment channel median."""
+    img, seg = np.asarray(img, float), np.asarray(seg)
+    nb = int(seg.max()) + 1
+    flat_seg = seg.ravel()
+    flat = img.reshape(-1, img.shape[-1])
+    out = np.zeros((nb, img.shape[-1]))
+    for lb in range(nb):
+        sel = flat[flat_seg == lb]
+        if len(sel):
+            out[lb] = np.median(sel, axis=0)
+    return out
+
+
+def numpy_img3d_gray_mean(img, seg):
+    """Per-segment means over a gray volume."""
+    img, seg = np.asarray(img, float), np.asarray(seg)
+    nb = int(seg.max()) + 1
+    counts = _label_counts(seg, nb)
+    sums = np.bincount(seg.ravel(), weights=img.ravel(), minlength=nb)
+    return sums / counts
+
+
+def numpy_img3d_gray_energy(img, seg):
+    """Per-segment mean of squares over a gray volume."""
+    return numpy_img3d_gray_mean(np.asarray(img, float) ** 2, seg)
+
+
+def numpy_img3d_gray_std(img, seg, means=None):
+    """Per-segment standard deviation over a gray volume."""
+    if means is None:
+        means = numpy_img3d_gray_mean(img, seg)
+    energy = numpy_img3d_gray_energy(img, seg)
+    return np.sqrt(np.maximum(energy - np.asarray(means) ** 2, 0.0))
+
+
+def numpy_img3d_gray_median(img, seg):
+    """Per-segment median over a gray volume."""
+    img, seg = np.asarray(img, float), np.asarray(seg)
+    nb = int(seg.max()) + 1
+    out = np.zeros(nb)
+    flat_seg, flat = seg.ravel(), img.ravel()
+    for lb in range(nb):
+        sel = flat[flat_seg == lb]
+        if len(sel):
+            out[lb] = np.median(sel)
+    return out
+
+
+def _segment_ids(seg, device):
+    """(flat int64 labels on ``device`` (or the tensor's), segment count)."""
+    ids = as_tensor(seg, device).reshape(-1).to(torch.int64)
+    return ids, int(ids.max()) + 1
+
+
+def _device_stat(img, seg, stat, channels, device):
+    ids, nb = _segment_ids(seg, device)
+    flat = as_tensor(img, ids.device, torch.float32).to(ids.device).reshape(
+        -1, channels)
+    res = segment_stats.segment_mean_std_energy(flat, ids, nb, flags=(stat,))
+    return np.asarray(torch.nan_to_num(res[stat]).cpu().numpy(), float)
+
+
+def cython_img2d_color_mean(img, seg, device='cuda'):
+    """Device twin of :func:`numpy_img2d_color_mean`."""
+    return _device_stat(img, seg, 'mean', np.shape(img)[-1], device)
+
+
+def cython_img2d_color_energy(img, seg, device='cuda'):
+    """Device twin of :func:`numpy_img2d_color_energy`."""
+    return _device_stat(img, seg, 'energy', np.shape(img)[-1], device)
+
+
+def cython_img2d_color_std(img, seg, means=None, device='cuda'):
+    """Device twin of :func:`numpy_img2d_color_std`; ``means`` is taken
+    for the signature and not used (the reduction has its own)."""
+    return _device_stat(img, seg, 'std', np.shape(img)[-1], device)
+
+
+def cython_img3d_gray_mean(img, seg, device='cuda'):
+    """Device twin of :func:`numpy_img3d_gray_mean`."""
+    return _device_stat(img, seg, 'mean', 1, device)[:, 0]
+
+
+def cython_img3d_gray_energy(img, seg, device='cuda'):
+    """Device twin of :func:`numpy_img3d_gray_energy`."""
+    return _device_stat(img, seg, 'energy', 1, device)[:, 0]
+
+
+def cython_img3d_gray_std(img, seg, mean=None, device='cuda'):
+    """Device twin of :func:`numpy_img3d_gray_std` (``mean`` unused)."""
+    return _device_stat(img, seg, 'std', 1, device)[:, 0]
+
+
+def cython_label_hist_seg2d(segm_select, struc_elem, nb_labels):
+    """Label histogram of a pre-cropped window under a binary element.
+
+    >>> segm = np.zeros((10, 10), dtype=int)
+    >>> segm[1:9, 2:8] = 1
+    >>> cython_label_hist_seg2d(segm[5:8, 5:8], np.ones((3, 3)), 2)
+    array([0., 9.])
+    """
+    segm_select = np.asarray(segm_select)
+    struc_elem = np.asarray(struc_elem)
+    if segm_select.shape != struc_elem.shape:
+        raise ValueError('segm %r and element %r should match'
+                         % (segm_select.shape, struc_elem.shape))
+    sel = segm_select[struc_elem == 1]
+    return np.bincount(sel.ravel(),
+                       minlength=nb_labels).astype(float)[:nb_labels]
+
+
+# -------------------------------------------- statistic dispatchers --------
+
+def _canonical_flags(feature_flags):
+    return tuple(f for f in NAMES_FEATURE_FLAGS if f in tuple(feature_flags))
+
+
+def compute_image2d_color_statistic(image, segm,
+                                    feature_flags=NAMES_FEATURE_FLAGS,
+                                    color_name='color', device='cuda'):
+    """Per-segment statistics of a colour 2D image over its 2D label map,
+    on ``device``.
+
+    :returns: ((nb_segments, F) numpy features, list of F names)
+    """
+    ids, nb = _segment_ids(segm, device)
+    flags = _canonical_flags(feature_flags)
+    image = as_tensor(image, ids.device, torch.float32).to(ids.device)
+    feats = segment_stats.compute_channel_statistics(image, ids, nb, flags)
+    ch = ['%s-ch%i' % (color_name, i + 1) for i in range(image.shape[-1])]
+    return (torch.nan_to_num(feats).cpu().numpy(),
+            segment_stats.statistic_names(ch, flags))
+
+
+def compute_image3d_gray_statistic(image, segm,
+                                   feature_flags=NAMES_FEATURE_FLAGS,
+                                   ch_name='gray', device='cuda'):
+    """Per-segment statistics of a gray 3D volume, on ``device``.
+
+    :returns: ((nb_segments, F) numpy features, list of F names)
+    """
+    ids, nb = _segment_ids(segm, device)
+    flags = _canonical_flags(feature_flags)
+    volume = as_tensor(image, ids.device, torch.float32).to(ids.device)
+    feats = _gray3d_statistics(volume, ids, nb, flags)
+    return (torch.nan_to_num(feats).cpu().numpy(),
+            ['%s_%s' % (ch_name, f) for f in flags])
+
+
+def compute_texture_desc_lm_img2d_clr(img, seg, feature_flags,
+                                      bank_type='normal', device='cuda'):
+    """LM texture statistics of a colour image, on ``device``."""
+    ids, nb = _segment_ids(seg, device)
+    image = as_tensor(img, ids.device, torch.float32).to(ids.device)
+    feats, names = _texture_features_color2d(
+        image, ids, nb, _canonical_flags(feature_flags), bank_type)
+    return torch.nan_to_num(feats).cpu().numpy(), names
+
+
+def compute_texture_desc_lm_img3d_val(img, seg, feature_flags,
+                                      bank_type='normal', device='cuda'):
+    """LM texture statistics of a gray volume, on ``device``: per-z-slice
+    bank responses reduced per 3D segment."""
+    ids, nb = _segment_ids(seg, device)
+    volume = as_tensor(img, ids.device, torch.float32).to(ids.device)
+    feats, names = _texture_features_gray3d(
+        volume, ids, nb, _canonical_flags(feature_flags), bank_type)
+    return torch.nan_to_num(feats).cpu().numpy(), names
+
+
+# ------------------------------------------------ filter-bank helpers ------
+
+def make_gaussian_filter1d(vals, sigma, order=0):
+    """1D (derivative-of-)Gaussian response, L1-normalised."""
+    if order > 2:
+        raise ValueError('only orders up to 2 are supported')
+    return filter_ops._gaussian_1d(np.asarray(vals, float), sigma, order)
+
+
+def make_edge_filter2d(sig, phase, points, sup):
+    """Oriented edge / bar filter from sampled points."""
+    return filter_ops._edge_filter_2d(sig, phase, np.asarray(points, float),
+                                      sup)
+
+
+def compute_img_filter_response2d(img, filter_battery):
+    """Response of one filter battery, the maximum over its oriented
+    filters, on the host (the pipelines take
+    :func:`pyimsegm_tpu_torch.ops.filters.filter_bank_raw`)."""
+    from scipy import ndimage
+    battery = np.asarray(filter_battery, float)
+    if battery.ndim == 2:
+        battery = battery[None]
+    img = np.asarray(img, float)
+    resp = np.stack([ndimage.convolve(img, k) for k in battery])
+    resp = resp[0] if len(resp) == 1 else resp.max(axis=0)
+    return np.clip(resp, -filter_ops.MAX_SIGNAL_RESPONSE,
+                   filter_ops.MAX_SIGNAL_RESPONSE)
+
+
+def compute_img_filter_response3d(img, filter_battery):
+    """Battery response of each z-slice of a volume."""
+    img = np.asarray(img, float)
+    return np.stack([compute_img_filter_response2d(img[z], filter_battery)
+                     for z in range(img.shape[0])])
+
+
+def image_subtract_gauss_smooth(img, sigma):
+    """Subtract a per-slice Gaussian background, z-slices independent."""
+    from scipy.ndimage import gaussian_filter
+    img = np.asarray(img, float)
+    if sigma <= 0:
+        return img
+    return img - np.stack([gaussian_filter(img[z], sigma)
+                           for z in range(img.shape[0])])
+
+
 # ------------------------------------------------------- ray twins ---------
 
 def numpy_ray_features_seg2d(seg_binary, position, angle_step=5., edge='up'):
@@ -492,4 +764,7 @@ from pyimsegm_tpu_torch.ops.ray import (  # noqa: E402,F401
     reconstruct_ray_features_2d,
     reduce_close_points,
     shift_ray_features,
+)
+from pyimsegm_tpu_torch.ops.filters import (  # noqa: E402,F401
+    create_filter_bank_lm_2d,
 )

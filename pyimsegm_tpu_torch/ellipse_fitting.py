@@ -14,7 +14,8 @@ gives the reference's trials.
 import numpy as np
 import torch
 
-from pyimsegm_tpu_torch.ops.ray import (
+from pyimsegm_tpu_torch.ops.ray import (  # noqa: F401
+    compute_ray_features_segm_2d,
     ray_features_positions_core,
     reconstruct_ray_features_2d,
     reduce_close_points,

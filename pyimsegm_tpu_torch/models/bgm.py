@@ -13,8 +13,8 @@ restart is NaN, the fit runs again from the same seeds in float64, as
 
 import torch
 
-from pyimsegm_tpu_torch.models.gmm import (
-    GMMParams, _cholesky, _select, _sq_dist, gmm_score,
+from pyimsegm_tpu_torch.models.gmm import (  # noqa: F401
+    GMMParams, _cholesky, _select, _sq_dist, full_precision, gmm_score,
     kmeans_plus_plus_init)
 
 _LOG2 = 0.6931471805599453

@@ -21,11 +21,35 @@ not bit for bit.
 Samples carry a weight, so empty superpixel slots do not move the fit.
 """
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 _LOG2PI = 1.8378770664093453
+
+
+def full_precision(fn):
+    """Run the wrapped function with full-f32 matmuls and convolutions: TF32
+    off for both and ``float32_matmul_precision('highest')``, the caller's
+    settings restored afterwards.  The package already switches TF32 off at
+    import; this keeps a fit exact where a caller turned it back on."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        saved = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32,
+                 torch.get_float32_matmul_precision())
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.set_float32_matmul_precision('highest')
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            # the precision first: setting it also sets matmul.allow_tf32
+            torch.set_float32_matmul_precision(saved[2])
+            torch.backends.cuda.matmul.allow_tf32 = saved[0]
+            torch.backends.cudnn.allow_tf32 = saved[1]
+    return wrapped
 
 
 class GMMParams(NamedTuple):

@@ -9,7 +9,10 @@ follow the reference, cropped element sizes at the border included.
 
 import torch
 
-from pyimsegm_tpu_torch.ops.morphology import disk_count_maps
+from pyimsegm_tpu_torch.ops.morphology import (  # noqa: F401
+    disk_count_map,
+    disk_count_maps,
+)
 from pyimsegm_tpu_torch.utils.device import as_tensor
 
 #: concentric annuli radii (the reference calls them circle "diameters";

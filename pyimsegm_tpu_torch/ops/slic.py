@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pyimsegm_tpu_torch.ops.color import rgb2lab  # noqa: F401
 from pyimsegm_tpu_torch.utils.device import as_tensor
 
 #: iterations of the reference SLIC (skimage ``max_num_iter=10``)

@@ -1,7 +1,66 @@
-"""Synthetic sample images and volumes (numpy only; port of the generators
-in ``pyimsegm_tpu.utils.data_samples``)."""
+"""Sample images: the bundled microscopy samples, read from a
+``data-images`` folder when it is there, and synthetic images and volumes
+(numpy only; port of ``pyimsegm_tpu.utils.data_samples``)."""
+
+import os
 
 import numpy as np
+
+#: root of the sample images: ``PYIMSEGM_DATA_PATH``, else the
+#: ``data-images`` folder beside the package
+PATH_DATA_IMAGES = os.environ.get(
+    'PYIMSEGM_DATA_PATH',
+    os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), 'data-images'))
+
+IMAGE_DROSOPHILA_OVARY_2D = os.path.join(
+    PATH_DATA_IMAGES, 'drosophila_ovary_slice', 'image', 'insitu7545.jpg')
+ANNOT_DROSOPHILA_OVARY_2D = os.path.join(
+    PATH_DATA_IMAGES, 'drosophila_ovary_slice', 'segm', 'insitu7545.png')
+IMAGE_DROSOPHILA_DISC = os.path.join(
+    PATH_DATA_IMAGES, 'drosophila_disc', 'image', 'img_6.jpg')
+IMAGE_LANGER_ISLET = os.path.join(
+    PATH_DATA_IMAGES, 'langerhans_islets', 'image', 'gtExoIsl_21.jpg')
+IMAGE_HISTOL_CIMA = os.path.join(
+    PATH_DATA_IMAGES, 'histology_CIMA', '29-041-Izd2-w35-CD31-3-les1.jpg')
+IMAGE_STAR = os.path.join(PATH_DATA_IMAGES, 'others', 'sea_starfish-2.jpg')
+IMAGE_LENNA = os.path.join(PATH_DATA_IMAGES, 'others', 'lena.png')
+
+
+def has_sample_data():
+    """True when the ovary sample image is there."""
+    return os.path.isfile(IMAGE_DROSOPHILA_OVARY_2D)
+
+
+def _read(path):
+    from pyimsegm_tpu_torch.utils.data_io import io_imread
+    if not os.path.isfile(path):
+        raise FileNotFoundError('missing sample image: %s' % path)
+    return io_imread(path)
+
+
+def load_sample_image(path=IMAGE_DROSOPHILA_OVARY_2D):
+    """A sample image; uint8 images as float32 in [0, 1]."""
+    img = _read(path)
+    if img.dtype == np.uint8:
+        img = img.astype(np.float32) / 255.0
+    return img
+
+
+def load_sample_labels(path=ANNOT_DROSOPHILA_OVARY_2D):
+    """An annotation as an int32 label map, its gray levels made dense
+    (0..C-1)."""
+    annot = _read(path)
+    if annot.ndim == 3:
+        annot = annot[..., 0]
+    _, dense = np.unique(annot, return_inverse=True)
+    return dense.reshape(annot.shape).astype(np.int32)
+
+
+def get_image_path(name_img, path_base=PATH_DATA_IMAGES):
+    """``name_img`` anchored to the sample folder (an absolute path stays)."""
+    return name_img if os.path.isabs(name_img) \
+        else os.path.join(path_base, name_img)
 
 #: gray level of each class of :func:`sample_gray_volume_3d`: three strips
 #: per z-level, two z-levels, so six piecewise-constant levels in two groups

@@ -18,6 +18,13 @@ def as_tensor(x, device='cuda', dtype=None):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
+def host_array(x):
+    """``x`` as a numpy array: a tensor is copied from its device."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 #: prefix of the stage ranges that ``tools/profile_torch_port.py`` reads
 STAGE_PREFIX = 'pyimsegm:'
 

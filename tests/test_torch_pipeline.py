@@ -520,8 +520,9 @@ _IMPORT_CHECK = """
 import sys
 sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
+sys.modules['PIL'] = None
 import pyimsegm_tpu_torch
-from pyimsegm_tpu_torch import (_build, centers, classification,
+from pyimsegm_tpu_torch import (_build, annotation, centers, classification,
                                 descriptors, ellipse_fitting, graph_cuts,
                                 labeling, pipelines, region_growing,
                                 superpixels)
@@ -533,9 +534,11 @@ from pyimsegm_tpu_torch.ops import (color, connectivity_cuda,
                                     graph, graphcut, grid, grid_cuda,
                                     histogram, morphology, prep_cuda, ray,
                                     segment_stats, shape_prior, slic, slic3d,
-                                    slic3d_cuda, slic_cuda)
+                                    slic3d_cuda, slic_cuda, snakes)
 from pyimsegm_tpu_torch.parallel import batch
-from pyimsegm_tpu_torch.utils import data_samples, device, metrics
+from pyimsegm_tpu_torch.utils import (ImageDimensionError, data_io,
+                                      data_samples, device, metrics, nifti,
+                                      profiling, read_zvi)
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32

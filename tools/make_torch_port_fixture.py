@@ -92,11 +92,20 @@ Run on the CPU (a few minutes; ``--only-3d`` writes the 3D file alone,
 ``--only-sup`` the supervised one, ``--only-noise`` the noise one,
 ``--only-clf`` the classifier one, ``--only-3d-tlm`` the 3D texture one,
 ``--only-centers`` the centre-detection one, ~10 min, ``--only-rg2sp`` the
-region-growing one, ~5 min)::
+region-growing one, ~5 min, ``--only-rest`` the one of the ovary zoo's
+snakes)::
 
     JAX_PLATFORMS=cpu python tools/make_torch_port_fixture.py \
         [--only-3d | --only-sup | --only-noise | --only-clf | --only-3d-tlm
-         | --only-centers | --only-rg2sp]
+         | --only-centers | --only-rg2sp | --only-rest]
+
+``torch_port_fixture_rest.npz`` holds JAX's outputs of ``chip_smoke.py``
+phase 14 on the test ovary scene (its inputs are rebuilt from their
+seeds by ``chip_smoke.py``'s helpers): the ovary zoo's SLIC at sp_size 40,
+regul 0.3 (``slic``, int16), the label maps of its ``morph-snakes_img``
+and ``morph-snakes_seg`` methods (``morph_snakes_img``,
+``morph_snakes_seg``, uint8) and the nearest-colour indices of the
+perturbed annotation (``quant``, uint8).
 
 ``torch_port_fixture_rg2sp.npz`` holds BASELINE config 5 on the synthetic
 ovary scenes at 647x1024: the shape model JAX fits on the egg masks of the
@@ -130,6 +139,7 @@ OUT_3D_TLM = os.path.join(ROOT, 'tests', 'data',
 OUT_CENTERS = os.path.join(ROOT, 'tests', 'data',
                            'torch_port_fixture_centers.npz')
 OUT_RG2SP = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_rg2sp.npz')
+OUT_REST = os.path.join(ROOT, 'tests', 'data', 'torch_port_fixture_rest.npz')
 CROP = (884, 1200)
 SP_SIZE, SP_REGUL, GC_REGUL, NB_CLASSES = 35, 0.2, 2.0, 3
 FEATURES = {'color': ['mean', 'std', 'energy']}
@@ -209,6 +219,9 @@ def main():
     if '--only-rg2sp' in sys.argv[1:]:
         _save(OUT_RG2SP, _rg2sp_outputs(pipelines))
         return
+    if '--only-rest' in sys.argv[1:]:
+        _save(OUT_REST, _rest_outputs())
+        return
     if '--only-clf' in sys.argv[1:]:
         _save(OUT_CLF, _clf_outputs(pipelines))
         return
@@ -251,6 +264,38 @@ def main():
                                       features=FEATURES_3D_TLM))
     _save(OUT_CENTERS, _centers_outputs())
     _save(OUT_RG2SP, _rg2sp_outputs(pipelines))
+    _save(OUT_REST, _rest_outputs())
+
+
+def _rest_outputs():
+    """JAX's SLIC, snakes and quantisation of ``chip_smoke.py`` phase 14,
+    the inputs from ``chip_smoke.py``'s own helpers."""
+    import chip_smoke
+    from apps.run_ovary_egg_segmentation import segment_morphsnakes
+    from pyimsegm_tpu import annotation
+    from pyimsegm_tpu.ops import snakes
+    from pyimsegm_tpu.ops.slic import segment_slic_img2d
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    img, segm, centres = sample_ovary_scene(OVARY, N_EGGS,
+                                            rand_seed=chip_smoke.REST_SEED)
+    out = {'slic': np.asarray(segment_slic_img2d(
+        img, sp_size=chip_smoke.REST_SP,
+        relative_compact=chip_smoke.REST_REGUL)).astype(np.int16)}
+    for method in chip_smoke.SNAKES:
+        image, masks, n_iter, smoothing, lambdas = chip_smoke.snake_call(
+            method, img, segm, centres)
+        labels = np.asarray(snakes.morph_acwe_multi(
+            image, masks, n_iter=n_iter, smoothing=smoothing,
+            lambda1=lambdas[0], lambda2=lambdas[1]))
+        if method == 'morph-snakes_img':
+            # the app's own entry point gives the same map
+            np.testing.assert_array_equal(
+                labels, segment_morphsnakes(img, centres))
+        out[method.replace('-', '_')] = labels.astype(np.uint8)
+    out['quant'] = np.asarray(annotation.image_color_2_labels(
+        chip_smoke.annotation_image(segm),
+        list(annotation.DICT_COLOURS.values()))).astype(np.uint8)
+    return out
 
 
 def _group_model(pipelines):
