@@ -218,7 +218,31 @@ Phases (any failure raises and exits non-zero):
    idle share per call), the descriptor API on the card's labels against
    the numpy twins, the five colour inverses at 884x1200 against the CPU
    run and the round trip, the annotation quantisation (exactly JAX's
-   indices) and the label-map functions on the card's outputs (exact).
+   indices) and the label-map functions on the card's outputs (exact);
+15. the experiment apps (``pyimsegm_tpu_torch.apps``, ``path_apps``) on
+   files written into a temporary folder under ``build/``, each app driven
+   with the launch counts set to 0 and required to launch every kernel its
+   library calls launched (printed per app), and to have caught no image
+   or method in its catch (its log): ``run_segm_slic_model_graphcut`` on
+   three 884x1200 ``sample_color_image_rand_segment`` images at the bench
+   parameters, single and group GMM (each map equal to the library call on
+   the same loaded image, soft maps within ``APPS_SOFT_ATOL``, the pickled
+   model reloads), ``run_segm_slic_classif_graphcut`` (a forest, one
+   candidate, LPO; the images in image 0's class colours; exported maps
+   equal to the saved classifier's library calls, LPO accuracy above
+   ``APPS_LPO_BAR``), ``run_eval_superpixels`` (equal to the library), warm
+   ms per image of each app beside its library calls'; on three 647x1024
+   ovary slices the centre chain (training with one candidate and
+   leave-one-out, prediction, clustering, evaluation; centres equal to the
+   library detection with the saved forest), ``run_RG2Sp_estim_shape_models``
+   on config 5's eggs and ``run_ovary_egg_segmentation`` with each of
+   ``APPS_ZOO`` (each map equal to the method's library call); the host
+   apps run with the card and on the CPU (equal files); ``utils/drawing``
+   (array functions, the ``jet`` / ``Greens`` tables by ``COLORMAP_SHA256``,
+   ``insert_gc_debug_images``' arrays from the card equal to the CPU call's,
+   each figure function drawn where matplotlib is installed, else raising
+   ``ImportError`` naming it); a ``StageTimer(device='cuda')`` stage around
+   an app call against CUDA events (share >= ``APPS_TIMER_SHARE``).
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -3308,14 +3332,14 @@ def path_compat(torch, scene, fixture):
     return launches
 
 
-#: phase 14, the ovary zoo after its SLIC (apps/run_ovary_egg_segmentation.py):
-#: the zoo's slic_size and slic_regul, the snakes' circle radius and
-#: iteration cap, and (smoothing, lambdas) of its two morph-snakes methods
+#: phase 14, the ovary zoo after its SLIC (the port's
+#: apps/run_ovary_egg_segmentation.py): the zoo's slic_size and slic_regul,
+#: the snakes' iteration cap and the zoo's two morph-snakes methods
 FIXTURE_REST = os.path.join(ROOT, 'tests', 'data',
                             'torch_port_fixture_rest.npz')
 REST_SP, REST_REGUL, REST_SEED = 40, 0.3, CENTER_TEST_SEED
-SNAKE_RADIUS, SNAKE_MAX_ITER = 15, 300
-SNAKES = {'morph-snakes_img': (5, (3., 3.)), 'morph-snakes_seg': (3, (2., 1.))}
+SNAKE_MAX_ITER = 300
+SNAKES = ('morph-snakes_img', 'morph-snakes_seg')
 #: bars of a snake label map against JAX's: equal pixels, each object's IoU
 SNAKE_BAR, SNAKE_IOU_BAR = 0.999, 0.99
 #: the iterations of the snakes' CPU run, held against the card's run cut
@@ -3331,34 +3355,23 @@ INVERSE_SPACES = ('xyz', 'lab', 'luv', 'hsv', 'hed')
 DESC_RTOL, DESC_ATOL, DESC_STD_ATOL = 1e-5, 1e-6, 2e-4
 
 
-def simplify_segm_3cls(seg, lut=(0., 0.8, 1.), smooth=True):
-    """The ovary zoo's collapse of a class map into 3 smoothed intensity
-    levels with the holes filled (a copy of the app's, host scipy)."""
-    from scipy import ndimage
-    seg = np.asarray(seg)
-    segm = seg.copy()
-    segm[seg > 1] = 2
-    if np.sum(seg > 0) > 0:
-        filled = ndimage.binary_fill_holes(seg > 0)
-        segm[np.logical_and(seg == 0, filled)] = 2
-    segm = np.array(lut)[segm]
-    if smooth:
-        segm = ndimage.gaussian_filter(segm, 5)
-    return segm
-
-
 def snake_call(method, img, segm, centres):
-    """(image (H, W), circle masks, n_iter, smoothing, lambdas) of one of
-    the zoo's morph-snakes methods, as it calls them."""
-    from pyimsegm_tpu_torch.ops.snakes import circle_masks
-    smoothing, lambdas = SNAKES[method]
-    image = simplify_segm_3cls(segm) if method == 'morph-snakes_seg' else img
-    image = np.asarray(image, float)
-    if image.ndim == 3:
-        image = image[:, :, 0]
-    n_iter = min(int(np.hypot(*image.shape) / 2.0), SNAKE_MAX_ITER)
-    return (image, circle_masks(image.shape, centres, radius=SNAKE_RADIUS),
-            n_iter, smoothing, lambdas)
+    """(image (H, W), initial level sets, n_iter, smoothing, lambdas) of one
+    of the zoo's morph-snakes methods: its arguments as the port's app
+    registers them (``create_dict_segmentation``), its inputs as the app
+    builds them (``morphsnakes_inputs``), at most ``SNAKE_MAX_ITER`` steps."""
+    import inspect
+    from pyimsegm_tpu_torch.apps import run_ovary_egg_segmentation as zoo
+    fn, args = zoo.create_dict_segmentation(
+        dict(zoo.SEGM_PARAMS, methods=[method]), None, segm, img,
+        centres)[method]
+    call = inspect.signature(fn).bind(*args)
+    call.apply_defaults()
+    a = call.arguments
+    image, masks, n_iter = zoo.morphsnakes_inputs(
+        a['img'], a['centres'], a['init_center'], a['bb_dist'],
+        min(a['max_iter'], SNAKE_MAX_ITER))
+    return image, masks, n_iter, a['smoothing'], tuple(a['lambdas'])
 
 
 def annotation_image(segm, seed=ANNOT_SEED, perturb=ANNOT_PERTURB):
@@ -3568,6 +3581,793 @@ def path_rest(torch, scene, fixture):
     return launches
 
 
+#: phase 15, the experiment apps on the card (``pyimsegm_tpu_torch.apps``):
+#: the segmentation apps on three 884x1200 colour images at the bench
+#: parameters, the ovary apps on three 647x1024 slices (the shape models
+#: from the eggs of config 5's six training scenes, 15 rays), the zoo's
+#: methods held against their library calls, one at a time
+APPS_SEEDS, APPS_OVARY_SEEDS = (0, 1, 2), (0, 1, 2)
+APPS_ZOO = ('ellipse_ransac_crit', 'GC_slic-shape', 'RG2SP_GC-mixture',
+            'RG2SP_greedy-mixture', 'watershed_morph', 'morph-snakes_img')
+APPS_LPO_BAR, APPS_SOFT_ATOL, APPS_TIMER_SHARE = 0.9, 1e-6, 0.9
+#: sha256 of the port's 256-entry ``jet`` and ``Greens`` tables (float64
+#: bytes), held equal to matplotlib's by ``tests/test_torch_drawing.py``
+COLORMAP_SHA256 = {
+    'jet': '3189c55ffecbf9194b13c8906085b543581e8278c906a0069eca3d955f9dadc4',
+    'Greens': 'd920d8f1eb72ab9fdf819155500e46755d37ffa6e4b775e4560478803726c21a',
+}
+#: the figure functions of ``utils/drawing`` (matplotlib only)
+FIGURE_FUNCS = ('figure_image_segm_results', 'figure_overlap_annot_segm_image',
+                'figure_segm_graphcut_debug', 'create_figure_by_image',
+                'figure_ellipse_fitting', 'figure_annot_slic_histogram_labels',
+                'figure_ray_feature', 'figure_used_samples',
+                'figure_image_segm_centres', 'figure_rg2sp_debug_complete',
+                'figure_segm_boundary_dist', 'draw_graphcut_weighted_edges',
+                'draw_image_segm_points', 'draw_rg2sp_results',
+                'draw_image_clusters_centers')
+
+
+def figure_cases():
+    """{figure function: its arguments} on one seeded small scene (the ax
+    of the ``draw_image_*`` / ``draw_rg2sp_results`` functions not
+    included)."""
+    rng = np.random.default_rng(0)
+    img = rng.random((30, 40, 3))
+    seg = (rng.random((30, 40)) > 0.5).astype(int)
+    slic = np.arange(1200).reshape(30, 40) // 10
+    dbg = {'labels': [np.array([0] * 18 + [1] * 18)], 'criteria': [42.0],
+           'centres': [np.array([[3, 3]])], 'shifts': [[0.0]],
+           'lut_data_cost': np.zeros((36, 2)),
+           'lut_shape_cost': [rng.random((36, 2))]}
+    slic6 = np.arange(36).reshape(6, 6)
+    seg6 = (slic6 >= 18).astype(int)
+    return {
+        'figure_image_segm_results': (img, seg),
+        'figure_overlap_annot_segm_image': (seg, 1 - seg, img, 9, [0]),
+        'figure_segm_graphcut_debug': ({'image': img, 'slic': slic,
+                                        'slic_mean': img[..., 0],
+                                        'imgs_unary_cost': [img, img]},),
+        'create_figure_by_image': ((30, 40), 5, 2, 0.2),
+        'figure_ellipse_fitting': (img, seg, [(15, 20, 8, 12, 0.4)],
+                                   [(15, 20)], [123.0]),
+        'figure_annot_slic_histogram_labels': (
+            {'a': rng.random((20, 3)), 'b': rng.random((10, 3))}, 25, 0.2),
+        'figure_ray_feature': (seg, (10, 12), rng.random(20),
+                               rng.random(20), rng.random((8, 2)) * 30, 't'),
+        'figure_used_samples': (img, np.arange(120) % 3, slic,
+                                np.arange(120) % 2 == 0),
+        'figure_image_segm_centres': (img, seg, [(5, 5), (20, 30)]),
+        'figure_rg2sp_debug_complete': (seg6, slic6, dbg, 0),
+        'figure_segm_boundary_dist': (seg, seg[::-1]),
+        'draw_graphcut_weighted_edges': (
+            np.arange(16).reshape(4, 4), [(i // 4, i % 4) for i in range(16)],
+            np.array([[0, 1], [1, 2], [4, 5]]), np.array([1.0, 2.0, 3.0]),
+            rng.random((4, 4)) * 200),
+        'draw_image_segm_points': (img, [(3, 4), (10, 12), (20, 5)],
+                                   [0, 1, -1], slic, seg),
+        'draw_rg2sp_results': (seg6, slic6, dbg, 0),
+        'draw_image_clusters_centers': (
+            img[:, :, 0], np.array([(6., 7.)]),
+            np.array([(5., 6.), (9., 9.)]), np.array([0, 1]), seg),
+    }
+
+
+def _save_png(path, arr):
+    from PIL import Image
+    Image.fromarray(np.asarray(arr)).save(path)
+
+
+def _read_png(path):
+    from PIL import Image
+    return np.asarray(Image.open(path)).astype(int)
+
+
+def _app_failures(path_exp):
+    """Lines of an experiment's log where the app's catch took an image or
+    a method (it logs the exception and goes on)."""
+    path = os.path.join(path_exp, 'logging.txt')
+    if not os.path.isfile(path):
+        return []
+    return [line for line in open(path) if 'failed' in line]
+
+
+def _timed_drive(name, kernels, fn):
+    """``_drive`` of ``fn`` with the host-clock ms of the call, from a
+    synchronised card to a synchronised card: (result, launches, ms)."""
+    import torch
+    t = {}
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t['ms'] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    out, launches = _drive(name, kernels, timed)
+    return out, launches, t['ms']
+
+
+def _drive_library(name, fn):
+    """``fn``, an app's library calls, driven and timed; prints the
+    kernels it launched.  The kernels are warm: every path ran before."""
+    out, launches, ms = _timed_drive('library of ' + name, (), fn)
+    print('library of %s rows launched: %s'
+          % (name, json.dumps(_observed(launches))), flush=True)
+    return out, launches, ms
+
+
+def _drive_app(name, lib_launches, fn):
+    """``fn``, the app, driven and timed, required to launch every kernel
+    its library calls launched (run just before it, so warm)."""
+    kernels = tuple(k for k, v in lib_launches.items() if v)
+    out, launches, ms = _timed_drive('app ' + name, kernels, fn)
+    print('app %s rows launched: %s' % (name, json.dumps(_observed(launches))),
+          flush=True)
+    return out, launches, ms
+
+
+def _segm_dataset(root):
+    """Three 884x1200 colour images (``sample_color_image_rand_segment``,
+    seeds ``APPS_SEEDS``) and their annotations as PNG; and for the
+    supervised app, whose classes must keep their colours from image to
+    image, the same bands in image 0's class colours, each image with its
+    own N(0, 0.05) noise (``image_sup``)."""
+    from pyimsegm_tpu_torch.utils.data_samples import (
+        sample_color_image_rand_segment)
+    for sub in ('image', 'annot', 'image_sup'):
+        os.makedirs(os.path.join(root, sub))
+    colours = None
+    for s in APPS_SEEDS:
+        img, annot = sample_color_image_rand_segment(CROP, NB_CLASSES,
+                                                     rand_seed=s)
+        if colours is None:
+            colours = np.array([img[annot == c].mean(axis=0)
+                                for c in range(NB_CLASSES)])
+        noise = np.random.default_rng(s).normal(0, 0.05, img.shape)
+        for sub, arr in (('image', img),
+                         ('image_sup', colours[annot] + noise)):
+            _save_png(os.path.join(root, sub, 'img_%d.png' % s),
+                      (np.clip(arr, 0, 1) * 255).astype(np.uint8))
+        _save_png(os.path.join(root, 'annot', 'img_%d.png' % s),
+                  np.asarray(annot).astype(np.uint8))
+    return sorted(os.path.join(root, 'image', 'img_%d.png' % s)
+                  for s in APPS_SEEDS)
+
+
+def path_app_unsup(torch, root, paths):
+    """``run_segm_slic_model_graphcut`` at the bench parameters, single and
+    group model, against the library calls on the same loaded images;
+    returns the launches of both."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.apps import common
+    from pyimsegm_tpu_torch.apps import run_segm_slic_model_graphcut as app
+    from pyimsegm_tpu_torch.labeling import assume_bg_on_boundary
+    params = dict(app.SEGM_PARAMS, nb_classes=NB_CLASSES, slic_size=SP_SIZE,
+                  slic_regul=SP_REGUL, gc_regul=GC_REGUL, features=FEATURES,
+                  path_predict_imgs=os.path.join(root, 'image', '*.png'),
+                  device=DEVICE, run_groupGMM=True)
+    imgs = [common.load_image_by_type(p)[0] for p in paths]
+    kw = dict(sp_size=SP_SIZE, sp_regul=SP_REGUL, gc_regul=GC_REGUL)
+
+    def library():
+        single = [pipelines.pipe_color2d_slic_features_model_graphcut(
+            img, NB_CLASSES, FEATURES, device=DEVICE, **kw) for img in imgs]
+        model, _ = pipelines.estim_model_classes_group(
+            imgs, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            device=DEVICE)
+        group = [pipelines.segment_color2d_slic_features_model_graphcut(
+            img, model, FEATURES, **kw) for img in imgs]
+        return single, model, group
+
+    (single, _, _), lib_launches, t_lib = _drive_library(
+        'run_segm_slic_model_graphcut', library)
+
+    def run():
+        return app.main(dict(params, path_out=os.path.join(root, 'unsup')))
+
+    done, launches, t_app = _drive_app('run_segm_slic_model_graphcut',
+                                       lib_launches, run)
+    path_exp = done['path_exp']
+    model = app.load_class_model(os.path.join(path_exp, app.NAME_MODEL),
+                                 device=DEVICE)
+    worst, group_eq = 0.0, True
+    for img, path, (segm, soft) in zip(imgs, paths, single):
+        name = os.path.splitext(os.path.basename(path))[0]
+        for sub, want_segm, want_soft in (
+                ('segm_single', assume_bg_on_boundary(segm, bg_label=0),
+                 soft),
+                ('segm_group',) + tuple(
+                    pipelines.segment_color2d_slic_features_model_graphcut(
+                        img, model, FEATURES, **kw))):
+            if sub == 'segm_group':
+                want_segm = assume_bg_on_boundary(want_segm, bg_label=0)
+            got = _read_png(os.path.join(path_exp, sub, name + '.png'))
+            got_soft = np.load(os.path.join(path_exp, sub, name + '.npz'))[
+                'segm_soft']
+            group_eq &= bool(np.array_equal(got, want_segm))
+            worst = max(worst, float(np.abs(got_soft - want_soft).max()))
+    failures = _app_failures(path_exp)
+    print('app run_segm_slic_model_graphcut, %d %dx%d images (single + '
+          'group GMM, sp_size %d, regul %g, gc_regul %g): every exported map '
+          'equal to the library call %s, soft maps within %.3g (<= %g), the '
+          'pickled model reloads; failed images %d; warm %.3f ms per image '
+          '(library calls %.3f, the difference is the app\'s I/O)'
+          % ((len(paths),) + CROP + (SP_SIZE, SP_REGUL, GC_REGUL, group_eq,
+                                     worst, APPS_SOFT_ATOL, len(failures),
+                                     t_app / len(paths),
+                                     t_lib / len(paths))), flush=True)
+    if not group_eq or worst > APPS_SOFT_ATOL or failures:
+        raise AssertionError('run_segm_slic_model_graphcut disagrees with its '
+                             'library calls or caught a failure: %s'
+                             % failures)
+    return launches
+
+
+def path_app_sup(torch, root, paths):
+    """``run_segm_slic_classif_graphcut`` with a forest (one search
+    candidate, LPO on) on ``image_sup``: the saved classifier segments each
+    image to the exported maps; the LPO accuracy on the synthetic bands."""
+    import pandas as pd
+    from pyimsegm_tpu_torch import classification, pipelines
+    from pyimsegm_tpu_torch.apps import common
+    from pyimsegm_tpu_torch.apps import run_segm_slic_classif_graphcut as app
+    params = dict(app.SEGM_PARAMS, img_type='2d_rgb', slic_size=SP_SIZE,
+                  slic_regul=SP_REGUL, features=FEATURES, nb_classif_search=1,
+                  gc_regul=GC_REGUL_SUP, run_LPO=True, name='apps',
+                  path_images=os.path.join(root, 'image_sup', '*.png'),
+                  path_annots=os.path.join(root, 'annot', '*.png'),
+                  device=DEVICE)
+    paths = [p.replace('image', 'image_sup') for p in paths]
+    imgs = [common.load_image_by_type(p)[0] for p in paths]
+    annots = [common.load_annot_2d(p.replace('image_sup', 'annot'))[0]
+              for p in paths]
+
+    def train(idx):
+        return pipelines.train_classif_color2d_slic_features(
+            [imgs[i] for i in idx], [annots[i] for i in idx], FEATURES,
+            sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            label_purity=params['label_purity'], nb_classif_search=1,
+            device=DEVICE)[0]
+
+    def library():
+        """The app's work without its files: the training and both maps
+        of each image, then leave-one-image-out."""
+        clf = train(range(len(imgs)))
+        out = [app.segment_with_classifier(img, clf, params) for img in imgs]
+        for train_idx, test_idx in classification.CrossValidate(len(imgs),
+                                                                1):
+            held = train(train_idx)
+            out += [app.segment_with_classifier(imgs[i], held, params)
+                    for i in test_idx]
+        return out
+
+    _, lib_launches, t_lib = _drive_library(
+        'run_segm_slic_classif_graphcut', library)
+
+    def run():
+        return app.main(dict(params, path_out=os.path.join(root, 'sup')))
+
+    done, launches, t_app = _drive_app('run_segm_slic_classif_graphcut',
+                                       lib_launches, run)
+    path_exp = done['path_exp']
+    clf = classification.load_classifier(
+        os.path.join(path_exp, 'classifier_RandForest.pkl'), device=DEVICE)
+    equal = True
+    for img, path in zip(imgs, paths):
+        name = os.path.splitext(os.path.basename(path))[0]
+        segm_gc, segm_am = app.segment_with_classifier(img, clf, params)
+        equal &= bool(np.array_equal(_read_png(
+            os.path.join(path_exp, 'segm_graphcut', name + '.png')), segm_gc))
+        equal &= bool(np.array_equal(_read_png(
+            os.path.join(path_exp, 'segm_argmax', name + '.png')), segm_am))
+    lpo = pd.read_csv(os.path.join(path_exp, 'stat_LPO.csv'), index_col=0)
+    failures = _app_failures(path_exp)
+    print('app run_segm_slic_classif_graphcut, %d %dx%d images (forest, '
+          'one candidate, LPO): exported maps equal to the reloaded '
+          'classifier\'s library calls %s; LPO GC accuracy %s (> %g); failed '
+          'images %d; warm %.3f ms per image with its 1 + %d trainings '
+          '(library calls of the same work %.3f)'
+          % ((len(paths),) + CROP + (
+              equal, ['%.4f' % v for v in lpo['GC_accuracy']], APPS_LPO_BAR,
+              len(failures), t_app / len(paths), len(lpo),
+              t_lib / len(paths))), flush=True)
+    if not equal or not (lpo['GC_accuracy'] > APPS_LPO_BAR).all() \
+            or failures:
+        raise AssertionError('run_segm_slic_classif_graphcut disagrees with '
+                             'its library calls: %s' % failures)
+    return launches
+
+
+def path_app_eval_superpixels(torch, root, paths):
+    from pyimsegm_tpu_torch.apps import common
+    from pyimsegm_tpu_torch.apps import run_eval_superpixels as app
+    from pyimsegm_tpu_torch.labeling import compute_boundary_distances
+    from pyimsegm_tpu_torch.ops.slic import segment_slic_img2d
+    params = {'path_images': os.path.join(root, 'image', '*.png'),
+              'path_segms': os.path.join(root, 'annot', '*.png'),
+              'path_out': os.path.join(root, 'eval_sp'), 'img_type': '2d_rgb',
+              'slic_size': SP_SIZE, 'slic_regul': SP_REGUL, 'device': DEVICE}
+    imgs = [common.load_image_by_type(p)[0] for p in paths]
+    annots = [common.load_annot_2d(p.replace('image', 'annot'))[0]
+              for p in paths]
+
+    def library():
+        return [compute_boundary_distances(annot, segment_slic_img2d(
+            img, sp_size=SP_SIZE, relative_compact=SP_REGUL,
+            device=DEVICE))[1] for img, annot in zip(imgs, annots)]
+
+    dists, lib_launches, t_lib = _drive_library('run_eval_superpixels',
+                                                library)
+    df, launches, t_app = _drive_app(
+        'run_eval_superpixels', lib_launches,
+        lambda: app.compute_boundary_distance(params))
+    equal = all(df.loc[os.path.splitext(os.path.basename(p))[0], 'mean']
+                == float(np.mean(d)) for p, d in zip(paths, dists))
+    print('app run_eval_superpixels, %d images: mean boundary distances %s '
+          'equal to the library calls %s; warm %.3f ms per image (library '
+          '%.3f)' % (len(paths), ['%.4f' % v for v in df['mean']], equal,
+                     t_app / len(paths), t_lib / len(paths)), flush=True)
+    if not equal:
+        raise AssertionError('run_eval_superpixels disagrees with its '
+                             'library calls')
+    return launches
+
+
+def _ovary_dataset(root):
+    """Three 647x1024 slices (image, class map, egg instances, centre CSV),
+    the triple list, and egg instance maps of config 5's six shape-model
+    scenes."""
+    import pandas as pd
+    from scipy import ndimage
+    from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
+    for sub in ('image', 'segm', 'annot', 'centers', 'shape_eggs'):
+        os.makedirs(os.path.join(root, sub))
+    rows = []
+    for s in APPS_OVARY_SEEDS:
+        img, segm, centres = sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)
+        name = 'slice_%d' % s
+        paths = {k: os.path.join(root, sub, name + ext) for k, sub, ext in (
+            ('path_image', 'image', '.png'), ('path_segm', 'segm', '.png'),
+            ('path_centers', 'centers', '.csv'))}
+        _save_png(paths['path_image'], (img * 255).astype(np.uint8))
+        _save_png(paths['path_segm'], segm.astype(np.uint8))
+        _save_png(os.path.join(root, 'annot', name + '.png'),
+                  ndimage.label(segm > 0)[0].astype(np.uint8))
+        pd.DataFrame({'X': centres[:, 1], 'Y': centres[:, 0]}).to_csv(
+            paths['path_centers'])
+        rows.append(paths)
+    pd.DataFrame(rows).to_csv(os.path.join(root, 'list.csv'))
+    for s in RG_SHAPE_SEEDS:
+        segm = sample_ovary_scene(OVARY, N_EGGS, rand_seed=s)[1]
+        _save_png(os.path.join(root, 'shape_eggs', 'scene_%d.png' % s),
+                  ndimage.label(segm > 0)[0].astype(np.uint8))
+    return rows
+
+
+def path_app_centres(torch, root, rows):
+    """Config 4's chain of apps with one search candidate: training (with
+    leave-one-out), prediction, clustering, evaluation; the predicted
+    centres against the library detection with the saved forest."""
+    import pandas as pd
+    from pyimsegm_tpu_torch import centers as ctr
+    from pyimsegm_tpu_torch.apps import common
+    from pyimsegm_tpu_torch.apps import (run_center_candidate_training,
+                                         run_center_clustering,
+                                         run_center_evaluation,
+                                         run_center_prediction)
+    from pyimsegm_tpu_torch.classification import load_classifier
+    params = dict(ctr.CENTER_PARAMS, **ctr.CLUSTER_PARAMS)
+    params.update(nb_classif_search=1, name='apps', device=DEVICE,
+                  path_list=os.path.join(root, 'list.csv'))
+    slices = [(common.load_image_by_type(r['path_image'])[0],
+               _read_png(r['path_segm']),
+               run_center_candidate_training.load_center_annotation(
+                   r['path_centers'])) for r in rows]
+
+    def library():
+        clf, _ = ctr.train_center_classifier(
+            [s[1] for s in slices], [s[0] for s in slices],
+            [s[2] for s in slices], params, device=DEVICE)
+        return [ctr.load_compute_detect_centers(img, segm, clf, params,
+                                                device=DEVICE)
+                for img, segm, _ in slices]
+
+    _, lib_launches, t_lib = _drive_library('run_center_*', library)
+    out = os.path.join(root, 'centres')
+
+    def chain():
+        _, tparams = run_center_candidate_training.main(
+            dict(params, path_out=out))
+        run_center_prediction.main(dict(
+            params, path_out=out, path_classif=os.path.join(
+                tparams['path_exp'], 'classifier_RandForest.pkl'),
+            path_images=os.path.join(root, 'image', '*.png'),
+            path_segms=os.path.join(root, 'segm', '*.png')))
+        path_pred = os.path.join(out, 'detect-centers-predict_apps')
+        run_center_clustering.main(dict(
+            params, path_points=os.path.join(path_pred, 'candidates',
+                                             '*.csv'),
+            path_out=os.path.join(out, 'clustering')))
+        stats = run_center_evaluation.main({
+            'path_centers': os.path.join(path_pred, 'centres', '*.csv'),
+            'path_annots': os.path.join(root, 'centers', '*.csv'),
+            'path_out': os.path.join(out, 'evaluation'), 'dist_thr': 50,
+            'device': DEVICE})
+        return tparams['path_exp'], path_pred, stats
+
+    (path_train, path_pred, stats), launches, t_app = _drive_app(
+        'run_center_* (train, predict, cluster, evaluate)', lib_launches,
+        chain)
+    clf = load_classifier(os.path.join(path_train,
+                                       'classifier_RandForest.pkl'),
+                          device=DEVICE)
+    matched = []
+    for r, (img, segm, _) in zip(rows, slices):
+        name = os.path.splitext(os.path.basename(r['path_image']))[0]
+        want = ctr.load_compute_detect_centers(img, segm, clf, params,
+                                               device=DEVICE)['centers']
+        got = pd.read_csv(os.path.join(path_pred, 'centres', name + '.csv'),
+                          index_col=0)[['Y', 'X']].values
+        # the CSV holds the shortest text of each value: read back in the
+        # detection's dtype, equal
+        matched.append(_match_centres(got.astype(np.asarray(want).dtype),
+                                      want, tol=0.0))
+    failures = _app_failures(path_train) + _app_failures(path_pred)
+    print('apps run_center_* on %d %dx%d slices: predicted centres equal '
+          'to the library detection with the saved forest %s; '
+          'evaluation f1 %s; failed images %d; warm %.3f ms for the chain '
+          '(1 + %d trainings, detection of every slice; library training and '
+          'detections %.3f)'
+          % ((len(rows),) + OVARY + (
+              matched, ['%.3f' % v for v in stats['f1']], len(failures),
+              t_app, len(rows), t_lib)), flush=True)
+    if not all(matched) or failures:
+        raise AssertionError('the centre apps disagree with the library '
+                             'detection')
+    return launches
+
+
+def _zoo_library(method, img, segm, centres, path_model):
+    """One zoo method by the port's library on the same loaded inputs, as
+    the reference's experiment defines it."""
+    import pickle
+    from scipy import ndimage
+    from pyimsegm_tpu_torch import ellipse_fitting as ell_fit
+    from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch.apps.run_ovary_egg_segmentation import SEGM_PARAMS
+    from pyimsegm_tpu_torch.ops import morphology, snakes
+    from pyimsegm_tpu_torch.ops.slic import segment_slic_img2d
+    p = SEGM_PARAMS
+    slic = segment_slic_img2d(img, sp_size=p['slic_size'],
+                              relative_compact=p['slic_regul'], device=DEVICE)
+    if method == 'ellipse_ransac_crit':
+        slic15, points_all, labels = ell_fit.get_slic_points_labels(
+            segm, slic_size=15, slic_regul=0.1, device=DEVICE)
+        weights = np.bincount(slic15.ravel())
+        out = np.zeros(segm.shape, dtype=int)
+        for i, points in enumerate(ell_fit.prepare_boundary_points_ray_edge(
+                segm, centres, device=DEVICE)):
+            points = np.asarray(points)
+            if len(points) < 6:
+                continue
+            model, _ = ell_fit.ransac_segm(
+                points, ell_fit.EllipseModelSegm, points_all, weights, labels,
+                p['tab-proba_ellipse'], 0.35, 3, max_trials=30, device=DEVICE)
+            if model is not None:
+                out = ell_fit.add_overlap_ellipse(out, model.params, i + 1,
+                                                  0.45)
+        return out
+    if method == 'GC_slic-shape':
+        return rg.object_segmentation_graphcut_slic(
+            slic, segm, centres, p['tab-proba_graphcut'], 1., edge_coef=1.,
+            edge_type='model', coef_shape=0.1, device=DEVICE)[slic]
+    if method.startswith('RG2SP'):
+        with open(path_model, 'rb') as fp:
+            state = pickle.load(fp)
+        model = rg.shape_model_from_numpy(state['model'], device=DEVICE)
+        kw = dict(shape_type=state['name'], coef_shape=p['RG2SP-shape'],
+                  coef_pairwise=p['RG2SP-pairwise'],
+                  prob_label_trans=tuple(p['label_trans']),
+                  allow_obj_swap=p['RG2SP-swap'],
+                  dict_thresholds=rg.RG2SP_THRESHOLDS, device=DEVICE)
+        prob_fg = rg.compute_segm_prob_fg(slic, segm, p['tab-proba_RG2SP'])
+        if 'greedy' in method:
+            return rg.region_growing_shape_slic_greedy(
+                slic, prob_fg, centres, model, nb_iter=100, **kw)[slic]
+        return rg.region_growing_shape_slic_graphcut(
+            slic, prob_fg, centres, model, nb_iter=50, **kw)[slic]
+    if method == 'watershed_morph':
+        dist = ndimage.distance_transform_edt(segm > 0)
+        markers = np.zeros(segm.shape, dtype=np.int32)
+        for i, c in enumerate(centres):
+            markers[int(c[0]), int(c[1])] = i + 1
+        inv = np.asarray((dist.max() - dist) / max(dist.max(), 1e-9) * 250,
+                         np.uint16)
+        objs = ndimage.watershed_ift(inv, markers)
+        objs[segm <= 0] = 0
+        objs[objs < 0] = 0
+        out = np.zeros_like(objs)
+        for lb in range(1, objs.max() + 1):
+            out[morphology.binary_opening(objs == lb, 3, device=DEVICE)
+                .cpu().numpy()] = lb
+        return out
+    image = np.asarray(img, float)[:, :, 0]
+    return snakes.morph_acwe_multi(
+        image, snakes.circle_masks(image.shape, centres, radius=15),
+        n_iter=min(int(np.hypot(*image.shape) / 2.0), 300), smoothing=5,
+        lambda1=3, lambda2=3, device=DEVICE).cpu().numpy()
+
+
+def path_app_zoo(torch, root, rows):
+    """``run_RG2Sp_estim_shape_models`` on the eggs of config 5's six
+    scenes, then ``run_ovary_egg_segmentation`` one method at a time on the
+    three slices, each map equal to the method's library call."""
+    from pyimsegm_tpu_torch.apps import common
+    from pyimsegm_tpu_torch.apps import run_RG2Sp_estim_shape_models as est
+    from pyimsegm_tpu_torch.apps import run_ovary_egg_segmentation as zoo
+    from pyimsegm_tpu_torch.apps.run_center_candidate_training import \
+        load_center_annotation
+    path_models = os.path.join(root, 'shape_models')
+    t0 = time.perf_counter()
+    est.main({'path_annot': os.path.join(root, 'shape_eggs', '*.png'),
+              'path_out': path_models, 'ray_step': RG_RAY_STEP,
+              'nb_components': 2, 'device': DEVICE})
+    t_est = (time.perf_counter() - t0) * 1e3
+    slices = [(common.load_image_by_type(r['path_image'])[0],
+               _read_png(r['path_segm']),
+               load_center_annotation(r['path_centers'])) for r in rows]
+    total = {}
+    for method in APPS_ZOO:
+        path_model = os.path.join(path_models, est.NAME_MIXTURE)
+        np.random.seed(0)
+        wants, lib_launches, t_lib = _drive_library(
+            'run_ovary_egg_segmentation %s' % method,
+            lambda m=method: [_zoo_library(m, img, segm, centres, path_model)
+                              for img, segm, centres in slices])
+        np.random.seed(0)
+        _, launches, t_app = _drive_app(
+            'run_ovary_egg_segmentation %s' % method, lib_launches,
+            lambda m=method: zoo.main(dict(
+                zoo.SEGM_PARAMS, path_list=os.path.join(root, 'list.csv'),
+                path_out=os.path.join(root, 'zoo'), methods=[m],
+                path_shape_models=path_models, name=m, device=DEVICE)))
+        path_exp = os.path.join(root, 'zoo',
+                                zoo.NAME_EXPERIMENT + '_' + method)
+        equal = [bool(np.array_equal(_read_png(os.path.join(
+            path_exp, method, os.path.basename(r['path_image']))), want))
+            for r, want in zip(rows, wants)]
+        failures = _app_failures(path_exp)
+        print('app run_ovary_egg_segmentation %s on %d %dx%d slices: maps '
+              'equal to the library call %s, objects %s, failed %d; warm '
+              '%.3f ms per slice with its SLIC and I/O (library %.3f)'
+              % ((method, len(rows)) + OVARY + (
+                  equal, [int(w.max()) for w in wants], len(failures),
+                  t_app / len(rows), t_lib / len(rows))), flush=True)
+        if not all(equal) or failures:
+            raise AssertionError('zoo method %s disagrees with its library '
+                                 'call: %s' % (method, failures))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    print('app run_RG2Sp_estim_shape_models on %d eggs: %.3f ms (first '
+          'call)' % (len(RG_SHAPE_SEEDS) * N_EGGS, t_est), flush=True)
+    return total
+
+
+def _tree_files(path, skip=('logging.txt', 'config.yml', 'resultStat.txt')):
+    return sorted(os.path.relpath(os.path.join(d, f), path)
+                  for d, _, fs in os.walk(path) for f in fs if f not in skip)
+
+
+def check_host_apps(torch, root, rows):
+    """The host apps on the zoo's and the slices' maps, run with the card
+    and again on the CPU in this process: every output file equal."""
+    import filecmp
+    from pyimsegm_tpu_torch.apps import (run_compute_stat_annot_segm,
+                                         run_create_annotation,
+                                         run_cut_segmented_objects,
+                                         run_ovary_segm_evaluation)
+    from pyimsegm_tpu_torch.apps.handling_annotations import (
+        run_image_color_quantization, run_image_convert_label_color,
+        run_segm_annot_relabel)
+    pat = {k: os.path.join(root, k, '*.png') for k in ('image', 'segm',
+                                                        'annot')}
+    zoo_method = os.path.join(root, 'zoo', 'ovary_egg-segmentation_'
+                              'GC_slic-shape', 'GC_slic-shape', '*.png')
+    run_image_convert_label_color.convert_folder_images({
+        'path_images': pat['segm'], 'path_out': os.path.join(root, 'colours'),
+        'direction': 'labels2colors', 'path_colors': ''})
+    outs = []
+    for device in (DEVICE, 'cpu'):
+        out = os.path.join(root, 'host_' + device)
+        outs.append(out)
+        run_compute_stat_annot_segm.stat_annot_segm({
+            'path_annot': pat['annot'], 'path_segm': zoo_method,
+            'path_out': os.path.join(out, 'stat'), 'drop_labels': []})
+        run_ovary_segm_evaluation.main({
+            'path_segms': os.path.join(root, 'zoo', 'ovary_egg-segmentation_'
+                                       'RG2SP_GC-mixture'),
+            'path_annots': pat['annot'], 'path_out': os.path.join(out, 'egg')})
+        run_create_annotation.main({
+            'path_annots': pat['annot'], 'path_out': os.path.join(out, 'ctr'),
+            'radius_center': 25, 'radius_ring': 50})
+        run_cut_segmented_objects.main({
+            'path_annot': pat['annot'], 'path_image': pat['image'],
+            'path_out': os.path.join(out, 'cut'), 'padding': 5, 'mask': True,
+            'no_rotate': False})
+        run_segm_annot_relabel.relabel_folder({
+            'path_images': pat['segm'], 'path_out': os.path.join(out, 'rel'),
+            'label_old': [2, 3], 'label_new': [1, 1]})
+        run_image_color_quantization.quantize_folder_images({
+            'path_images': os.path.join(root, 'colours', '*.png'),
+            'path_out': os.path.join(out, 'quant'), 'px_threshold': 1e-3,
+            'method': 'color', 'device': device})
+    files = _tree_files(outs[0])
+    equal = files == _tree_files(outs[1]) and all(
+        filecmp.cmp(os.path.join(outs[0], f), os.path.join(outs[1], f),
+                    shallow=False) for f in files)
+    print('host apps (annotation statistics, egg evaluation, centre '
+          'annotation, cuts, relabel, colour quantisation on the card) on '
+          'the slices: %d output files, equal to the CPU run %s'
+          % (len(files), equal), flush=True)
+    if not equal or not files:
+        raise AssertionError('a host app differs between the card and the '
+                             'CPU')
+
+
+def check_drawing(torch, slic):
+    """``utils/drawing`` on the card's machine: the array functions, the
+    colormap tables, ``insert_gc_debug_images`` from the card's MRF against
+    the CPU call, and the figure functions: each raises ``ImportError``
+    naming matplotlib where it is absent, else draws."""
+    import hashlib
+    import inspect
+    from pyimsegm_tpu_torch import graph_cuts
+    from pyimsegm_tpu_torch.ops.graphcut import (compute_edge_weights,
+                                                 compute_unary_cost)
+    from pyimsegm_tpu_torch.utils import drawing
+    rr, cc = drawing.polygon_fill_coords([2, 2, 8, 8], [2, 8, 8, 2], (20, 20))
+    lattice = sorted(set(rr.tolist())) == [3, 4, 5, 6, 7] and \
+        sorted(set(cc.tolist())) == [3, 4, 5, 6, 7, 8]
+    digests = {n: hashlib.sha256(drawing._colormap_table(n).tobytes())
+               .hexdigest() for n in COLORMAP_SHA256}
+    masks = drawing.draw_eggs_rectangle([30, 60], [[10, 10], [40, 8]],
+                                        [[20, 20], [50, 15]],
+                                        [[35, 20], [55, 25]])
+    merged = drawing.merge_object_masks(masks)
+    eggs = drawing.draw_eggs_ellipse([30, 60], [[10, 10]], [[20, 20]],
+                                     [[35, 20]])
+    arrays_ok = lattice and digests == COLORMAP_SHA256 and merged.max() == 2 \
+        and eggs.max() == 1 and drawing.draw_color_labeling(
+            slic, np.arange(int(slic.max()) + 1)).shape == slic.shape + (3,)
+
+    slic_t = torch.as_tensor(slic, device=DEVICE)
+    k = int(slic.max()) + 1
+    proba = torch.softmax(torch.as_tensor(np.random.default_rng(0).normal(
+        0, 2, (k, 3)), dtype=torch.float32, device=DEVICE), dim=1)
+    edges, weights, valid = compute_edge_weights(slic_t, k, proba=proba,
+                                                 edge_type='model')
+    edges, weights = edges[valid], weights[valid]
+    unary = compute_unary_cost(proba)
+    card, host = {}, {}
+    has_mpl = importlib.util.find_spec('matplotlib') is not None
+    for dbg, args, dev in (
+            (card, (slic_t, None, unary, edges, weights), DEVICE),
+            (host, (slic, None, unary.cpu().numpy(), edges.cpu().numpy(),
+                    weights.cpu().numpy()), 'cpu')):
+        if has_mpl:
+            graph_cuts.insert_gc_debug_images(dbg, *args, device=dev)
+        else:
+            try:
+                graph_cuts.insert_gc_debug_images(dbg, *args, device=dev)
+            except ImportError as err:
+                if 'matplotlib' not in str(err):
+                    raise
+            else:
+                raise AssertionError('insert_gc_debug_images drew without '
+                                     'matplotlib')
+    gc_equal = sorted(card) == sorted(host) and all(
+        np.array_equal(card[key], host[key])
+        for key in ('segments', 'edges', 'edge_weights')) and all(
+        np.array_equal(a, b) for a, b in zip(card['imgs_unary_cost'],
+                                             host['imgs_unary_cost']))
+    figures = []
+    if has_mpl:
+        import matplotlib.pyplot as plt
+        for name, args in figure_cases().items():
+            fn = getattr(drawing, name)
+            if name.startswith('draw_') and name != \
+                    'draw_graphcut_weighted_edges':
+                fig, ax = plt.subplots()
+                fn(ax, *args)
+            else:
+                fig = fn(*args)
+                fig = fig[0] if isinstance(fig, tuple) else fig
+            figures.append(name)
+            if hasattr(fig, 'savefig'):
+                plt.close(fig)
+    else:
+        for name in FIGURE_FUNCS:
+            fn = getattr(drawing, name)
+            n_args = sum(p.default is p.empty
+                         for p in inspect.signature(fn).parameters.values())
+            try:
+                fn(*([None] * n_args))
+            except ImportError as err:
+                if 'matplotlib' in str(err) and name in str(err):
+                    figures.append(name)
+    print('utils/drawing on this machine (matplotlib %s): array '
+          'functions and the jet / Greens tables as matplotlib\'s %s; '
+          'insert_gc_debug_images\' arrays (%d edges of the zoo SLIC, K = %d) '
+          'equal to the CPU call %s, keys %s; figure functions %s: %d of %d'
+          % ('present' if has_mpl else 'absent', arrays_ok, len(edges), k,
+             gc_equal, sorted(card), 'drawn' if has_mpl else
+             'raising ImportError naming matplotlib', len(figures),
+             len(FIGURE_FUNCS)), flush=True)
+    if not (arrays_ok and gc_equal and len(figures) == len(FIGURE_FUNCS)):
+        raise AssertionError('utils/drawing fails on the card\'s machine')
+
+
+def check_stage_timer(torch, root):
+    """A ``StageTimer(device='cuda')`` stage around one app call reads at
+    least ``APPS_TIMER_SHARE`` of the CUDA-event time of the same call
+    (events recorded on the stream just inside the stage)."""
+    from pyimsegm_tpu_torch.apps import run_eval_superpixels as app
+    from pyimsegm_tpu_torch.utils.experiments import StageTimer
+    params = {'path_images': os.path.join(root, 'image', '*.png'),
+              'path_segms': os.path.join(root, 'annot', '*.png'),
+              'path_out': os.path.join(root, 'eval_timer'),
+              'img_type': '2d_rgb', 'slic_size': SP_SIZE,
+              'slic_regul': SP_REGUL, 'device': DEVICE}
+    timer = StageTimer(device=DEVICE)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with timer.stage('app'):
+        start.record()
+        app.compute_boundary_distance(params)
+        end.record()
+    end.synchronize()
+    ev_ms = start.elapsed_time(end)
+    share = timer.stages['app'] * 1e3 / ev_ms
+    print('StageTimer(device=%r) around run_eval_superpixels: %.3f ms, CUDA '
+          'events around the same call %.3f ms, share %.4f (>= %g)'
+          % (DEVICE, timer.stages['app'] * 1e3, ev_ms, share,
+             APPS_TIMER_SHARE), flush=True)
+    if share < APPS_TIMER_SHARE:
+        raise AssertionError('StageTimer reads short of the device time')
+
+
+def path_apps(torch):
+    """Phase 15: the experiment apps on the card, each against its library
+    calls; returns the launches of every app's drive, summed."""
+    import tempfile
+    base = os.path.join(ROOT, 'build')
+    os.makedirs(base, exist_ok=True)
+    total = {}
+    with tempfile.TemporaryDirectory(prefix='apps_phase_', dir=base) as tmp:
+        segm_root = os.path.join(tmp, 'segm')
+        paths = _segm_dataset(segm_root)
+        ovary_root = os.path.join(tmp, 'ovary')
+        rows = _ovary_dataset(ovary_root)
+        for launches in (path_app_unsup(torch, segm_root, paths),
+                         path_app_sup(torch, segm_root, paths),
+                         path_app_eval_superpixels(torch, segm_root, paths),
+                         path_app_centres(torch, ovary_root, rows),
+                         path_app_zoo(torch, ovary_root, rows)):
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+        check_host_apps(torch, ovary_root, rows)
+        from pyimsegm_tpu_torch.ops.slic import segment_slic_img2d
+        check_drawing(torch, segment_slic_img2d(
+            _read_png(rows[0]['path_image']).astype(np.float32) / 255.0,
+            sp_size=40, relative_compact=0.3, device=DEVICE))
+        check_stage_timer(torch, segm_root)
+    print('phase 15 (apps) rows launched, summed over the apps: %s'
+          % json.dumps(_observed(total)), flush=True)
+    return total
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3661,6 +4461,7 @@ def main():
                                            rg_slic),
                      path_compat(torch, scenes[-1], fixtures[9]),
                      path_rest(torch, scenes[-1], fixtures[10]))
+    apps = path_apps(torch)
     for rec in records:
         name = rec['name']
         rec['launches'] = (
@@ -3672,6 +4473,7 @@ def main():
             gray3d[name] if name in PATH_3D + PASSES_3D else fit[name])
         if name in PATH_CENTERS:
             rec['launches'] += sum(p[name] for p in centre_paths)
+        rec['launches'] += apps.get(name, 0)
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
          for m in ('scipy', 'pandas', 'PIL', 'matplotlib', 'yaml')}),

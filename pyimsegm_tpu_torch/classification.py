@@ -107,11 +107,11 @@ def _fit_params(name, hyper, gen, x, y, w, n_classes):
                                          n_candidates=h.get('n_candidates',
                                                             16))
     if name == 'LogistRegr':
-        return linear_mod.logistic_fit(x, y, w, n_classes,
+        return linear_mod.logistic_fit(gen, x, y, w, n_classes,
                                        l2=h.get('l2', 1e-4),
                                        steps=h.get('steps', 300))
     if name == 'SVM':
-        return linear_mod.linear_svm_fit(x, y, w, n_classes,
+        return linear_mod.linear_svm_fit(gen, x, y, w, n_classes,
                                          c_reg=h.get('C', 1.0),
                                          steps=h.get('steps', 400))
     if name == 'MLP':
@@ -334,9 +334,11 @@ class HoldOut:
 
 
 class CrossValidate:
-    """K-fold CV over samples, ``nb_hold_out`` samples per test fold."""
+    """K-fold CV over samples, ``nb_hold_out`` samples per test fold;
+    ``ignore_overflow`` is accepted and unused, as in the reference."""
 
-    def __init__(self, nb_samples, nb_hold_out, rand_seed=None):
+    def __init__(self, nb_samples, nb_hold_out, rand_seed=None,
+                 ignore_overflow=0.01):
         if nb_hold_out > nb_samples:
             raise ValueError('nb_hold_out %i exceeds samples %i'
                              % (nb_hold_out, nb_samples))

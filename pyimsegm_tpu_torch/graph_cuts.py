@@ -1,9 +1,8 @@
 """GraphCut-stage API under the reference's names (port of
 ``pyimsegm_tpu.graph_cuts``): class-model estimation from
 ``models/class_model``, the MRF solvers and cost constructions from
-``ops/graphcut``, and the host list helpers of the reference.
-``insert_gc_debug_images`` draws with ``utils/drawing``, which is not
-ported yet (ROADMAP.md item 9) and raises.
+``ops/graphcut``, the host list helpers of the reference, and
+``insert_gc_debug_images``, which draws with ``utils/drawing``.
 """
 
 import logging
@@ -25,7 +24,7 @@ from pyimsegm_tpu_torch.ops.graphcut import (  # noqa: F401
     solve_mrf)
 from pyimsegm_tpu_torch.ops.graphcut import \
     segment_graph_cut_general as _segment_graph_cut_core
-from pyimsegm_tpu_torch.utils.device import as_tensor
+from pyimsegm_tpu_torch.utils.device import as_tensor, host_array
 
 #: alias kept for the reference's name
 compute_multivarian_otsu = compute_multivariate_otsu
@@ -144,14 +143,33 @@ def create_pairwise_matrix_specif(pos_weights, nb_classes=None):
 
 
 def insert_gc_debug_images(debug_visual, segments, graph_labels, unary_cost,
-                           edges, edge_weights):
-    """Stash the MRF's variables for visual debugging; the drawings need
-    ``utils/drawing`` (ROADMAP.md item 9)."""
+                           edges, edge_weights, device='cuda'):
+    """Stash the MRF's variables for visual debugging.
+
+    The array entries come first: ``segments``, ``edges``, ``edge_weights``
+    and ``imgs_unary_cost`` (one ``Greens`` image per class, numpy only).
+    Then the superpixel centres (a tensor ``segments`` on its device, a
+    numpy one on ``device``) and ``img_graph_edges``, the graph drawn
+    through a matplotlib canvas, which raises ``ImportError`` where
+    matplotlib is not installed."""
     if debug_visual is None:
         return
-    raise NotImplementedError('insert_gc_debug_images draws with '
-                              'utils/drawing, which comes with ROADMAP.md '
-                              'item 9')
+    from pyimsegm_tpu_torch.superpixels import superpixel_centers
+    from pyimsegm_tpu_torch.utils.drawing import (
+        draw_graphcut_unary_cost_segments,
+        draw_graphcut_weighted_edges,
+    )
+    segments_np = host_array(segments)
+    debug_visual['segments'] = segments_np
+    debug_visual['edges'] = host_array(edges)
+    debug_visual['edge_weights'] = host_array(edge_weights)
+    debug_visual['imgs_unary_cost'] = draw_graphcut_unary_cost_segments(
+        segments_np, host_array(unary_cost))
+    centres = superpixel_centers(segments, device=device)
+    debug_visual['img_graph_edges'] = draw_graphcut_weighted_edges(
+        segments_np, centres, debug_visual['edges'],
+        debug_visual['edge_weights'],
+        img_bg=debug_visual.get('slic_mean', None))
 
 
 def segment_graph_cut_general(slic, proba, image=None, features=None,

@@ -79,12 +79,23 @@ class ClassModel(nn.Module):
 def class_model_from_numpy(d):
     """ClassModel from a dict of arrays: ``weights``, ``means``, ``covs`` and
     the optional ``scaler_mean``, ``scaler_scale``, ``pca_components``,
-    ``pca_mean``, ``pca_mask`` (missing or None = stage off)."""
+    ``pca_mean``, ``pca_mask`` (missing or None = stage off).  float64
+    ``covs`` (the GMM's float64 refit) stay float64."""
     opt = {k: (None if d.get(k) is None else np.array(d[k], np.float32))
            for k in _OPTIONAL}
+    covs = np.asarray(d['covs'])
+    covs = torch.as_tensor(covs) if covs.dtype == np.float64 \
+        else np.array(covs, np.float32)
     return ClassModel(np.array(d['weights'], np.float32),
-                      np.array(d['means'], np.float32),
-                      np.array(d['covs'], np.float32), **opt)
+                      np.array(d['means'], np.float32), covs, **opt)
+
+
+def class_model_to_numpy(model):
+    """The arrays of a :class:`ClassModel` under the names
+    :func:`class_model_from_numpy` reads (a stage that is off is None)."""
+    return {name: (None if getattr(model, name) is None
+                   else getattr(model, name).cpu().numpy())
+            for name in _OPTIONAL + ('weights', 'means', 'covs')}
 
 
 def _fit_scaler(x, w):

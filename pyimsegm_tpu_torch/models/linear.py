@@ -87,9 +87,10 @@ def _weighted_nll(logits, onehot, w):
                                                         1.0)
 
 
-def logistic_fit(x, y, sample_weight, n_classes, l2=1e-4, steps=300,
-                 lr=0.05):
-    """Multinomial logistic regression; ``l2 * sum(w^2)`` penalty.
+def logistic_fit(generator, x, y, sample_weight, n_classes, l2=1e-4,
+                 steps=300, lr=0.05):
+    """Multinomial logistic regression; ``l2 * sum(w^2)`` penalty.  The
+    fit starts from zeros, so ``generator`` (JAX's ``key``) is unused.
 
     :param x: (N, F) or (B, N, F); :param sample_weight: (N,) or (B, N)
     """
@@ -166,10 +167,11 @@ def mlp_predict_proba(params: MLPParams, x):
     return torch.softmax(h @ params.w2 + params.b2, dim=-1)
 
 
-def linear_svm_fit(x, y, sample_weight, n_classes, c_reg=1.0, steps=400,
-                   lr=0.05):
+def linear_svm_fit(generator, x, y, sample_weight, n_classes, c_reg=1.0,
+                   steps=400, lr=0.05):
     """One-vs-rest squared-hinge linear SVM; ``0.5 * sum(w^2) / N`` with N
-    the rows, zero-weight ones included."""
+    the rows, zero-weight ones included.  ``generator`` (JAX's ``key``) is
+    unused: the fit starts from zeros."""
     x, w, batched = _batched(x, sample_weight)
     nf, n, f = x.shape
     targets = 2.0 * F.one_hot(y.to(torch.int64),

@@ -19,10 +19,12 @@ def norm_cdf(x, mean, std):
     return 0.5 * (1.0 + torch.special.erf((x - mean) / (std * math.sqrt(2.0))))
 
 
-def compute_cumulative_distrib(means, stds, weights, max_dist, device='cpu'):
+def compute_cumulative_distrib(means, stds, weights, max_dist,
+                               device='cuda'):
     """Survival-function table of a ray-length mixture, per angle: the
     weighted normal CDF mixture over distances 0..max_dist, min-max
-    normalised per angle and flipped (+1e-9), in f32.
+    normalised per angle and flipped (+1e-9), in f32, computed on
+    ``device``.
 
     :param means: (J, A) component means per direction
     :param stds: (J, A) component stds per direction

@@ -349,7 +349,7 @@ def transform_rays_model_cdf_mixture(list_rays, coef_components=1,
     stds = np.sqrt(np.abs(np.diagonal(model.covariances_, axis1=1, axis2=2)))
     max_dist = np.max(model.means_ + stds)
     cdist = compute_cumulative_distrib(model.means_, stds, model.weights_,
-                                       max_dist)
+                                       max_dist, device=x.device)
     return model, cdist.tolist()
 
 
@@ -376,7 +376,8 @@ def transform_rays_model_sets_mean_cdf_mixture(list_rays, nb_components=5,
         std = _smooth1d(std)
         max_dist = np.max(mean + 2 * std)
         cdist = compute_cumulative_distrib(mean[None], std[None],
-                                           np.ones(1), max_dist)
+                                           np.ones(1), max_dist,
+                                           device=x.device)
         list_mean_cdf.append((mean.tolist(), cdist))
     return model, list_mean_cdf
 
@@ -398,7 +399,8 @@ def transform_rays_model_sets_mean_cdf_kmeans(list_rays, nb_components=5,
         std = (_smooth1d(std) + 1) * 5.0
         max_dist = np.max(mean + 2 * std)
         cdist = compute_cumulative_distrib(mean[None], std[None],
-                                           np.ones(1), max_dist)
+                                           np.ones(1), max_dist,
+                                           device=x.device)
         list_mean_cdf.append((mean.tolist(), cdist))
     return model, list_mean_cdf
 
@@ -415,7 +417,8 @@ def transform_rays_model_cdf_spectral(list_rays, nb_components=5,
     stds = np.stack([rays[labels == lb].std(axis=0) for lb in uq]) + 1
     weights = np.bincount(labels)[uq] / float(len(labels))
     max_dist = np.max(means + stds)
-    cdist = compute_cumulative_distrib(means, stds, weights, max_dist)
+    cdist = compute_cumulative_distrib(means, stds, weights, max_dist,
+                                       device=device)
     model = KMeansShapeModel(means, labels, device=device)
     return model, cdist.tolist()
 
@@ -436,7 +439,8 @@ def transform_rays_model_cdf_kmeans(list_rays, nb_components=None,
         else np.zeros(rays.shape[1]) for lb in range(nb_components)]) + 1
     weights = np.bincount(labels, minlength=nb_components) / float(len(labels))
     max_dist = np.max(centers + stds)
-    cdist = compute_cumulative_distrib(centers, stds, weights, max_dist)
+    cdist = compute_cumulative_distrib(centers, stds, weights, max_dist,
+                                       device=x.device)
     return KMeansShapeModel(centers, labels, device=x.device), cdist.tolist()
 
 

@@ -43,6 +43,10 @@ def _t(a):
     return torch.as_tensor(np.array(a))
 
 
+def _gen():
+    return torch.Generator().manual_seed(0)
+
+
 def _close(got, want):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-5)
@@ -58,7 +62,7 @@ def test_linear_fit_matches_jax(scene, name):
                                      tlin.linear_svm_fit))
     pj = jfit(jax.random.PRNGKey(0), jnp.asarray(x), jnp.asarray(y),
               jnp.asarray(w), N_CLASSES)
-    pt = tfit(_t(x), _t(y), _t(w), N_CLASSES)
+    pt = tfit(_gen(), _t(x), _t(y), _t(w), N_CLASSES)
     print('%s fit: w max diff %.3g, b max diff %.3g' % (
         name, np.abs(pt.w.numpy() - np.asarray(pj.w)).max(),
         np.abs(pt.b.numpy() - np.asarray(pj.b)).max()))
@@ -69,8 +73,8 @@ def test_linear_fit_matches_jax(scene, name):
                                       _t(q))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
     folds = np.stack([w, (np.arange(len(w)) % 4 != 0).astype(np.float32)])
-    pb = tfit(_t(x), _t(y), _t(folds), N_CLASSES, steps=50)
-    p1 = tfit(_t(x), _t(y), _t(folds[1]), N_CLASSES, steps=50)
+    pb = tfit(_gen(), _t(x), _t(y), _t(folds), N_CLASSES, steps=50)
+    p1 = tfit(_gen(), _t(x), _t(y), _t(folds[1]), N_CLASSES, steps=50)
     torch.testing.assert_close(pb.w[1], p1.w, rtol=1e-6, atol=1e-7)
 
 

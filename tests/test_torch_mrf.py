@@ -268,6 +268,20 @@ def test_graph_cuts_host_helpers_match_jax():
     np.testing.assert_array_equal(
         tgcs.compute_spatial_dist(cen, edges, relative=True),
         jgcs.compute_spatial_dist(cen, edges, relative=True))
-    tgcs.insert_gc_debug_images(None, slic, None, None, edges, None)
-    with pytest.raises(NotImplementedError, match='item 9'):
-        tgcs.insert_gc_debug_images({}, slic, None, None, edges, None)
+    assert tgcs.insert_gc_debug_images(None, slic, None, None, edges,
+                                       None) is None
+    _, edges = tgcs.get_vertexes_edges(slic)
+    k = int(slic.max()) + 1
+    unary = (rng.random((k, 3)) * 4).astype(np.float32)
+    weights = rng.random(len(edges)).astype(np.float32)
+    slic_mean = rng.random(slic.shape + (3,))
+    got, want = {'slic_mean': slic_mean}, {'slic_mean': slic_mean}
+    tgcs.insert_gc_debug_images(got, slic, None, unary, edges, weights,
+                                device='cpu')
+    jgcs.insert_gc_debug_images(want, slic, None, unary, edges, weights)
+    assert sorted(got) == sorted(want)
+    for key in ('segments', 'edges', 'edge_weights', 'img_graph_edges'):
+        np.testing.assert_array_equal(got[key], want[key])
+    assert len(got['imgs_unary_cost']) == 3
+    for a, b in zip(got['imgs_unary_cost'], want['imgs_unary_cost']):
+        np.testing.assert_array_equal(a, b)

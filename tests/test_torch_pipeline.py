@@ -517,10 +517,14 @@ def test_wrapper_slic_features_labels_matches_jax():
 
 
 _IMPORT_CHECK = """
+import importlib
+import os
 import sys
 sys.modules['jax'] = None
 sys.modules['pyimsegm_tpu'] = None
 sys.modules['PIL'] = None
+sys.modules['matplotlib'] = None
+sys.modules['apps'] = None
 import pyimsegm_tpu_torch
 from pyimsegm_tpu_torch import (_build, annotation, centers, classification,
                                 descriptors, ellipse_fitting, graph_cuts,
@@ -537,12 +541,24 @@ from pyimsegm_tpu_torch.ops import (color, connectivity_cuda,
                                     slic3d_cuda, slic_cuda, snakes)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import (ImageDimensionError, data_io,
-                                      data_samples, device, metrics, nifti,
-                                      profiling, read_zvi)
+                                      data_samples, device, drawing,
+                                      experiments, metrics, nifti, profiling,
+                                      read_zvi)
+apps_dir = os.path.join(os.path.dirname(pyimsegm_tpu_torch.__file__), 'apps')
+n_apps = 0
+for dirpath, _, files in os.walk(apps_dir):
+    for name in sorted(files):
+        if name.endswith('.py') and name != '__init__.py':
+            rel = os.path.relpath(os.path.join(dirpath, name[:-3]), apps_dir)
+            importlib.import_module('pyimsegm_tpu_torch.apps.'
+                                    + rel.replace(os.sep, '.'))
+            n_apps += 1
+assert n_apps == 26, n_apps
 import torch
 assert not torch.backends.cuda.matmul.allow_tf32
 assert not torch.backends.cudnn.allow_tf32
-bad = [m for m in sys.modules if m.startswith(('jax', 'pyimsegm_tpu.'))
+bad = [m for m in sys.modules if m.startswith(('jax', 'pyimsegm_tpu.',
+                                               'apps.', 'matplotlib'))
        and sys.modules[m] is not None]
 assert not bad, bad
 print('ok')

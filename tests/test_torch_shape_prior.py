@@ -66,7 +66,8 @@ def test_cumulative_distrib_matches_jax(case):
         max_dist = np.max(means + stds)
     else:
         means, stds, weights, max_dist = case
-    got = tsp.compute_cumulative_distrib(means, stds, weights, max_dist)
+    got = tsp.compute_cumulative_distrib(means, stds, weights, max_dist,
+                                         device='cpu')
     want = jsp.compute_cumulative_distrib(means, stds, weights, max_dist)
     assert got.shape == want.shape and got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

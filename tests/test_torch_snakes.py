@@ -107,28 +107,36 @@ def test_acwe_numpy_input_defaults_to_card():
 
 @pytest.mark.parametrize('method', ['morph-snakes_img', 'morph-snakes_seg'])
 def test_zoo_methods_match_the_app(method):
-    """The ovary zoo's two snake methods on a small scene, as
-    ``chip_smoke.py`` phase 14 builds them, against the app's own JAX
-    entry point (the full-size case, 300 iterations at 647x1024, takes
-    ~90 s on the CPU here, so the card holds it to the fixture)."""
+    """The ovary zoo's two snake methods on a small scene through the port's
+    app (``pyimsegm_tpu_torch.apps.run_ovary_egg_segmentation``, whose
+    registry and inputs ``chip_smoke.py`` phase 14 drives through
+    ``snake_call``) against the JAX app's own entry point (the full-size
+    case, 300 iterations at 647x1024, takes ~90 s on the CPU here, so the
+    card holds it to the fixture)."""
     import chip_smoke
     from apps.run_ovary_egg_segmentation import (segment_morphsnakes,
                                                  simplify_segm_3cls)
+    from pyimsegm_tpu_torch.apps import run_ovary_egg_segmentation as tzoo
     from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
     img, segm, centres = sample_ovary_scene((128, 160), 2, rand_seed=1)
-    np.testing.assert_array_equal(chip_smoke.simplify_segm_3cls(segm),
+    np.testing.assert_array_equal(tzoo.simplify_segm_3cls(segm),
                                   simplify_segm_3cls(segm))
     image, masks, n_iter, smoothing, lambdas = chip_smoke.snake_call(
         method, img, segm, centres)
     assert n_iter == int(np.hypot(128, 160) / 2)
     if method == 'morph-snakes_img':
         want = segment_morphsnakes(img, centres)
+        got = tzoo.segment_morphsnakes(img, centres, device='cpu')
     else:
         want = segment_morphsnakes(simplify_segm_3cls(segm), centres, True,
                                    smoothing, lambdas)
-    got = tsnakes.morph_acwe_multi(image, masks, n_iter=n_iter,
-                                   smoothing=smoothing, lambda1=lambdas[0],
-                                   lambda2=lambdas[1], device='cpu').numpy()
+        got = tzoo.segment_morphsnakes(tzoo.simplify_segm_3cls(segm),
+                                       centres, True, smoothing, lambdas,
+                                       device='cpu')
+    driven = tsnakes.morph_acwe_multi(image, masks, n_iter=n_iter,
+                                      smoothing=smoothing, lambda1=lambdas[0],
+                                      lambda2=lambdas[1], device='cpu')
+    np.testing.assert_array_equal(driven.numpy(), got)
     assert (got == want).mean() >= 0.999
     assert min(_ious(got, want, len(centres))) >= 0.99
 
