@@ -200,8 +200,9 @@ Phases (any failure raises and exits non-zero):
    JAX's SLIC against JAX's (the object and iteration bars both)
    (``path_rg2sp_greedy``); (d) the shape model
    fitted on the card from the training scenes' eggs, and RG2Sp with it
-   (``path_rg2sp_fitted``: rays equal to JAX's, JAX's component count and
-   the true-egg bar); (e) the
+   (``path_rg2sp_fitted``: rays equal to JAX's, JAX's component count, the
+   card's survival table within ``SHAPE_TABLE_RTOL`` of the CPU's and the
+   true-egg bar); (e) the
    one-shot object GraphCuts on the superpixels (object map >= 0.99) and
    on the 662,528 pixels (energy at most ``RG_ENERGY_SLACK`` above JAX's)
    (``path_object_graphcuts``); (f) the compat SLIC (raw labels >=
@@ -2966,6 +2967,9 @@ RG_OBJ_SHAPE = dict(coef_shape=1., shape_mean_std=(100., 20.))
 #: compat SLIC's raw labels equal on >= COMPAT_RAW_BAR of the pixels and
 #: the sp_compat segmentation's ARS
 RG_IOU_BAR, RG_TRUE_SLACK, RG_ENERGY_SLACK = 0.95, 0.02, 0.005
+#: a shape model's survival table on the card against the CPU's
+#: (``tests/test_torch_shape_prior.py``'s bar against JAX: f32 erf ulps)
+SHAPE_TABLE_RTOL, SHAPE_TABLE_ATOL = 1e-5, 2.5e-7
 #: RG2Sp's iteration count within RG_ITER_SLACK of JAX's (the stop rule's
 #: exact label equality turns on near-ties)
 RG_ITER_SLACK = 1
@@ -3174,10 +3178,12 @@ def path_rg2sp_fitted(torch, scene, fixture):
     """The shape model fitted on the card (rays of the training scenes'
     eggs, mean shift, the variational mixture from a torch.Generator), then
     GraphCut RG2Sp with it: the rays equal to JAX's, as many components as
-    JAX's mean shift gave, and each egg's IoU with the true egg no worse
-    than JAX's (carried model) by more than RG_TRUE_SLACK; returns the
-    launches."""
+    JAX's mean shift gave, its survival table (computed on the card) within
+    ``SHAPE_TABLE_RTOL`` + ``SHAPE_TABLE_ATOL`` of the same table computed
+    on the CPU, and each egg's IoU with the true egg no worse than JAX's
+    (carried model) by more than RG_TRUE_SLACK; returns the launches."""
     from pyimsegm_tpu_torch import region_growing as rg
+    from pyimsegm_tpu_torch.ops.shape_prior import compute_cumulative_distrib
     from pyimsegm_tpu_torch.ops.slic import slic_config
     from pyimsegm_tpu_torch.utils.data_samples import sample_ovary_scene
     img, segm, centres = scene
@@ -3206,16 +3212,27 @@ def path_rg2sp_fitted(torch, scene, fixture):
     true_jax = _object_ious(fixture['gc_labels'], fixture['slic'], eggs)
     rays_eq = float((np.asarray(rays) == fixture['rays']).mean())
     table = np.asarray(model[1])
+    gmm = model[0]
+    stds = np.sqrt(np.abs(np.diagonal(gmm.covariances_, axis1=1, axis2=2)))
+    table_cpu = compute_cumulative_distrib(
+        gmm.means_, stds, gmm.weights_, np.max(gmm.means_ + stds),
+        device='cpu')
+    table_ok = table.shape == table_cpu.shape and np.allclose(
+        table, table_cpu, rtol=SHAPE_TABLE_RTOL, atol=SHAPE_TABLE_ATOL)
+    table_diff = float(np.abs(table - table_cpu).max()) \
+        if table.shape == table_cpu.shape else float('inf')
     fit_ms = _warm_ms(torch, fit, 1)
     print('RG2Sp with the card-fitted shape model: rays equal to JAX\'s '
-          '%.6f, %d components (JAX %d), table %s finite %s; each egg\'s '
-          'IoU with the true egg %s (JAX with its model %s, at most %g '
-          'lower); fit ms %.3f (warm)'
-          % (rays_eq, len(model[0].weights_), len(fixture['shape_weights']),
-             table.shape, bool(np.isfinite(table).all()),
+          '%.6f, %d components (JAX %d), table %s finite %s, within rtol %g '
+          '+ atol %g of the same table on the CPU %s (max diff %.3g); each '
+          'egg\'s IoU with the true egg %s (JAX with its model %s, at most '
+          '%g lower); fit ms %.3f (warm)'
+          % (rays_eq, len(gmm.weights_), len(fixture['shape_weights']),
+             table.shape, bool(np.isfinite(table).all()), SHAPE_TABLE_RTOL,
+             SHAPE_TABLE_ATOL, table_ok, table_diff,
              ['%.4f' % v for v in true_port], ['%.4f' % v for v in true_jax],
              RG_TRUE_SLACK, fit_ms), flush=True)
-    if not (rays_eq == 1.0 and np.isfinite(table).all()
+    if not (rays_eq == 1.0 and np.isfinite(table).all() and table_ok
             and len(model[0].weights_) == len(fixture['shape_weights'])
             and all(p >= j - RG_TRUE_SLACK
                     for p, j in zip(true_port, true_jax))):
