@@ -9,8 +9,9 @@ Phases (any failure raises and exits non-zero):
 
 1. the card's name and power limit, as ``nvidia-smi`` reports them;
 2. build the CUDA kernels from ``pyimsegm_tpu_torch/csrc`` (one nvcc per
-   source, all started together, into ``build/torch_kernels/``) and print
-   the build seconds;
+   source, all started together, into ``build/torch_kernels/``), then the
+   native C++ library (``pyimsegm_tpu_torch/native``, g++, into
+   ``build/torch_native/``) and print the build seconds;
 3. for each kernel, at the bench geometry (884x1200, sp_size 35, regul 0.2)
    on the labels the SLIC kernels produce: kernel and plain PyTorch twin on
    the same inputs on the card, agreement within the stated tolerance, and
@@ -243,7 +244,29 @@ Phases (any failure raises and exits non-zero):
    ``insert_gc_debug_images``' arrays from the card equal to the CPU call's,
    each figure function drawn where matplotlib is installed, else raising
    ``ImportError`` naming it); a ``StageTimer(device='cuda')`` stage around
-   an app call against CUDA events (share >= ``APPS_TIMER_SHARE``).
+   an app call against CUDA events (share >= ``APPS_TIMER_SHARE``);
+16. the parallel and native modules (``path_parallel_native``) on a world
+   of one (``parallel.batch.make_mesh``: NCCL over an in-process store;
+   the process group is destroyed after the phase): (a) the group-training
+   step at the bench geometry: the features of the eight 884x1200 images,
+   ``distributed_gmm_em`` (30 iterations) on the card against the same
+   call on a CPU mesh (rtol 1e-4, atol 1e-5), then
+   ``segment_images_batch(mesh=mesh)`` equal to ``mesh=None`` bit for bit,
+   launching the bench path's rows, warm ms per image of both; (b) the
+   row-sharded tiled path on the 4096x4096 tile of ``path_tiles``:
+   ``slic_segment_sharded`` and the tiled pipeline launch none of the
+   port's kernels; the pipeline against the single-card
+   ``pipe_color2d_slic_features_model_graphcut`` (ARS >= 0.99, relabelled
+   agreement >= 0.995); warm ms, CUDA kernels a call, stage device ms and
+   idle share of both calls and of the single-card pipeline; both calls
+   again at 256x192 (sp_size 16) on the card and on a CPU mesh (labels
+   equal on >= 0.999 of the pixels, soft maps within 1e-5; the held
+   pipeline fits ``TILED_CPU_MODEL``, which draws nothing); (c) the native
+   library: its build seconds, ``enforce_connectivity`` on the card's
+   compat raw labels at 647x1024 equal to the numpy twin, both times, the
+   compat SLIC's time beside ``COMPAT_MS_NUMPY``, and ``solve_mrf`` on the
+   card within 1% of the exact ``alpha_expansion`` energy on three random
+   graphs.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -4385,7 +4408,304 @@ def path_apps(torch):
     return total
 
 
+#: phase 16, the parallel and native modules: the group-training step
+#: (``__graft_entry__.dryrun_multichip``'s body) at the bench geometry on a
+#: world of one, the tiled path on TILE_13 and, on the card and on the
+#: CPU, at TILED_SMALL, and the native C++ library
+TILED_SMALL, TILED_SMALL_SP = (256, 192), 16
+#: the card's distributed EM against the same call on CPU tensors (the CPU
+#: tests' tolerance)
+EM_RTOL, EM_ATOL, EM_ITERS = 1e-4, 1e-5, 30
+#: the tiled pipeline against the single-card one (the JAX package's own
+#: bars between its tiled and single-chip pipelines: ARS, and pixel
+#: agreement after relabelling each class by best overlap)
+TILED_ARS_BAR, TILED_RELABEL_BAR = 0.99, 0.995
+#: the card's tiled calls against the CPU's at TILED_SMALL: labels equal on
+#: this share of the pixels, soft maps within TILED_SOFT_ATOL.  The
+#: held pipeline fits 'kmeans_quantiles', which draws nothing: the 'GMM'
+#: fit draws its k-means++ seeds from a torch.Generator on the tensors'
+#: device, whose CUDA and CPU streams differ (that pair is printed)
+TILED_CPU_BAR, TILED_SOFT_ATOL = 0.999, 1e-5
+TILED_CPU_MODEL = 'kmeans_quantiles'
+#: segment_slic_img2d(compat=True) at 647x1024 with the numpy union-find
+#: (``path_compat`` before the native library, NVIDIA H100 80GB HBM3, 700 W)
+COMPAT_MS_NUMPY = 1442.0
+#: the card's solve_mrf against the exact alpha-expansion: relative energy
+#: gap on each of ORACLE_GRAPHS random graphs of tests/test_graphcut.py
+ORACLE_GAP, ORACLE_GRAPHS = 0.01, 3
+
+
+def _relabelled_agreement(got, want):
+    """Pixel agreement of ``got`` with ``want`` after mapping each class of
+    ``want`` to the class of ``got`` it overlaps most; and that mapping."""
+    perm = np.full(int(want.max()) + 1, -1)
+    for c in range(int(want.max()) + 1):
+        sel = want == c
+        if sel.any():
+            perm[c] = np.bincount(got[sel]).argmax()
+    return float(np.mean(perm[want] == got)), perm
+
+
+def path_group_training(torch, images):
+    """(a) The group-training step on a world of one: the features of the
+    eight bench images, ``distributed_gmm_em`` on ``make_mesh()`` against
+    the same call on a CPU mesh, then ``segment_images_batch(mesh=mesh)``,
+    equal to ``mesh=None``; returns the mesh batch's launches."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.models.class_model import ClassModel
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.parallel import batch
+    cfg = slic_ops.slic_config(CROP[0], CROP[1], SP_SIZE)
+    m = slic_ops.compactness_from_regul(SP_SIZE, SP_REGUL)
+    spec = pipelines._features_spec(FEATURES)
+    feats, masks = [], []
+    for img in images:
+        _, f, counts, _ = pipelines._slic_features_core(
+            torch.as_tensor(img, device=DEVICE), cfg, spec, m)
+        feats.append(torch.nan_to_num(f).cpu().numpy())
+        masks.append((counts > 0).to(torch.float32).cpu().numpy())
+    feats, masks = np.stack(feats), np.stack(masks)
+    mesh = batch.make_mesh(device=DEVICE)
+    cpu_mesh = batch.make_mesh(device='cpu')
+    params, em_ms = None, []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = batch.distributed_gmm_em(feats, masks, NB_CLASSES, mesh,
+                                          n_iter=EM_ITERS)
+        torch.cuda.synchronize()
+        em_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    params_cpu = batch.distributed_gmm_em(feats, masks, NB_CLASSES, cpu_mesh,
+                                          n_iter=EM_ITERS)
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    diffs = {}
+    for key, got in params._asdict().items():
+        got = got.cpu().numpy()
+        want = getattr(params_cpu, key).numpy()
+        if not (np.isfinite(got).all() and np.allclose(
+                got, want, rtol=EM_RTOL, atol=EM_ATOL)):
+            raise AssertionError('distributed EM: card %s differs from the '
+                                 'CPU: %s vs %s' % (key, got, want))
+        diffs[key] = float(np.abs(got - want).max())
+    print('group training, world of one: features %s of %d images; '
+          'distributed_gmm_em (%d iterations) card ms %s, CPU ms %.3f; card '
+          'vs CPU largest differences %s (rtol %g, atol %g); weights %s'
+          % (feats.shape, len(images), EM_ITERS,
+             ['%.3f' % t for t in em_ms], cpu_ms, json.dumps(diffs), EM_RTOL,
+             EM_ATOL, np.round(params.weights.cpu().numpy(), 6).tolist()),
+          flush=True)
+
+    model = ClassModel(params.weights, params.means, params.covs)
+    stack = np.stack(images)
+
+    def run(mesh_arg):
+        return batch.segment_images_batch(
+            stack, model, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL, mesh=mesh_arg)
+
+    (got, plain), launches = _drive('mesh batch (world of one)', PATH_BENCH,
+                                    lambda: (run(mesh), run(None)),
+                                    forbidden=WIDE)
+    for a, b in zip(got, plain):
+        if not np.array_equal(a, b):
+            raise AssertionError('the mesh batch differs from mesh=None')
+    for segm, soft in zip(*got):
+        _check_outputs(segm, soft)
+    ms_mesh = min(_warm_ms(torch, lambda: run(mesh), len(images))
+                  for _ in range(2))
+    ms_plain = min(_warm_ms(torch, lambda: run(None), len(images))
+                   for _ in range(2))
+    print('mesh batch of %d equals mesh=None bit for bit; warm ms per '
+          '884x1200 image: mesh %.3f, mesh=None %.3f'
+          % (len(images), ms_mesh, ms_plain), flush=True)
+    return launches
+
+
+def path_tiled(torch):
+    """(b) The tiled path on the 4096 x 4096 tile of ``path_tiles``:
+    ``slic_segment_sharded`` and the tiled pipeline on
+    ``make_mesh(axis_name='rows')``, which launch none of the port's
+    kernels; the pipeline against the single-card pipeline; warm ms, CUDA
+    kernels per call, the stage split and the idle share; then both calls
+    at TILED_SMALL on the card and on a CPU mesh."""
+    from pyimsegm_tpu_torch import pipelines
+    from pyimsegm_tpu_torch.parallel import batch, tiled
+    from pyimsegm_tpu_torch.utils.data_samples import \
+        sample_color_image_rand_segment
+    from pyimsegm_tpu_torch.utils.metrics import adjusted_rand_score
+    mesh = batch.make_mesh(axis_name='rows', device=DEVICE)
+    tile = sample_color_image_rand_segment(TILE_13, 3, rand_seed=1)[0]
+
+    def slic():
+        return tiled.slic_segment_sharded(tile, SP_SIZE, SP_REGUL, mesh=mesh)
+
+    def pipe():
+        return tiled.pipe_color2d_slic_features_model_graphcut_tiled(
+            tile, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL, mesh=mesh)
+
+    (labels, (segm, soft)), launches = _drive(
+        'tiled path %dx%d' % TILE_13, (), lambda: (slic(), pipe()),
+        forbidden=tuple(_counters()))
+    print('tiled path %dx%d: %d launches of the port\'s kernels (plain '
+          'PyTorch, as the JAX module is plain XLA)'
+          % (TILE_13 + (sum(launches.values()),)), flush=True)
+    if labels.shape != TILE_13 or segm.shape != TILE_13 \
+            or soft.shape != TILE_13 + (NB_CLASSES,) \
+            or not np.isfinite(soft).all() or segm.min() < 0 \
+            or segm.max() >= NB_CLASSES:
+        raise AssertionError('tiled path: bad output')
+    single = pipelines.pipe_color2d_slic_features_model_graphcut(
+        tile, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+        gc_regul=GC_REGUL)[0]
+    ars = adjusted_rand_score(segm, single)
+    agree, _ = _relabelled_agreement(segm, single)
+    print('tiled pipeline vs the single-card pipeline at %dx%d: ARS %.6f '
+          '(>= %g), relabelled agreement %.6f (>= %g)'
+          % (TILE_13 + (ars, TILED_ARS_BAR, agree, TILED_RELABEL_BAR)),
+          flush=True)
+    if not (ars >= TILED_ARS_BAR and agree >= TILED_RELABEL_BAR):
+        raise AssertionError('tiled pipeline disagrees with the single-card '
+                             'pipeline')
+    def single_card():
+        return pipelines.pipe_color2d_slic_features_model_graphcut(
+            tile, NB_CLASSES, FEATURES, sp_size=SP_SIZE, sp_regul=SP_REGUL,
+            gc_regul=GC_REGUL)
+
+    for name, fn in (('slic_segment_sharded', slic), ('tiled pipeline', pipe),
+                     ('single-card pipeline', single_card)):
+        ms = min(_warm_ms(torch, fn, 1) for _ in range(2))
+        stages, busy, kernels = _stage_device_ms(torch, fn)
+        # busy is read from a profiled call, ms from plain ones: a busy
+        # device can read a little above the warm ms
+        print('%s %dx%d: warm %.3f ms (%.3f MPix/s), %d CUDA kernels a '
+              'call, device busy %.3f ms, idle share %.4f; stage device ms '
+              '%s' % (name, TILE_13[0], TILE_13[1], ms,
+                      TILE_13[0] * TILE_13[1] / 1e6 / ms * 1e3, kernels, busy,
+                      max(0.0, 1.0 - busy / ms),
+                      json.dumps({k: round(v, 3) for k, v in stages.items()})),
+              flush=True)
+
+    small = sample_color_image_rand_segment(TILED_SMALL, 3, rand_seed=0)[0]
+    cpu_mesh = batch.make_mesh(axis_name='rows', device='cpu')
+    out = {}
+    for where, m_ in (('card', mesh), ('cpu', cpu_mesh)):
+        out[where] = [tiled.slic_segment_sharded(
+            small, TILED_SMALL_SP, SP_REGUL, mesh=m_)]
+        for model in (TILED_CPU_MODEL, 'GMM'):
+            out[where] += tiled.\
+                pipe_color2d_slic_features_model_graphcut_tiled(
+                    small, NB_CLASSES, FEATURES, sp_size=TILED_SMALL_SP,
+                    sp_regul=SP_REGUL, estim_model=model, gc_regul=GC_REGUL,
+                    mesh=m_)
+    card, cpu = out['card'], out['cpu']
+    slic_eq = float(np.mean(card[0] == cpu[0]))
+    segm_eq = float(np.mean(card[1] == cpu[1]))
+    soft_diff = float(np.abs(card[2] - cpu[2]).max())
+    gmm_agree, perm = _relabelled_agreement(card[3], cpu[3])
+    print('tiled calls at %dx%d (sp_size %d), card vs CPU: sharded SLIC '
+          'labels equal %.6f (>= %g); pipeline (%s) labels equal %.6f (>= '
+          '%g), soft maps within %.3g (<= %g); with GMM (device random '
+          'streams) relabelled agreement %.6f, classes %s'
+          % (TILED_SMALL + (TILED_SMALL_SP, slic_eq, TILED_CPU_BAR,
+                            TILED_CPU_MODEL, segm_eq, TILED_CPU_BAR,
+                            soft_diff, TILED_SOFT_ATOL, gmm_agree,
+                            perm.tolist())), flush=True)
+    if not (slic_eq >= TILED_CPU_BAR and segm_eq >= TILED_CPU_BAR
+            and soft_diff <= TILED_SOFT_ATOL):
+        raise AssertionError('tiled calls differ between the card and the '
+                             'CPU')
+
+
+def path_native(torch, scene):
+    """(c) The native library: its build seconds, the C++ union-find on the
+    card's compat raw labels of phase 13 (exactly the numpy twin), the
+    compat SLIC's time with it, and the exact alpha-expansion as the oracle
+    of the card's ``solve_mrf``."""
+    from pyimsegm_tpu_torch import native
+    from pyimsegm_tpu_torch.ops import graphcut
+    from pyimsegm_tpu_torch.ops import slic as slic_ops
+    from pyimsegm_tpu_torch.ops.connectivity_host import \
+        enforce_connectivity as numpy_twin
+    native.has_native()
+    print('native library: %s, build %.3f s'
+          % (os.path.relpath(native._lib_path(), ROOT), native.BUILD_SECONDS),
+          flush=True)
+    img, _, _ = scene
+    cfg = slic_ops.slic_config(OVARY[0], OVARY[1], RG_SP)
+    m = slic_ops.compactness_from_regul(RG_SP, RG_REGUL)
+    img_t = torch.as_tensor(img, device=DEVICE)
+    raw = slic_ops._slic_segment_skimage(img_t, cfg, m).cpu().numpy() \
+        .astype(np.int32)
+    min_size = int(0.5 * cfg.step * cfg.step)
+    native_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = native.enforce_connectivity(raw, min_size)
+        native_ms.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    want = numpy_twin(raw, min_size)
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    exact = bool(np.array_equal(got, want))
+    compat_ms = min(_warm_ms(torch, lambda: slic_ops.segment_slic_img2d(
+        img_t, sp_size=RG_SP, relative_compact=RG_REGUL, compat=True), 1)
+        for _ in range(2))
+    print('native enforce_connectivity on the card\'s compat raw labels '
+          '%dx%d: %d labels, equal to the numpy twin %s; native %.3f ms '
+          '(best of 5), numpy twin %.3f ms; segment_slic_img2d(compat=True) '
+          '%.3f ms (%.1f ms with the numpy union-find)'
+          % (OVARY + (int(got.max()) + 1, exact, min(native_ms), twin_ms,
+                      compat_ms, COMPAT_MS_NUMPY)), flush=True)
+    if not exact:
+        raise AssertionError('native union-find differs from its twin')
+
+    rng = np.random.default_rng(7)
+    gaps, ms = [], []
+    for _ in range(ORACLE_GRAPHS):
+        k, c = 300, 4
+        edges = rng.integers(0, k, size=(3 * k, 2)).astype(np.int32)
+        edges = edges[edges[:, 0] != edges[:, 1]]
+        weights = rng.uniform(0.1, 2.0, size=len(edges)).astype(np.float32)
+        unary = rng.uniform(0, 3, size=(k, c)).astype(np.float32)
+        pairwise = np.float32(graphcut.create_pairwise_matrix_uniform(1.0, c))
+        t0 = time.perf_counter()
+        _, e_exact = native.alpha_expansion(edges, weights, unary, pairwise)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        args = [torch.as_tensor(a, device=DEVICE)
+                for a in (unary, edges, weights, pairwise)]
+        lab = graphcut.solve_mrf(*args)
+        e_dev = float(graphcut.mrf_energy(lab, *args))
+        gaps.append((e_dev - e_exact) / e_exact)
+    print('solve_mrf on the card vs the exact alpha-expansion on %d random '
+          'graphs (K 300, C 4, E 3K): relative energy gaps %s (< %g); '
+          'alpha-expansion ms %s'
+          % (ORACLE_GRAPHS, ['%.6f' % g for g in gaps], ORACLE_GAP,
+             ['%.3f' % t for t in ms]), flush=True)
+    if not max(gaps) < ORACLE_GAP:
+        raise AssertionError('solve_mrf is more than 1% above the exact '
+                             'energy')
+
+
+def path_parallel_native(torch, images, scene):
+    """Phase 16; returns the mesh batch's launches.  The process group
+    ``make_mesh`` started is destroyed at the end."""
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    try:
+        launches = path_group_training(torch, images)
+        path_tiled(torch)
+        path_native(torch, scene)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print('phase 16 (parallel and native): %.1f s'
+          % (time.perf_counter() - t0), flush=True)
+    return launches
+
+
 def main():
+    started = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -4395,7 +4715,7 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip()
     print(gpu, flush=True)
     sys.path.insert(0, ROOT)
-    from pyimsegm_tpu_torch import _build
+    from pyimsegm_tpu_torch import _build, native
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
                                         grid_cuda, prep_cuda, slic3d_cuda,
@@ -4408,9 +4728,10 @@ def main():
     for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda,
                 connectivity_cuda):
         mod._lib()
-    print('build: %.2f s total, per library %s'
-          % (time.perf_counter() - t0, json.dumps(_build.BUILD_SECONDS)),
-          flush=True)
+    native.has_native()
+    print('build: %.2f s total, per library %s, native (g++) %.2f s'
+          % (time.perf_counter() - t0, json.dumps(_build.BUILD_SECONDS),
+             native.BUILD_SECONDS), flush=True)
 
     fixtures = []
     for path in (FIXTURE, FIXTURE_CONN, FIXTURE_FIT, FIXTURE_3D, FIXTURE_SUP,
@@ -4479,6 +4800,7 @@ def main():
                      path_compat(torch, scenes[-1], fixtures[9]),
                      path_rest(torch, scenes[-1], fixtures[10]))
     apps = path_apps(torch)
+    parallel = path_parallel_native(torch, images, scenes[-1])
     for rec in records:
         name = rec['name']
         rec['launches'] = (
@@ -4490,11 +4812,13 @@ def main():
             gray3d[name] if name in PATH_3D + PASSES_3D else fit[name])
         if name in PATH_CENTERS:
             rec['launches'] += sum(p[name] for p in centre_paths)
-        rec['launches'] += apps.get(name, 0)
+        rec['launches'] += apps.get(name, 0) + parallel.get(name, 0)
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
          for m in ('scipy', 'pandas', 'PIL', 'matplotlib', 'yaml')}),
         flush=True)
+    print('chip_smoke.py: %.1f s from its start, the builds included'
+          % (time.perf_counter() - started), flush=True)
     print(json.dumps({'kernels': records}), flush=True)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -123,6 +123,26 @@ def _flip_channel_perm():
     return [GRAPH_OFFSETS.index((-dy, -dx)) for dy, dx in GRAPH_OFFSETS]
 
 
+def _sym_mask_adjacency(adj, gh, gw):
+    """Symmetrise raw (gh, gw, 25) pair-count channels into a 0/1 f32
+    adjacency (edge (a, d) implies (a + d, -d)) and zero the channels that
+    leave the grid and the self channel (the last step of the row-sharded
+    adjacency, ``parallel/tiled.py``)."""
+    adj = (adj > 0).to(torch.float32)
+    perm = _flip_channel_perm()
+    partner = torch.stack(
+        [_shift2d(adj[..., perm[ci]], -dy, -dx)
+         for ci, (dy, dx) in enumerate(GRAPH_OFFSETS)], dim=-1)
+    adj = torch.maximum(adj, partner)
+    oy = torch.arange(gh, device=adj.device)[:, None, None]
+    ox = torch.arange(gw, device=adj.device)[None, :, None]
+    dy = torch.tensor([d[0] for d in GRAPH_OFFSETS], device=adj.device)
+    dx = torch.tensor([d[1] for d in GRAPH_OFFSETS], device=adj.device)
+    ok = ((oy + dy >= 0) & (oy + dy < gh) & (ox + dx >= 0) & (ox + dx < gw)
+          & (torch.arange(25, device=adj.device) != _SELF))
+    return torch.where(ok, adj, 0.0)
+
+
 def grid_adjacency(labels, cfg: SlicConfig):
     """(gh, gw, 25) 0/1 f32 adjacency between each superpixel and its grid
     neighbours, from conn4 pixel pairs (:func:`grid_cuda.grid_adjacency`:

@@ -420,9 +420,10 @@ def segment_slic_img2d(img, sp_size=50, relative_compact=0.1, slico=False,
         region and merge those below half a tile into a neighbour
     :param compat: the skimage-faithful mode (:func:`_slic_segment_skimage`
         on the device, then skimage's split, sequential relabel and merge
-        on the host, :mod:`pyimsegm_tpu_torch.ops.connectivity_host`): the
-        labels are component ids in raster order, their count depends on
-        the image, and they are not on the seed grid
+        on the host by the C++ union-find of
+        :mod:`pyimsegm_tpu_torch.native`): the labels are component ids in
+        raster order, their count depends on the image, and they are not on
+        the seed grid
     :returns: (H, W) int32 numpy labels
     """
     img = as_tensor(img, device)
@@ -434,9 +435,9 @@ def segment_slic_img2d(img, sp_size=50, relative_compact=0.1, slico=False,
         labels = _slic_segment_skimage(img, cfg, m, n_iter=n_iter)
         labels = labels.cpu().numpy().astype(np.int32)
         if enforce_connectivity:
-            from pyimsegm_tpu_torch.ops.connectivity_host import \
-                enforce_connectivity as _enforce
-            labels = _enforce(labels, min_size=int(0.5 * cfg.step * cfg.step))
+            from pyimsegm_tpu_torch import native
+            labels = native.enforce_connectivity(
+                labels, min_size=int(0.5 * cfg.step * cfg.step))
         return labels
     labels = slic_segment(img, cfg, m, n_iter=n_iter, slico=slico)
     if enforce_connectivity:

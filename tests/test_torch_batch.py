@@ -83,9 +83,3 @@ def test_batch_equals_single_image_calls(models, images):
         np.testing.assert_array_equal(segms[i], segm)
         np.testing.assert_array_equal(probs[i], soft)
 
-
-def test_mesh_raises(models, images):
-    _, tm = models
-    with pytest.raises(NotImplementedError):
-        tbatch.segment_images_batch(images, tm, FEATURES, sp_size=SP,
-                                    mesh=object())

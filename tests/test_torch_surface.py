@@ -31,14 +31,9 @@ KERNEL_MODULES = {
     'ops/connectivity_pallas.py': 'ops/connectivity_cuda.py',
     'ops/slic3d_pallas.py': 'ops/slic3d_cuda.py',
 }
-#: still to port: whole modules ('*') or names; ROADMAP.md item 9 says
-#: which later slice takes each
-PENDING = {
-    'parallel/tiled.py': '*',
-    'native/__init__.py': '*',
-    'parallel/__init__.py': {'make_mesh', 'distributed_gmm_em'},
-    'parallel/batch.py': {'make_mesh', 'distributed_gmm_em'},
-}
+#: still to port: whole modules ('*') or names (none: the port is
+#: complete)
+PENDING = {}
 #: apps still to port, as PENDING
 PENDING_APPS = {}
 
