@@ -1,0 +1,7 @@
+"""Device busy ms per item of the kernels launched in pyimsegm:features."""
+
+from portbench.metrics import busy_ms_per_item
+
+
+def read(ctx):
+    return busy_ms_per_item(ctx, ('features',))
