@@ -11,7 +11,10 @@ the selection.  Where every restart breaks down so (nearly collinear
 features, whose f32 covariance plus ``reg_covar`` rounds to an indefinite
 matrix), the fit runs EM again from the same start in float64 and keeps
 those covariances in float64; JAX returns the NaN fit there.  Deciding
-this is the fit's one host synchronisation.
+this is the fit's one host synchronisation.  While a profiler records
+(``utils.device.tracing``), EM counts its runs, iterations and refits, and
+the restart-iterations that were still active, read at that same
+synchronisation.
 
 Randomness comes from an explicit ``torch.Generator`` on the data's device;
 categorical draws use the Gumbel-max trick.  The draws differ from
@@ -25,6 +28,8 @@ import functools
 from typing import NamedTuple
 
 import torch
+
+from pyimsegm_tpu_torch.utils.device import count, tracing
 
 _LOG2PI = 1.8378770664093453
 
@@ -192,16 +197,24 @@ def quantile_init_centers(x, n_clusters):
 def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
     """EM from (..., N, C) responsibilities ``init_resp``, stopped per
     restart once the weighted mean log-likelihood moves by at most ``tol``.
+    While tracing it counts ``em_runs``, ``em_iters`` and
+    ``em_restart_iters``, and sums each iteration's active restarts on the
+    device (one elementwise add an iteration).
 
-    :returns: (params with the leading dimensions of ``init_resp``, scores)
+    :returns: (params with the leading dimensions of ``init_resp``, scores,
+        the (...) iterations each restart was active, or None untraced)
     """
     params = _m_step(x, init_resp, sample_weight, reg_covar)
     shape = params.weights.shape[:-1]
     prev_ll = torch.full(shape, float('-inf'), dtype=x.dtype,
                          device=x.device)
     ll = torch.full(shape, float('inf'), dtype=x.dtype, device=x.device)
+    active_iters = torch.zeros(shape, dtype=torch.int32, device=x.device) \
+        if tracing() else None
     for _ in range(max_iter):
         active = torch.abs(ll - prev_ll) > tol     # NaN stops, as in JAX
+        if active_iters is not None:
+            active_iters += active
         lr = gmm_log_resp(params, x)
         new = _m_step(x, torch.softmax(lr, dim=-1), sample_weight, reg_covar)
         new_ll = _mean_ll(lr, sample_weight)
@@ -210,18 +223,35 @@ def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
                         a, b) for a, b in zip(new, params)])
         prev_ll = torch.where(active, ll, prev_ll)
         ll = torch.where(active, new_ll, ll)
-    return params, gmm_score(params, x, sample_weight)
+    if active_iters is not None:
+        count('em_runs')
+        count('em_iters', max_iter)
+        count('em_restart_iters', max_iter * shape.numel())
+    return params, gmm_score(params, x, sample_weight), active_iters
 
 
 def _em_fit_f64_if_all_nan(x, sample_weight, max_iter, reg_covar, init_resp):
     """:func:`_em_fit` in float32; where every restart's score is NaN, again
     in float64 from the same responsibilities (weights and means returned
-    in float32, covariances in float64)."""
-    params, scores = _em_fit(x, sample_weight, max_iter, reg_covar,
-                             init_resp)
-    if bool(torch.isnan(scores).all()):
-        params, scores = _em_fit(x.double(), sample_weight.double(),
-                                 max_iter, reg_covar, init_resp.double())
+    in float32, covariances in float64).  While tracing, the active
+    restart-iterations come to the host in the same copy as the NaN test
+    (``em_active_iters``; a refit's take one copy more), and a refit counts
+    ``em_refits``."""
+    params, scores, active = _em_fit(x, sample_weight, max_iter, reg_covar,
+                                     init_resp)
+    if active is None:
+        all_nan = bool(torch.isnan(scores).all())
+    else:
+        all_nan, n_active = torch.stack([
+            torch.isnan(scores).all().to(torch.int64), active.sum()]).tolist()
+        count('em_active_iters', n_active)
+    if all_nan:
+        count('em_refits')
+        params, scores, active = _em_fit(x.double(), sample_weight.double(),
+                                         max_iter, reg_covar,
+                                         init_resp.double())
+        if active is not None:
+            count('em_active_iters', int(active.sum()))
         params = GMMParams(params.weights.float(), params.means.float(),
                            params.covs)
     return params, scores

@@ -552,17 +552,17 @@ def _tiled_pipe_shard(lab_loc, valid_loc, feat_loc, centers0, spatial_w2,
     from pyimsegm_tpu_torch.utils.device import stage_range
 
     cfg = band.cfg
-    with stage_range('tiled_slic'):
+    with stage_range('slic'):
         labels_loc = _slic_band(lab_loc, valid_loc, centers0, band,
                                 spatial_w2, n_iter)
         # padded pixels must not join or spread a superpixel (the unsharded
         # path crops before enforcement and adjacency)
         labels_loc = torch.where(valid_loc > 0, labels_loc, -1)
     if connectivity:
-        with stage_range('tiled_enforce'):
+        with stage_range('enforce'):
             labels_loc = _local_enforce_connectivity(labels_loc, band)
 
-    with stage_range('tiled_features'):
+    with stage_range('features'):
         py, px = _pixel_coords(band)
         py, px = torch.broadcast_tensors(py, px)
         data = torch.cat([feat_loc, feat_loc * feat_loc,
@@ -581,21 +581,23 @@ def _tiled_pipe_shard(lab_loc, valid_loc, feat_loc, centers0, spatial_w2,
         features = torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags],
                              dim=-1)
 
-    with stage_range('tiled_model'):
+    with stage_range('fit'):
         mask = (counts > 0).to(torch.float32)
         model = estim_class_model(features, nb_classes, estim_model,
                                   sample_weight=mask, seed=seed)
+    with stage_range('predict_proba'):
         proba = model.predict_proba(features)
 
-    with stage_range('tiled_mrf'):
+    with stage_range('edges'):
         adj = _local_adjacency(labels_loc, band)
         wgrid = grid_edge_weights(None, cfg, proba=proba, features=features,
                                   edge_type=gc_edge_type, adj=adj,
                                   centers=sp_centers)
+    with stage_range('mrf'):
         class_lb = solve_mrf_grid(compute_unary_cost(proba), wgrid, pairwise,
                                   cfg)
 
-    with stage_range('tiled_lookup'):
+    with stage_range('lookup'):
         segm_loc = torch.round(_local_table_lookup(
             class_lb.to(torch.float32)[:, None], labels_loc,
             band)[..., 0]).to(torch.int32)

@@ -101,19 +101,27 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
         else _fusable_color_spec(feats_spec)
     min_size = int(0.5 * cfg.step * cfg.step)
     if fuse_key is not None:
-        img_f = image.to(torch.float32)
-        feat_img = (color_ops.convert_img_color_from_rgb(
-            img_f, fuse_key.split('_')[-1]) if '_' in fuse_key else img_f)
         flags = dict(feats_spec)[fuse_key]
-        labels, counts, centers, msums = slic_ops.slic_segment_with_features(
-            image, feat_img, cfg, compactness, n_iter=n_iter)
+        with stage_range('slic'):
+            # the fused pass's moments are of the image in the key's space
+            img_f = image.to(torch.float32)
+            feat_img = (color_ops.convert_img_color_from_rgb(
+                img_f, fuse_key.split('_')[-1]) if '_' in fuse_key
+                else img_f)
+            labels, counts, centers, msums = \
+                slic_ops.slic_segment_with_features(
+                    image, feat_img, cfg, compactness, n_iter=n_iter)
         if connectivity:
-            labels, sums = grid_ops.enforce_minsize_with_moments(
-                labels, cfg, min_size, centers, feat_img)
-            counts = sums[:, 6]
-            centers = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
-            msums = sums[:, :6]
-        return labels, _moment_features(msums, counts, flags), counts, centers
+            with stage_range('enforce'):
+                labels, sums = grid_ops.enforce_minsize_with_moments(
+                    labels, cfg, min_size, centers, feat_img)
+                counts = sums[:, 6]
+                centers = sums[:, 7:9] / torch.clamp_min(counts[:, None],
+                                                         1.0)
+                msums = sums[:, :6]
+        with stage_range('features'):
+            features = _moment_features(msums, counts, flags)
+        return labels, features, counts, centers
     if connectivity or slico:
         with stage_range('slic'):
             labels = slic_ops.slic_segment(image, cfg, compactness,
@@ -140,13 +148,15 @@ def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
                              connectivity=True):
     labels, features, _counts, centers = _slic_features_core(
         image, cfg, feats_spec, compactness, connectivity=connectivity)
-    proba = model.predict_proba(features)
-    segm_soft = grid_lookup(proba, labels, cfg)
+    with stage_range('predict_proba'):
+        proba = model.predict_proba(features)
     graph_labels = graphcut.segment_graph_cut_general(
         labels, proba, cfg.n_segments, image=image.to(torch.float32),
         features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
         grid_ctx=(labels, cfg), centers=centers)
-    segm = grid_lookup(graph_labels, labels, cfg)
+    with stage_range('lookup'):
+        segm_soft = grid_lookup(proba, labels, cfg)
+        segm = grid_lookup(graph_labels, labels, cfg)
     return segm, segm_soft, labels, proba, graph_labels
 
 
@@ -177,16 +187,20 @@ def _pipe_unsup_core(image, *, cfg, feats_spec, nb_classes, estim_model,
     MRF -> upsampling, all on the image's device."""
     labels, features, counts, centers = _slic_features_core(
         image, cfg, feats_spec, compactness)
-    mask = (counts > 0).to(torch.float32)
-    model = estim_class_model(features, nb_classes, estim_model, pca_coef,
-                              use_scaler, sample_weight=mask, seed=seed)
-    proba = model.predict_proba(features)
-    segm_soft = grid_lookup(proba, labels, cfg)
+    with stage_range('fit'):
+        mask = (counts > 0).to(torch.float32)
+        model = estim_class_model(features, nb_classes, estim_model,
+                                  pca_coef, use_scaler, sample_weight=mask,
+                                  seed=seed)
+    with stage_range('predict_proba'):
+        proba = model.predict_proba(features)
     graph_labels = graphcut.segment_graph_cut_general(
         labels, proba, cfg.n_segments, image=image.to(torch.float32),
         features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
         grid_ctx=(labels, cfg), centers=centers)
-    segm = grid_lookup(graph_labels, labels, cfg)
+    with stage_range('lookup'):
+        segm_soft = grid_lookup(proba, labels, cfg)
+        segm = grid_lookup(graph_labels, labels, cfg)
     return segm, segm_soft, labels, features, proba, model, graph_labels
 
 
@@ -196,17 +210,26 @@ def _model_device(model):
     return next(iter(model.buffers())).device
 
 
-def _fetch_reconstruct(labels, proba, graph_labels, cfg):
+def _fetch_reconstruct(labels, proba, graph_labels, cfg, classes=None):
     """(segm, segm_soft) numpy arrays gathered on the host from the (H, W)
-    labels (int16 when K allows) and the (K,) / (K, C) tables.
+    labels (int16 when K allows) and the (K,) / (K, C) tables, ``segm``
+    relabelled by ``classes`` where given.  The copies come first; the
+    numpy work after them is the ``pyimsegm:gather`` range, inside the
+    caller's ``pyimsegm:fetch``.
 
     Equal to fetching the device ``grid_lookup`` outputs only for enforced
     (``connectivity=True``) labels, which all lie in their pixel's 3x3 seed
     window; raw labels must take the device lookup instead."""
     small = labels.to(torch.int16) if cfg.n_segments <= 0x7fff else labels
-    labels_np = small.cpu().numpy().astype(np.int64)
-    return (graph_labels.cpu().numpy()[labels_np],
-            proba.cpu().numpy()[labels_np])
+    labels_np = small.cpu().numpy()
+    graph_np = graph_labels.cpu().numpy()
+    proba_np = proba.cpu().numpy()
+    with stage_range('gather'):
+        labels_np = labels_np.astype(np.int64)
+        segm = graph_np[labels_np]
+        if classes is not None:
+            segm = classes[segm]
+        return segm, proba_np[labels_np]
 
 
 def _to_model_device(image, model):
@@ -256,13 +279,17 @@ def segment_color2d_slic_features_model_graphcut(
         image, model_pipeline, cfg=cfg,
         feats_spec=_features_spec(dict_features), gc_regul=float(gc_regul),
         gc_edge_type=gc_edge_type, compactness=m, connectivity=connectivity)
-    if debug_visual is not None:
-        debug_visual['slic'] = labels.cpu().numpy()
-        debug_visual['proba'] = proba.cpu().numpy()
-    if connectivity:
-        return _fetch_reconstruct(labels, proba, graph_labels, cfg)
-    # raw labels may hold out-of-window pixels: the device lookup holds
-    return segm.cpu().numpy(), segm_soft.cpu().numpy()
+    with stage_range('fetch'):
+        if debug_visual is not None:
+            debug_visual['slic'] = labels.cpu().numpy()
+            debug_visual['proba'] = proba.cpu().numpy()
+        if connectivity:
+            return _fetch_reconstruct(labels, proba, graph_labels, cfg)
+        # raw labels may hold out-of-window pixels: the device lookup holds
+        segm, segm_soft = segm.cpu().numpy(), segm_soft.cpu().numpy()
+        # nothing left for the host to do: still one gather a fetch
+        with stage_range('gather'):
+            return segm, segm_soft
 
 
 def _segment_compat_core(image, model, dict_features, sp_size, sp_regul,
@@ -300,10 +327,11 @@ def _segment_compat_core(image, model, dict_features, sp_size, sp_regul,
     with stage_range('fetch'):
         graph_labels = graph_labels.cpu().numpy()
         proba = proba.cpu().numpy()
-    classes = getattr(model, 'classes_', None)
-    classes = np.arange(proba.shape[1]) if classes is None \
-        else np.asarray(classes)
-    return classes[graph_labels][labels_np], proba[labels_np]
+        with stage_range('gather'):
+            classes = getattr(model, 'classes_', None)
+            classes = np.arange(proba.shape[1]) if classes is None \
+                else np.asarray(classes)
+            return classes[graph_labels][labels_np], proba[labels_np]
 
 
 def _segment_duck_typed(image, model, dict_features, sp_size, sp_regul,
@@ -339,23 +367,22 @@ def _segment_classif(image, classif, cfg, compactness, dict_features,
         image, classif, cfg=cfg, feats_spec=_features_spec(dict_features),
         gc_regul=float(gc_regul), gc_edge_type=gc_edge_type,
         compactness=compactness, connectivity=connectivity)
+    classes = np.asarray(classif.classes_)
     with stage_range('fetch'):
-        if connectivity:
-            segm_dense, segm_soft = _fetch_reconstruct(labels, proba,
-                                                       graph_labels, cfg)
-        else:
-            # raw labels may hold out-of-window pixels: one device lookup
-            # of [graph label, proba]
-            up = grid_lookup(torch.cat(
-                [graph_labels[:, None].to(torch.float32), proba], dim=-1),
-                labels, cfg).cpu().numpy()
-            segm_dense = up[..., 0].astype(np.int64)
-            segm_soft = up[..., 1:]
         if debug_visual is not None:
             debug_visual['slic'] = labels.cpu().numpy()
             debug_visual['features'] = features.cpu().numpy()
             debug_visual['proba'] = proba.cpu().numpy()
-    return np.asarray(classif.classes_)[segm_dense], segm_soft
+        if connectivity:
+            return _fetch_reconstruct(labels, proba, graph_labels, cfg,
+                                      classes)
+        # raw labels may hold out-of-window pixels: one device lookup of
+        # [graph label, proba]
+        up = grid_lookup(torch.cat(
+            [graph_labels[:, None].to(torch.float32), proba], dim=-1),
+            labels, cfg).cpu().numpy()
+        with stage_range('gather'):
+            return classes[up[..., 0].astype(np.int64)], up[..., 1:]
 
 
 def compute_color2d_superpixels_features(image, dict_features, sp_size=30,
@@ -423,7 +450,8 @@ def pipe_color2d_slic_features_model_graphcut(
     :param seed: seed of the model fit's ``torch.Generator``
     :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) float ndarray)
     """
-    image = as_tensor(image, device)
+    with stage_range('upload'):
+        image = as_tensor(image, device)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
     segm, segm_soft, labels, features, proba, model, graph_labels = \
@@ -432,13 +460,17 @@ def pipe_color2d_slic_features_model_graphcut(
             nb_classes=nb_classes, estim_model=estim_model, pca_coef=pca_coef,
             use_scaler=use_scaler, gc_regul=float(gc_regul),
             gc_edge_type=gc_edge_type, compactness=m, seed=seed)
-    if debug_visual is not None:
+    with stage_range('fetch'):
+        if debug_visual is None:
+            return _fetch_reconstruct(labels, proba, graph_labels, cfg)
         debug_visual['slic'] = labels.cpu().numpy()
         debug_visual['features'] = features.cpu().numpy()
         debug_visual['proba'] = proba.cpu().numpy()
         debug_visual['model'] = model
-        return segm.cpu().numpy(), segm_soft.cpu().numpy()
-    return _fetch_reconstruct(labels, proba, graph_labels, cfg)
+        segm, segm_soft = segm.cpu().numpy(), segm_soft.cpu().numpy()
+        # nothing left for the host to do: still one gather a fetch
+        with stage_range('gather'):
+            return segm, segm_soft
 
 
 def estim_model_classes_group(list_images, nb_classes, dict_features,
@@ -530,14 +562,16 @@ def pipe_gray3d_slic_features_model_graphcut(
         image, cfg=cfg, feats_spec=_features_spec(dict_features),
         nb_classes=nb_classes, estim_model=estim_model,
         gc_regul=float(gc_regul), compactness=m, seed=seed)
-    if debug_visual is not None:
-        debug_visual['slic'] = labels.cpu().numpy()
-        debug_visual['features'] = features.cpu().numpy()
-        debug_visual['model'] = model
-    # class ids fit in a byte: fetch 1 B per voxel instead of 4
     with stage_range('fetch'):
+        if debug_visual is not None:
+            debug_visual['slic'] = labels.cpu().numpy()
+            debug_visual['features'] = features.cpu().numpy()
+            debug_visual['model'] = model
+        # class ids fit in a byte: fetch 1 B per voxel instead of 4
         small = segm.to(torch.uint8) if nb_classes <= 0xff else segm
-        return small.cpu().numpy().astype(np.int64)
+        small = small.cpu().numpy()
+        with stage_range('gather'):
+            return small.astype(np.int64)
 
 
 def train_classif_color2d_slic_features(list_images, list_annots,

@@ -1,5 +1,8 @@
 """Where a call runs: a tensor input on its own device, a numpy input on
-the ``device`` the caller names (``'cuda'`` by default)."""
+the ``device`` the caller names (``'cuda'`` by default); and the port's one
+tracing system: ``pyimsegm:<name>`` profiler ranges around the stages of a
+call, and counters of the work inside them, both live only while a
+``torch.profiler`` session records in this process (:func:`tracing`)."""
 
 import numpy as np
 import torch
@@ -25,8 +28,18 @@ def host_array(x):
     return np.asarray(x)
 
 
-#: prefix of the stage ranges that ``tools/profile_torch_port.py`` reads
+#: prefix of the stage ranges that ``portbench/trace.py`` reads
 STAGE_PREFIX = 'pyimsegm:'
+
+#: {name: count}, process-wide like the profiler session that turns
+#: counting on
+_COUNTERS = {}
+
+
+def tracing():
+    """True while a ``torch.profiler`` session records in this process: the
+    one switch of the stage ranges and the counters."""
+    return torch.autograd._profiler_enabled()
 
 
 def stage_range(name):
@@ -35,3 +48,20 @@ def stage_range(name):
     device time of the kernels it launched to it; without a profiler it
     costs a few microseconds."""
     return torch.profiler.record_function(STAGE_PREFIX + name)
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name`` while :func:`tracing`; otherwise
+    nothing."""
+    if tracing():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+def counters():
+    """A copy of the counters: {name: count} of the work done while
+    tracing, since the process started or :func:`reset_counters`."""
+    return dict(_COUNTERS)
+
+
+def reset_counters():
+    _COUNTERS.clear()

@@ -11,9 +11,18 @@ enforcement do the most work.  Prints:
 
 * warm host-clock ms per stage (each stage ends in a synchronize);
 * the batch call's warm ms per image, in turns with the stage runs;
-* from ``torch.profiler`` over one warm batch call of one image: the device
-  time summed over kernels and copies, the wall time, the device idle
-  share, the launch count and the top kernels by device time.
+* one warm batch call of one image traced as the benchmark traces its
+  cells (``portbench.trace``, see below).
+
+Every traced window is reduced by ``portbench.trace.summarise``, the
+benchmark's reduction, and printed as one JSON object of figures per
+input: the window's ms, device busy ms and idle share (no kernel, copy or
+memset running, from device timestamps), per ``pyimsegm:<stage>`` range
+its count, host ms, busy ms (the kernels launched in it, innermost range
+first) and kernels, ``gather_ms`` and the EM readers of
+``portbench/metrics/`` where the path has them, the program's counters of
+the window (``utils.device.counters``), the top kernels and the idle gaps
+by range; the chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 
 ``--path fit`` drives the unsupervised fit path
 (``pipe_color2d_slic_features_model_graphcut`` with the full colour feature
@@ -27,10 +36,9 @@ predict_proba, MRF, fetch), and profiles one warm call the same way.
 std / energy, a 2-class GMM fitted on the volume) on the structured volumes
 of ``sample_gray_volume_3d`` (seeds 0, 1, ...).  Its stages (upload, slic,
 counts, features, fit, predict_proba, edges, mrf, lookup, fetch) are the
-``pyimsegm:<stage>`` profiler ranges that the pipeline itself opens, read
-from a profile of each warm call: host ms per range and the range's span
-on the device; the call's own host-clock ms are taken in turns with the
-profiled calls, and one warm call is profiled as above.
+``pyimsegm:<stage>`` profiler ranges that the pipeline itself opens: each
+warm call's host-clock ms, then every input in one traced window, reduced
+as above.
 
 ``--path 3d_tlm`` does the same with LM texture beside the intensity
 statistics (colour mean / std / energy and ``tLM`` mean, 23 features,
@@ -81,8 +89,6 @@ Run from the root of a checkout on a machine with a CUDA card::
     python3 tools/profile_torch_port.py --out DIR [--images 4] \
         [--path bench|fit|3d|3d_tlm|sup|centers|rg2sp|kernels]
         [--root CHECKOUT]
-
-The chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 """
 
 import argparse
@@ -205,49 +211,66 @@ def _fit_stages(torch, image):
     return times
 
 
-def _stage_ranges(prof):
-    """{stage: (host ms, device ms)} of the pipeline's ``pyimsegm:<stage>``
-    ranges (``utils.device.stage_range``) in one profile: the range's host
-    time, and its span on the device, from the first kernel launched inside
-    it to the end of the last (idle gaps within the stage included)."""
-    from pyimsegm_tpu_torch.utils.device import STAGE_PREFIX
-    out = {}
-    for e in prof.events():
-        if not e.name.startswith(STAGE_PREFIX):
-            continue
-        name = e.name[len(STAGE_PREFIX):]
-        host, dev = out.get(name, (0.0, 0.0))
-        if str(e.device_type).endswith('CPU'):
-            host += e.cpu_time_total / 1e3
-        else:
-            dev += e.device_time_total / 1e3
-        out[name] = (host, dev)
+def _reduce(s, counters):
+    """A JSON-ready dict of one traced window's summary ``s``
+    (``portbench.trace.summarise``, the benchmark's reduction): the window,
+    device busy ms and idle share, and per ``pyimsegm:<stage>`` range its
+    count, host ms, busy ms and kernels a traced item; ``gather_ms`` and
+    the EM readers as ``portbench/metrics/`` reads them (for the stages the
+    trace holds; a reading the trace lacks says so); and the program's
+    counters of the window."""
+    from portbench import trace as tr
+    from portbench.metrics import em_iters, em_useful_share, gather_ms
+    n = s['items']
+    ctx = {'summary': s, 'config': {'stages': list(s['stages'])},
+           'counters': counters}
+    out = {'items': n, 'window_ms': s['window_us'] / 1e3 / n,
+           'busy_ms': s['busy_us'] / 1e3 / n,
+           'device_idle_share': 100.0 * (1.0 - s['busy_us']
+                                         / s['window_us']),
+           'stages': {k: {'count': v['count'] / n,
+                          'host_ms': v['host_us'] / 1e3 / n,
+                          'busy_ms': v['busy_us'] / 1e3 / n,
+                          'kernels': v['kernels'] / n}
+                      for k, v in sorted(s['stages'].items())},
+           'counters': counters,
+           'device_ops': tr.top(s['device_ops'], 15),
+           'idle_gaps': tr.top(s['idle_by_range'])}
+    for name, mod in (('gather_ms', gather_ms), ('em_iters', em_iters),
+                      ('em_useful_share', em_useful_share)):
+        try:
+            value = mod.read(ctx)
+        except tr.TraceError as err:
+            value = 'not read: %s' % err
+        if value is not None:
+            out[name] = value
     return out
 
 
-def _profile_ranges(torch, run, inputs, out_dir, kind):
-    """The public call on each input, in turns: once on the host clock,
-    once under the profiler for the pipeline's stage ranges; then one
-    profiled call's device summary."""
-    from torch.profiler import ProfilerActivity, profile
+def _traced(run, inputs, out_dir, kind):
+    """``run`` on each input under the profiler, each in a
+    ``portbench:item`` range (``portbench.trace.profile_items``); prints
+    the window's reduction and writes its chrome trace to ``out_dir``."""
+    from portbench import trace as tr
+    from pyimsegm_tpu_torch.utils import device
+    device.reset_counters()
+    events = tr.profile_items(run, inputs)
+    red = _reduce(tr.summarise(events), device.counters())
+    print('%s traced (%d inputs, per input): %s'
+          % (kind, len(inputs), json.dumps(red)))
+    with open(os.path.join(out_dir, 'torch_port_trace_%s.json' % kind),
+              'w') as fh:
+        json.dump({'traceEvents': events}, fh)
 
+
+def _profile_ranges(torch, run, inputs, out_dir, kind):
+    """The public call on each input on the host clock, then all inputs in
+    one traced window, reduced as the benchmark reduces its traces."""
     run(inputs[0])                                         # build + warm
-    host, device, walls = [], [], []
-    for x in inputs:
-        walls.append(_timed(torch, lambda: run(x)))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            run(x)
-            torch.cuda.synchronize()
-        ranges = _stage_ranges(prof)
-        host.append({k: v[0] for k, v in ranges.items()})
-        device.append({k: v[1] for k, v in ranges.items()})
-    _report('%s host (profiled)' % kind, host, walls, 1)
-    mean = {n: round(float(np.mean([r[n] for r in device])), 3)
-            for n in device[0]}
-    print('%s stage device span ms (mean of %d inputs): %s; sum %.3f'
-          % (kind, len(device), json.dumps(mean), sum(mean.values())))
-    _profile(torch, lambda: run(inputs[0]), out_dir, kind)
+    walls = [_timed(torch, lambda: run(x)) for x in inputs]
+    print('%s call ms per input (host clock): %s'
+          % (kind, json.dumps([round(w, 3) for w in walls])))
+    _traced(run, inputs, out_dir, kind)
 
 
 def _profile_gray3d(torch, volumes, out_dir, features, kind):
@@ -379,33 +402,9 @@ def _profile_fit(torch, images, out_dir):
 
 
 def _profile(torch, run, out_dir, kind):
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    from pyimsegm_tpu_torch.utils.device import STAGE_PREFIX
-    # kernels and copies; a stage range's device-side span is no work
-    events = [e for e in prof.key_averages()
-              if getattr(e, 'device_type', None) is not None
-              and str(e.device_type).endswith('CUDA')
-              and not e.key.startswith(STAGE_PREFIX)]
-    device_ms = sum(e.self_device_time_total for e in events) / 1e3
-    launches = sum(e.count for e in events)
-    print('%s profiled one-image call: wall %.3f ms, device busy '
-          '%.3f ms, idle share %.4f, %d kernel launches'
-          % (kind, wall, device_ms, 1.0 - device_ms / wall, launches))
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
-        print('  %-60s %8.3f ms %5d calls' % (e.key[:60],
-                                              e.self_device_time_total / 1e3,
-                                              e.count))
-    prof.export_chrome_trace(os.path.join(out_dir,
-                                          'torch_port_trace_%s.json' % kind))
-    with open(os.path.join(out_dir, 'torch_port_profile_%s.txt' % kind),
-              'w') as fh:
-        fh.write(prof.key_averages().table(row_limit=40))
+    """One call in a traced window, reduced as the benchmark reduces its
+    traces."""
+    _traced(lambda _: run(), [None], out_dir, kind)
 
 
 def main():
@@ -433,6 +432,7 @@ def main():
     print(subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
         capture_output=True, text=True, check=True).stdout.strip())
+    sys.path.append(ROOT)                                  # portbench
     if args.path == 'kernels':
         import importlib.util
         spec = importlib.util.spec_from_file_location(

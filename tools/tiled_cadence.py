@@ -11,7 +11,7 @@ tiled pipeline on the 4096 x 4096 synthetic tile of ``chip_smoke.py``
 cadence of ``--every`` (0 runs both loops to their caps, 4 * step and 2 *
 step) and prints, per cadence: the boundary-row exchanges of one call
 (steps of both loops, plus the two single exchanges), the best warm ms of
-three calls, the device ms of the ``tiled_enforce`` stage, the CUDA kernels
+three calls, the device ms of the ``enforce`` stage, the CUDA kernels
 and device busy ms of one profiled call, and whether the maps equal the
 first cadence's.  Run from the root of a checkout::
 
@@ -71,7 +71,7 @@ def main():
             print(json.dumps(dict(
                 check_every=every or 'cap', row_exchanges=steps,
                 warm_ms=round(ms, 3),
-                enforce_device_ms=round(stages.get('tiled_enforce', -1.0), 3),
+                enforce_device_ms=round(stages.get('enforce', -1.0), 3),
                 kernels=kernels, busy_ms=round(busy, 3),
                 same_as_first=bool(np.array_equal(out[0], first[0])
                                    and np.array_equal(out[1], first[1])))),
