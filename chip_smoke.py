@@ -125,7 +125,22 @@ Phases (any failure raises and exits non-zero):
    and against row 12 on the same labels and centres (exact), with the
    launches per call and the grid passes run, and row 2's schedule, plain
    and SLICO, on each tile against its twin (centres within 1e-3); (b) row 7 at F = 18 and 60
-   against its twin; (c) config 2 at the bench geometry with the JAX-trained
+   against its twin; the filter-bank kernel (run at the script's start,
+   while the profiler keeps its events) against its plain twin
+   (one ``F.conv2d`` a battery), first with the three banks and
+   ``FB_ODD_BANKS`` on ``FB_EDGE_SHAPES`` (images narrower than the halo,
+   tiles cut at the edges), then on ``FB_CASES`` (the short LM bank on a
+   2048x3600 tile, the full LM and Gabor banks at 884x1200, the full LM
+   bank on the 3D workload's 48 slices as channels): max |kernel - twin|
+   <= ``FB_REL`` of the twin's largest magnitude, one launch a call, no
+   ATen operator but the output's allocation in a call (no ``F.conv2d``)
+   and only ``filter_bank_kernel`` in a profile (no cuDNN kernel), on the
+   slices no slower than the twin; ms, device ms, kernels a call, the FFMA
+   bound and the twin's ms as ``library_ms`` (``filter_bank_phases``; its
+   launches in the kernels line are those of the paths below, each of
+   which must launch it: config 2's texture families, the training, the
+   tiles, the 3D path with tLM, the apps); (c) config 2 at the bench
+   geometry with the JAX-trained
    forest of ``tests/data/torch_port_fixture_sup.npz`` carried across,
    against the fixture's image 0 (enforced labels >= 0.999 equal, feature
    names equal, features of unchanged superpixels within rtol 1e-5 + 1e-4,
@@ -319,7 +334,8 @@ NB_CLASSES = 3
 REPS = 20
 DEVICE = 'cuda'
 BATCH = 8
-LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d', 'connectivity')
+LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d', 'connectivity',
+             'filter_bank')
 SHAPE_3D, SPACING_3D, SP_3D = (48, 640, 768), (4, 1, 1), 15
 REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
 #: bars of the 3D path's standardised features against JAX's, on the
@@ -355,6 +371,20 @@ PROBA_FAMILY_BAR, PROBA_FAMILY_SHARE = 1e-4, 0.005
 FEATURES_3D_TLM = {'color': ['mean', 'std', 'energy'], 'tLM': ['mean']}
 #: whole-slide tiles on the routes of rows 14 and 13 at sp_size 35
 TILE_14, TILE_13 = (2048, 3600), (4096, 4096)
+#: the filter-bank kernel's shapes, (bank, (H, W, C)): the tile cell's
+#: short LM, the full LM and Gabor at the bench geometry, the full LM on the
+#: 3D path's 48 slices (its channels); and its bar against the plain twin,
+#: a share of the twin's largest magnitude (sums in another order)
+FB_CASES = (('tLM_short', TILE_14 + (3,)), ('tLM', CROP + (3,)),
+            ('tGabor', CROP + (3,)), ('tLM', SHAPE_3D[1:] + SHAPE_3D[:1]))
+FB_REL = 1e-5
+#: images narrower than the halo and tiles cut at the image's edges, banks
+#: whose battery widths the real banks lack (batteries, support), and the
+#: calls a bank's profile holds
+FB_EDGE_SHAPES = ((6, 40, 2), (23, 31, 3), (70, 5, 3), (33, 130, 1))
+FB_ODD_BANKS = (([12, 5, 1, 1, 1, 1, 1, 2, 7, 3, 4, 17], 33),
+                ([1, 2, 6, 1, 9], 7))
+FB_PROFILED = 3
 #: an odd geometry at sp_size 35: the width not a multiple of 4 (row 8's
 #: scalar path) and the last tile row and column partial; and the seed moved
 #: off the image's colours there, so that it wins no pixel
@@ -1522,16 +1552,18 @@ def _tables():
 
 
 def _counters():
-    from pyimsegm_tpu_torch.ops import prep_cuda
-    counts = {'blur_lab': prep_cuda.LAUNCHES}
+    from pyimsegm_tpu_torch.ops import filters_cuda, prep_cuda
+    counts = {'blur_lab': prep_cuda.LAUNCHES,
+              'filter_bank': filters_cuda.LAUNCHES}
     for table in _tables():
         counts.update(table)
     return counts
 
 
 def _reset_counters():
-    from pyimsegm_tpu_torch.ops import grid_cuda, prep_cuda
+    from pyimsegm_tpu_torch.ops import filters_cuda, grid_cuda, prep_cuda
     prep_cuda.LAUNCHES = 0
+    filters_cuda.LAUNCHES = 0
     grid_cuda.LAUNCHES_BY_F.clear()
     for counts in _tables():
         for key in counts:
@@ -1915,6 +1947,159 @@ def kernel_phases_wide(torch):
                 # i32 labels + centroids in, u8 seed out; the distance (6)
                 # and the window test per pixel
                 px * 5 + cfg.n_segments * 8, px * 8))
+    return records
+
+
+def _fb_input(torch, shape):
+    """A background-subtracted input of the filter bank on the card: a
+    synthetic colour image, or the 3D path's slices of a gray volume as
+    channels, each slice subtracted on its own as the path does."""
+    from pyimsegm_tpu_torch.ops import filters
+    from pyimsegm_tpu_torch.utils.data_samples import (
+        sample_color_image_rand_segment, sample_gray_volume_3d)
+    h, w, c = shape
+    if c == 3:
+        img = torch.as_tensor(sample_color_image_rand_segment(
+            (h, w), 3, rand_seed=0)[0], device=DEVICE)
+        return filters.subtract_background(img.to(torch.float32))
+    vol = torch.as_tensor(sample_gray_volume_3d((c, h, w))[0], device=DEVICE)
+    return torch.stack([filters.subtract_background(
+        vol[z][..., None].to(torch.float32), 150.0)[..., 0]
+        for z in range(c)], dim=-1)
+
+
+def _fb_odd_bank(sizes, support):
+    """A bank of random L1-normalised filters in batteries of ``sizes``
+    (widths the real banks do not have: padded, split and merged passes)."""
+    from pyimsegm_tpu_torch.ops import filters
+    k = np.random.default_rng(0).normal(
+        size=(sum(sizes), support, support)).astype(np.float32)
+    k /= np.abs(k).sum(axis=(1, 2), keepdims=True)
+    ends = np.cumsum(sizes)
+    return filters.FilterBank(k, tuple(zip((ends - sizes).tolist(),
+                                           ends.tolist())),
+                              tuple('b%d' % i for i in range(len(sizes))))
+
+
+class _AtenOps:
+    """The ATen operators called inside the ``with`` block (``seen``), as
+    a ``TorchDispatchMode`` sees them: a ``F.conv2d`` shows as
+    ``aten.convolution``, whatever the profiler records."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        seen = self.seen = set()
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                seen.add(str(func))
+                return func(*args, **(kwargs or {}))
+
+        self._mode = Mode()
+
+    def __enter__(self):
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def filter_bank_phases(torch):
+    """The filter-bank kernel (``ops/filters_cuda.py``) against its plain
+    twin (one ``F.conv2d`` a battery, the port's path before the kernel):
+    first on ``FB_EDGE_SHAPES`` with each bank and ``FB_ODD_BANKS`` (the
+    card's border rule and pass table), then on ``FB_CASES``: max |kernel -
+    twin| <= ``FB_REL`` x max |twin|, one launch a call, no ATen operator
+    in a call but its output's allocation (so no ``F.conv2d``), only
+    ``filter_bank_kernel`` in a profile of ``FB_PROFILED`` calls (so no
+    cuDNN kernel), and on the 3D slices no slower than the twin; its
+    records, the twin's ms as ``library_ms`` too.  The device ms printed
+    for a shape is the mean of its profile's kernel events, one a call, so
+    a dropped event leaves it true.  ``main`` runs it first: late in the
+    script the profiler dropped most of this kernel's events (0 of 3 in
+    one profile), in a fresh process none."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyimsegm_tpu_torch import descriptors
+    from pyimsegm_tpu_torch.ops import filters, filters_cuda
+    banks = {'tLM_short': descriptors._get_bank('short'),
+             'tLM': descriptors._get_bank('full'),
+             'tGabor': descriptors._get_gabor_bank()}
+    rng = np.random.default_rng(3)
+    worst = 0.0
+    for bank in list(banks.values()) + [_fb_odd_bank(*b)
+                                        for b in FB_ODD_BANKS]:
+        for shape in FB_EDGE_SHAPES:
+            img = torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                                  device=DEVICE)
+            want = filters._filter_bank_raw_plain(img, bank)
+            err = float((filters.filter_bank_raw(img, bank) - want).abs()
+                        .max()) / float(want.abs().max())
+            worst = max(worst, err)
+            if not err <= FB_REL:
+                raise AssertionError(
+                    'filter bank of %d filters on %s: kernel differs from '
+                    'its twin by %.3g of its largest value'
+                    % (bank.kernels.shape[0], shape, err))
+    print('filter bank at the edges (%d banks x shapes %s): max |kernel - '
+          'twin| / max |twin| %.3g (<= %g)'
+          % (len(banks) + len(FB_ODD_BANKS), FB_EDGE_SHAPES, worst, FB_REL),
+          flush=True)
+    records = []
+    for name, shape in FB_CASES:
+        bank = banks[name]
+        img = _fb_input(torch, shape)
+        before = filters_cuda.LAUNCHES
+        got = filters.filter_bank_raw(img, bank)
+        launched = filters_cuda.LAUNCHES - before
+        want = filters._filter_bank_raw_plain(img, bank)
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        del got, want
+        with _AtenOps() as ops:
+            filters.filter_bank_raw(img, bank)
+        others = sorted(op for op in ops.seen
+                        if not op.startswith('aten.empty'))
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(FB_PROFILED):
+                    filters.filter_bank_raw(img, bank)
+                torch.cuda.synchronize()
+            events = [e for e in prof.events()
+                      if str(e.device_type).endswith('CUDA')
+                      and not e.name.startswith(('Memcpy', 'Memset'))]
+            if len(events) == FB_PROFILED:
+                break
+        ran = sorted({e.name for e in events})
+        device_ms = (sum(e.time_range.elapsed_us() for e in events) / 1e3
+                     / max(len(events), 1))
+        plain_ms = _time_ms(lambda: filters._filter_bank_raw_plain(img, bank),
+                            reps=2)
+        f, s = bank.kernels.shape[:2]
+        n = int(np.prod(shape))
+        what = '%s %dx%dx%d' % ((name,) + shape)
+        rec = _record(
+            'filter_bank ' + what, 'csrc/filter_bank.cu',
+            'none (the JAX package leaves the bank to lax.conv)', err,
+            lambda: filters.filter_bank_raw(img, bank), plain_ms,
+            'max_abs_err / max|plain| %.3g (<= %g), kernels %s' % (
+                err / scale, FB_REL, ran),
+            4 * n * (1 + len(bank.names)), 2 * f * s * s * n,
+            library_ms=plain_ms, max_kernels=1)
+        print('filter_bank %s: device %.4f ms a call, the mean of %d kernel '
+              'events of %d calls; ATen ops of a call besides its output\'s '
+              'allocation %s' % (what, device_ms, len(events), FB_PROFILED,
+                                 others), flush=True)
+        records.append(rec)
+        if not (err <= FB_REL * scale and launched == 1 and not others
+                and len(ran) == 1 and 'filter_bank_kernel' in ran[0]):
+            raise AssertionError('filter bank %s: kernel differs from its '
+                                 'twin or did not run alone' % what)
+        if shape[2] == SHAPE_3D[0] and rec['ms'] > plain_ms:
+            raise AssertionError('filter bank %s: slower than its twin'
+                                 % what)
     return records
 
 
@@ -2308,10 +2493,11 @@ def _classifier(fixture, suffix=''):
          if k.startswith('clf_')}, device=DEVICE)
 
 
-#: kernels the supervised path launches at the bench geometry
+#: kernels the supervised path launches at the bench geometry (the texture
+#: families' bank in one ``filter_bank`` launch an image)
 PATH_SUP = ('blur_lab', 'slic_multi_update', 'slic_assign', 'enforce_fused',
             'grid_pair_count', 'grid_lookup', 'grid_reduce', 'grid_moments',
-            'grid_adjacency_presence')
+            'filter_bank', 'grid_adjacency_presence')
 WIDE = ('reach_absorb', 'reach_absorb_fused', 'anchor_seed')
 
 
@@ -2535,7 +2721,7 @@ def path_gray3d_tlm(torch, fixture):
                              'reference')
     vol = torch.as_tensor(sample_gray_volume_3d(SHAPE_3D)[0], device=DEVICE)
     debug = {}
-    segm, launches = _drive('3D path with tLM', PATH_3D,
+    segm, launches = _drive('3D path with tLM', PATH_3D + ('filter_bank',),
                             lambda: run(vol, debug), forbidden=PASSES_3D)
     gmm = debug['model'].gmm
     finite = all(bool(torch.isfinite(a).all()) for a in gmm)
@@ -4718,15 +4904,15 @@ def main():
     from pyimsegm_tpu_torch import _build, native
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
-                                        grid_cuda, prep_cuda, slic3d_cuda,
-                                        slic_cuda)
+                                        filters_cuda, grid_cuda, prep_cuda,
+                                        slic3d_cuda, slic_cuda)
     from pyimsegm_tpu_torch.utils.data_samples import (
         sample_color_image_rand_segment, sample_gray_volume_3d)
 
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
     for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda,
-                connectivity_cuda):
+                connectivity_cuda, filters_cuda):
         mod._lib()
     native.has_native()
     print('build: %.2f s total, per library %s, native (g++) %.2f s'
@@ -4743,6 +4929,7 @@ def main():
              for s in range(BATCH)]
     images = [p[0] for p in pairs]
     img = torch.as_tensor(images[0], device=DEVICE)
+    bank_records = filter_bank_phases(torch)
     records = kernel_phases(torch, img)
     prep_phases(torch, img)
     minsize_count_phases(torch, img)
@@ -4769,14 +4956,14 @@ def main():
     fixture_3d = {k: v for k, v in fixtures[3].items()
                   if not k.startswith('small_')}
     gray3d = path_gray3d(torch, vol, fixture_3d)
-    path_gray3d_tlm(torch, fixtures[7])
+    gray3d_tlm = path_gray3d_tlm(torch, fixtures[7])
 
     records += kernel_phases_wide(torch)
     records += row7_phases(torch, img)
     sup = path_supervised(torch, images, fixtures[4])
     clf = path_train(torch, images, [p[1] for p in pairs], fixtures[4])
     tiles = path_tiles(torch, clf)
-    path_families(torch, images, fixtures[6])
+    families = path_families(torch, images, fixtures[6])
     path_train_families(torch, images, [p[1] for p in pairs], fixtures[6])
     big_step_8_phase(torch)
     scenes = _ovary_scenes()
@@ -4813,6 +5000,11 @@ def main():
         if name in PATH_CENTERS:
             rec['launches'] += sum(p[name] for p in centre_paths)
         rec['launches'] += apps.get(name, 0) + parallel.get(name, 0)
+    for rec in bank_records:
+        rec['launches'] = sum(p.get('filter_bank', 0) for p in (
+            sup, tiles[TILE_14], tiles[TILE_13], families, gray3d_tlm, apps,
+            parallel))
+    records += bank_records
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
          for m in ('scipy', 'pandas', 'PIL', 'matplotlib', 'yaml')}),

@@ -1,14 +1,16 @@
 """Texture filter banks (Leung-Malik and Gabor), the background subtraction
 before them, and local binary patterns (port of ``pyimsegm_tpu.ops.filters``).
 
-The banks are built in numpy exactly as the JAX package builds them.  A
-bank's responses are ``F.conv2d`` of each channel with the flipped kernels
-over a 'symmetric' padding (scipy's 'reflect'), as the reference's
-``conv_general_dilated``; TF32 is off (``pyimsegm_tpu_torch/__init__.py``),
-so the convolution runs in full f32.  The orientation maximum is taken per
-battery, one battery's filters at a time, so the full stack of responses
-never exists at once (at 4096 x 4096 the 36 Gabor responses of three
-channels would take 7.2 GB).
+The banks are built in numpy exactly as the JAX package builds them.  On
+the card a bank's battery maxima come from one launch of the hand-written
+kernel of ``ops/filters_cuda.py`` (``csrc/filter_bank.cu``), which keeps
+every filter's response on chip.  Its plain twin, which the CPU takes, is
+``F.conv2d`` of each channel with the flipped kernels over a 'symmetric'
+padding (scipy's 'reflect'), as the reference's ``conv_general_dilated``;
+TF32 is off (``pyimsegm_tpu_torch/__init__.py``), so both run in full f32.
+The twin takes the orientation maximum per battery, one battery's filters
+at a time, so the full stack of responses never exists at once (at 4096 x
+4096 the 36 Gabor responses of three channels would take 7.2 GB).
 """
 
 import math
@@ -130,12 +132,21 @@ def create_filter_bank_gabor_2d(radius=16, sigmas=(2.0, 4.0),
 def filter_bank_raw(image, bank: FilterBank):
     """Orientation maxima of the bank's responses on every channel, without
     the response normalisation (linear per battery, so the descriptors
-    apply it to their statistics).
+    apply it to their statistics): the kernel of ``ops/filters_cuda.py``
+    on the card, :func:`_filter_bank_raw_plain` on the CPU.
 
     :param image: (H, W, C) float tensor (already background-subtracted)
     :returns: (n_batteries, H, W, C) f32 responses, clamped at
         ``MAX_SIGNAL_RESPONSE``
     """
+    from pyimsegm_tpu_torch.ops import filters_cuda
+    return filters_cuda.filter_bank(image.to(torch.float32).contiguous(),
+                                    bank)
+
+
+def _filter_bank_raw_plain(image, bank: FilterBank):
+    """Plain PyTorch twin of the filter-bank kernel: one ``F.conv2d`` a
+    battery over the symmetric padding, its maximum, the clamp."""
     h, w, c = image.shape
     pad = bank.kernels.shape[-1] // 2
     dev = image.device

@@ -535,10 +535,11 @@ from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model,
                                        otsu)
 from pyimsegm_tpu_torch.ops import (color, connectivity_cuda,
                                     connectivity_host, enforce_cuda, filters,
-                                    graph, graphcut, grid, grid_cuda,
-                                    histogram, morphology, prep_cuda, ray,
-                                    segment_stats, shape_prior, slic, slic3d,
-                                    slic3d_cuda, slic_cuda, snakes)
+                                    filters_cuda, graph, graphcut, grid,
+                                    grid_cuda, histogram, morphology,
+                                    prep_cuda, ray, segment_stats,
+                                    shape_prior, slic, slic3d, slic3d_cuda,
+                                    slic_cuda, snakes)
 from pyimsegm_tpu_torch.parallel import batch
 from pyimsegm_tpu_torch.utils import (ImageDimensionError, data_io,
                                       data_samples, device, drawing,

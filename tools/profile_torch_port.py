@@ -21,7 +21,9 @@ memset running, from device timestamps), per ``pyimsegm:<stage>`` range
 its count, host ms, busy ms (the kernels launched in it, innermost range
 first) and kernels, ``gather_ms`` and the EM readers of
 ``portbench/metrics/`` where the path has them, the program's counters of
-the window (``utils.device.counters``), the top kernels and the idle gaps
+the window (``utils.device.counters``: the EM counters, and
+``filter_bank_launches`` on the paths with a texture bank), the top
+kernels and the idle gaps
 by range; the chrome trace goes to ``<out>/torch_port_trace_<kind>.json``.
 
 ``--path fit`` drives the unsupervised fit path
