@@ -270,7 +270,8 @@ Phases (any failure raises and exits non-zero):
    launching the bench path's rows, warm ms per image of both; (b) the
    row-sharded tiled path on the 4096x4096 tile of ``path_tiles``:
    ``slic_segment_sharded`` and the tiled pipeline launch none of the
-   port's kernels; the pipeline against the single-card
+   port's kernels but the GMM fit's products; the pipeline against the
+   single-card
    ``pipe_color2d_slic_features_model_graphcut`` (ARS >= 0.99, relabelled
    agreement >= 0.995); warm ms, CUDA kernels a call, stage device ms and
    idle share of both calls and of the single-card pipeline; both calls
@@ -281,7 +282,20 @@ Phases (any failure raises and exits non-zero):
    compat raw labels at 647x1024 equal to the numpy twin, both times, the
    compat SLIC's time beside ``COMPAT_MS_NUMPY``, and ``solve_mrf`` on the
    card within 1% of the exact ``alpha_expansion`` energy on three random
-   graphs.
+   graphs;
+17. the GMM fit's products (row 17, ``models/gmm_cuda.py``,
+   ``csrc/gmm_em.cu``; ``gmm_em_phases``, run second) at the volume's and
+   the slide's shapes (``GMM_CASES``) on seeded overlapping blobs: cuBLAS
+   still running each plain product as its ``GMM_CUBLAS`` kernel, whose
+   order row 17 keeps; each product equal to the plain product's bits,
+   twice; k-means and EM (``_em_fit``: weights, means, covariances,
+   scores, active iterations) on the kernel equal to the same on the plain
+   products bit for bit, ``em_kernel_runs`` counted; ms, device ms and one
+   CUDA kernel a call, the bound from its bytes and operations, cuBLAS's
+   ms as ``library_ms``; one restart's products (the split mode's first
+   moments) within ``GMM_UNBATCHED_REL`` of cuBLAS's unbatched ones, and
+   the ms of both; then ``_em_fit`` and ``gmm_fit`` whole on the kernel
+   and on the plain products.
 
 Every path is driven with the launch counts set to 0 just before it and
 read just after (rows 6 and 7 also counted by F).  The second-to-last
@@ -335,7 +349,7 @@ REPS = 20
 DEVICE = 'cuda'
 BATCH = 8
 LIBRARIES = ('prep', 'slic', 'grid', 'enforce', 'slic3d', 'connectivity',
-             'filter_bank')
+             'filter_bank', 'gmm_em')
 SHAPE_3D, SPACING_3D, SP_3D = (48, 640, 768), (4, 1, 1), 15
 REGUL_3D, GC_REGUL_3D, NB_CLASSES_3D = 0.2, 0.1, 2
 #: bars of the 3D path's standardised features against JAX's, on the
@@ -385,6 +399,19 @@ FB_EDGE_SHAPES = ((6, 40, 2), (23, 31, 3), (70, 5, 3), (33, 130, 1))
 FB_ODD_BANKS = (([12, 5, 1, 1, 1, 1, 1, 2, 7, 3, 4, 17], 33),
                 ([1, 2, 6, 1, 9], 7))
 FB_PROFILED = 3
+#: row 17's fits (name, N, D, C, R): the volume cell's 107,328 supervoxels
+#: x 3 features, 2 components, and the slide cell's 57,600 superpixels x 9
+#: features, 3 components, 9 restarts each
+GMM_CASES = (('volume', 107328, 3, 2, 9), ('slide', 57600, 9, 3, 9))
+#: row 17's launch counters (``models/gmm_cuda.LAUNCHES``)
+GMM_PRODUCTS = ('weighted_sums', 'centred_sums')
+#: the part of the name of the cuBLAS kernel whose order row 17 keeps at
+#: ``GMM_CASES``: one FFMA chain an output over the samples in order; any
+#: other kernel there sums in another order, and the fits' bits change
+GMM_CUBLAS = 'tilesize32x32x8_stage3_warpsize1x2x1_ffma'
+#: row 17 against cuBLAS's unbatched product for one restart: the largest
+#: |kernel - cuBLAS| over the largest |cuBLAS| (another order of the sums)
+GMM_UNBATCHED_REL = 1e-6
 #: an odd geometry at sp_size 35: the width not a multiple of 4 (row 8's
 #: scalar path) and the last tile row and column partial; and the seed moved
 #: off the image's colours there, so that it wins no pixel
@@ -1545,10 +1572,12 @@ def path_gray3d(torch, vol, fixture):
 
 
 def _tables():
+    from pyimsegm_tpu_torch.models import gmm_cuda
     from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
                                         grid_cuda, slic3d_cuda, slic_cuda)
     return (slic_cuda.LAUNCHES, grid_cuda.LAUNCHES, enforce_cuda.LAUNCHES,
-            slic3d_cuda.LAUNCHES, connectivity_cuda.LAUNCHES)
+            slic3d_cuda.LAUNCHES, connectivity_cuda.LAUNCHES,
+            gmm_cuda.LAUNCHES)
 
 
 def _counters():
@@ -1580,9 +1609,10 @@ PATH_FIT = ('blur_lab', 'slic_multi_update', 'slic_assign',
             'enforce_fused', 'grid_moments', 'grid_pair_count', 'grid_reduce',
             'grid_lookup', 'grid_adjacency_presence',
             'slic_multi_update_slico', 'slic_assign_slico')
-#: the 3D pipe runs one schedule a volume; the standalone passes, the same
-#: kernel, are held against their twins in kernel_phases_3d
-PATH_3D = ('slic3d_iterate',)
+#: the 3D pipe runs one schedule a volume (the standalone passes, the same
+#: kernel, are held against their twins in kernel_phases_3d) and fits its
+#: GMM on row 17
+PATH_3D = ('slic3d_iterate',) + GMM_PRODUCTS
 PASSES_3D = ('slic3d_labels', 'slic3d_partials')
 
 
@@ -1780,7 +1810,7 @@ def path_fit(torch, images, fixture):
         return debug, fitted, carried, slico, color, batched, single
 
     (debug, fitted, carried, slico, color, batched, single), launches = \
-        _drive('fit path', PATH_FIT, run)
+        _drive('fit path', PATH_FIT + GMM_PRODUCTS, run)
     for segm, soft in (fitted, carried, color, single):
         _check_outputs(segm, soft)
     if not (np.array_equal(batched[0][2], single[0])
@@ -2100,6 +2130,176 @@ def filter_bank_phases(torch):
         if shape[2] == SHAPE_3D[0] and rec['ms'] > plain_ms:
             raise AssertionError('filter bank %s: slower than its twin'
                                  % what)
+    return records
+
+
+def _gmm_blobs(torch, n, d, c, seed=17):
+    """Seeded (N, D) features of ``c`` overlapping correlated Gaussian
+    blobs and (N,) weights with 5% empty slots (weight 0, row 0), on the
+    card: EM stops after 5-7 iterations on them (~25 on the volume
+    cell's features)."""
+    rng = np.random.default_rng(seed)
+    centres = rng.normal(scale=0.8, size=(c, d))
+    mix = np.eye(d) + 0.4 * rng.normal(size=(c, d, d))
+    y = rng.integers(0, c, n)
+    x = centres[y] + np.einsum('nd,nde->ne', rng.normal(size=(n, d)), mix[y])
+    w = (rng.random(n) >= 0.05).astype(np.float32)
+    x[w == 0] = 0.0
+    return (torch.as_tensor(x.astype(np.float32), device=DEVICE),
+            torch.as_tensor(w, device=DEVICE))
+
+
+def _device_kernels(torch, fn, reps=5, tries=5):
+    """The names of the CUDA kernels that ``reps`` warm calls of ``fn``
+    launch, from torch.profiler; the profiler now and then drops events, so
+    a profile that recorded none is taken again, and after ``tries`` such
+    profiles the list is empty (not recorded)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    names = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        names = sorted({e.name for e in prof.events()
+                        if str(e.device_type).endswith('CUDA')
+                        and not e.name.startswith(('Memcpy', 'Memset'))})
+        if names:
+            break
+    return names
+
+
+def _bits_equal(torch, got, want):
+    """Every tensor of ``got`` equal to ``want``'s bit for bit."""
+    return all(torch.equal(g.contiguous().view(torch.int8),
+                           v.contiguous().view(torch.int8))
+               for g, v in zip(got, want))
+
+
+def gmm_em_phases(torch):
+    """Row 17 against the plain products (cuBLAS's) at ``GMM_CASES``, which
+    must still run as cuBLAS's ``GMM_CUBLAS`` kernel; one restart's
+    products against cuBLAS's unbatched ones; then whole fits on the kernel
+    and on the plain products; returns its records."""
+    from pyimsegm_tpu_torch.models import gmm, gmm_cuda
+    from pyimsegm_tpu_torch.utils import device as dv
+    from torch.profiler import ProfilerActivity, profile
+
+    def plain_route(fn):
+        saved = gmm_cuda.fits
+        gmm_cuda.fits = lambda *args: False
+        try:
+            return fn()
+        finally:
+            gmm_cuda.fits = saved
+
+    def traced_fit(x, w, resp):
+        dv.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            out = gmm._em_fit(x, w, 99, 1e-6, resp)
+        got = dv.counters()
+        dv.reset_counters()
+        return out, got
+
+    records, failed = [], []
+    for name, n, d, c, r in GMM_CASES:
+        x, w = _gmm_blobs(torch, n, d, c)
+
+        def gen():
+            return torch.Generator(device=DEVICE).manual_seed(0)
+
+        def kmeans():
+            return gmm.kmeans_fit(gen(), x, w, c, n_iter=15, batch=r)
+
+        ck, lk = kmeans()
+        cp, lp = plain_route(kmeans)
+        kmeans_equal = _bits_equal(torch, (ck, lk), (cp, lp))
+        resp = torch.nn.functional.one_hot(lp, c).to(torch.float32)
+        wr = resp * w[:, None]
+        means = gmm._weighted_sums_plain(wr, x) \
+            / (wr.sum(1) + 1e-10)[..., None]
+        (params, scores, iters), counted = traced_fit(x, w, resp)
+        (want_p, want_s, want_i), _ = plain_route(
+            lambda: traced_fit(x, w, resp))
+        fit_equal = _bits_equal(torch, list(params) + [scores, iters],
+                                list(want_p) + [want_s, want_i])
+        print('gmm_em %s: k-means labels and centres equal bit for bit %s; '
+              'EM on the kernel equal to EM on the plain products bit for '
+              'bit %s (weights, means, covariances, scores, active '
+              'iterations %s); counters %s' % (
+                  name, kmeans_equal, fit_equal, iters.tolist(),
+                  json.dumps(counted)), flush=True)
+        ok = kmeans_equal and fit_equal \
+            and counted.get('em_kernel_runs') == counted.get('em_runs') == 1
+        for what, kernel, plain, nbytes, ops in (
+                ('weighted_sums',
+                 lambda: gmm_cuda.weighted_sums(wr, x),
+                 lambda: gmm._weighted_sums_plain(wr, x),
+                 4 * (n * d + r * n * c + r * c * d), 2 * r * n * c * d),
+                ('centred_sums',
+                 lambda: gmm_cuda.centred_sums(x, wr, means),
+                 lambda: gmm._centred_sums_plain(x, wr, means),
+                 4 * (n * d + r * n * c + r * c * d + r * c * d * d),
+                 2 * r * c * n * d * (d + 1))):
+            got, again, want = kernel(), kernel(), plain()
+            equal = _bits_equal(torch, (got, again), (want, want))
+            err = float((got - want).abs().max())
+            cublas = [k for k in _device_kernels(torch, plain)
+                      if 'gemm' in k]
+            print('gmm_em %s %s: cuBLAS runs %s (one GEMM kernel, %s: %s)'
+                  % (what, name, cublas, GMM_CUBLAS,
+                     len(cublas) == 1 and GMM_CUBLAS in cublas[0]
+                     if cublas else 'no GEMM recorded by the profiler; the '
+                     'bits below still hold the order'), flush=True)
+            if cublas and (len(cublas) != 1 or GMM_CUBLAS not in cublas[0]):
+                raise AssertionError(
+                    'gmm_em %s %s: cuBLAS no longer runs the kernel whose '
+                    'order row 17 keeps (%s): %s' % (what, name, GMM_CUBLAS,
+                                                     cublas))
+            plain_ms = _time_ms(plain)
+            rec = _record(
+                'gmm_em %s %s' % (what, name), 'csrc/gmm_em.cu',
+                'none (the JAX package leaves EM to XLA)', err, kernel,
+                plain_ms, 'equal to cuBLAS bit for bit, twice: %s' % equal,
+                nbytes, ops, library_ms=plain_ms, max_kernels=1)
+            records.append(rec)
+            ok = ok and equal
+
+        # one restart: (N, C) weights, against cuBLAS's unbatched product
+        w1, mu1 = wr[0].contiguous(), means[0].contiguous()
+        for what, kernel, plain in (
+                ('weighted_sums', lambda: gmm_cuda.weighted_sums(w1, x),
+                 lambda: gmm._weighted_sums_plain(w1, x)),
+                ('centred_sums', lambda: gmm_cuda.centred_sums(x, w1, mu1),
+                 lambda: gmm._centred_sums_plain(x, w1, mu1))):
+            got, want = kernel(), plain()
+            rel = float((got - want).abs().max() / want.abs().max())
+            print('gmm_em %s %s, one restart: %.4f ms (cuBLAS, unbatched, '
+                  '%.4f ms, %s); max |kernel - cuBLAS| / max |cuBLAS| %.3g '
+                  '(<= %g)' % (what, name, _time_ms(kernel), _time_ms(plain),
+                               _device_kernels(torch, plain), rel,
+                               GMM_UNBATCHED_REL), flush=True)
+            ok = ok and rel <= GMM_UNBATCHED_REL
+
+        def fit():
+            return gmm.gmm_fit(gen(), x, w, c, n_init=r)
+
+        fit_ms = _time_ms(fit, reps=3)
+        fit_plain_ms = plain_route(lambda: _time_ms(fit, reps=2))
+        em_ms = _time_ms(lambda: gmm._em_fit(x, w, 99, 1e-6, resp), reps=3)
+        em_plain_ms = plain_route(lambda: _time_ms(
+            lambda: gmm._em_fit(x, w, 99, 1e-6, resp), reps=2))
+        print('gmm_em %s: _em_fit %.4f ms (on the plain products %.4f); '
+              'gmm_fit %.4f ms (%.4f)' % (name, em_ms, em_plain_ms, fit_ms,
+                                          fit_plain_ms), flush=True)
+        if not ok:
+            failed.append(name)
+    if failed:
+        raise AssertionError('gmm_em %s: the kernel differs from the plain '
+                             'products' % failed)
     return records
 
 
@@ -4712,9 +4912,10 @@ def path_tiled(torch):
     """(b) The tiled path on the 4096 x 4096 tile of ``path_tiles``:
     ``slic_segment_sharded`` and the tiled pipeline on
     ``make_mesh(axis_name='rows')``, which launch none of the port's
-    kernels; the pipeline against the single-card pipeline; warm ms, CUDA
-    kernels per call, the stage split and the idle share; then both calls
-    at TILED_SMALL on the card and on a CPU mesh."""
+    kernels but the GMM fit's products (row 17, the shared
+    ``models/gmm.py``); the pipeline against the single-card pipeline;
+    warm ms, CUDA kernels per call, the stage split and the idle share;
+    then both calls at TILED_SMALL on the card and on a CPU mesh."""
     from pyimsegm_tpu_torch import pipelines
     from pyimsegm_tpu_torch.parallel import batch, tiled
     from pyimsegm_tpu_torch.utils.data_samples import \
@@ -4732,11 +4933,12 @@ def path_tiled(torch):
             gc_regul=GC_REGUL, mesh=mesh)
 
     (labels, (segm, soft)), launches = _drive(
-        'tiled path %dx%d' % TILE_13, (), lambda: (slic(), pipe()),
-        forbidden=tuple(_counters()))
-    print('tiled path %dx%d: %d launches of the port\'s kernels (plain '
-          'PyTorch, as the JAX module is plain XLA)'
-          % (TILE_13 + (sum(launches.values()),)), flush=True)
+        'tiled path %dx%d' % TILE_13, GMM_PRODUCTS, lambda: (slic(), pipe()),
+        forbidden=tuple(k for k in _counters() if k not in GMM_PRODUCTS))
+    print('tiled path %dx%d: %d launches of the port\'s other kernels '
+          '(plain PyTorch, as the JAX module is plain XLA)'
+          % (TILE_13 + (sum(v for k, v in launches.items()
+                            if k not in GMM_PRODUCTS),)), flush=True)
     if labels.shape != TILE_13 or segm.shape != TILE_13 \
             or soft.shape != TILE_13 + (NB_CLASSES,) \
             or not np.isfinite(soft).all() or segm.min() < 0 \
@@ -4902,6 +5104,7 @@ def main():
     print(gpu, flush=True)
     sys.path.insert(0, ROOT)
     from pyimsegm_tpu_torch import _build, native
+    from pyimsegm_tpu_torch.models import gmm_cuda
     from pyimsegm_tpu_torch.models.class_model import class_model_from_numpy
     from pyimsegm_tpu_torch.ops import (connectivity_cuda, enforce_cuda,
                                         filters_cuda, grid_cuda, prep_cuda,
@@ -4912,7 +5115,7 @@ def main():
     t0 = time.perf_counter()
     _build.build(LIBRARIES)
     for mod in (prep_cuda, slic_cuda, grid_cuda, enforce_cuda, slic3d_cuda,
-                connectivity_cuda, filters_cuda):
+                connectivity_cuda, filters_cuda, gmm_cuda):
         mod._lib()
     native.has_native()
     print('build: %.2f s total, per library %s, native (g++) %.2f s'
@@ -4930,6 +5133,7 @@ def main():
     images = [p[0] for p in pairs]
     img = torch.as_tensor(images[0], device=DEVICE)
     bank_records = filter_bank_phases(torch)
+    gmm_records = gmm_em_phases(torch)
     records = kernel_phases(torch, img)
     prep_phases(torch, img)
     minsize_count_phases(torch, img)
@@ -5005,6 +5209,10 @@ def main():
             sup, tiles[TILE_14], tiles[TILE_13], families, gray3d_tlm, apps,
             parallel))
     records += bank_records
+    for rec in gmm_records:
+        rec['launches'] = sum(p.get(rec['name'].split()[1], 0) for p in (
+            fit, gray3d, gray3d_tlm, apps, parallel))
+    records += gmm_records
     print('host packages on this machine: %s' % json.dumps(
         {m: importlib.util.find_spec(m) is not None
          for m in ('scipy', 'pandas', 'PIL', 'matplotlib', 'yaml')}),

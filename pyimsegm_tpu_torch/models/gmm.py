@@ -5,7 +5,9 @@ arrays, so the ``n_init`` random restarts of :func:`gmm_fit` run as one
 batch (the JAX package ``vmap``s them).  EM runs to ``max_iter`` and
 freezes each restart once its mean log-likelihood moves by at most ``tol``:
 the same result as the reference's data-dependent stop, with no host
-synchronisation inside the loop.  A covariance that is not positive
+synchronisation inside the loop (the loop ends early once every restart
+has stopped: on the card as soon as page-locked copies the host never
+waits for report it, on the CPU at once).  A covariance that is not positive
 definite gives NaN (as JAX's ``cholesky`` does), and a NaN restart loses
 the selection.  Where every restart breaks down so (nearly collinear
 features, whose f32 covariance plus ``reg_covar`` rounds to an indefinite
@@ -22,13 +24,25 @@ categorical draws use the Gumbel-max trick.  The draws differ from
 not bit for bit.
 
 Samples carry a weight, so empty superpixel slots do not move the fit.
+
+On the card the fit's products over the samples (EM's moments, k-means'
+sums) run as the kernel of ``models/gmm_cuda.py`` wherever
+``gmm_cuda.fits`` holds (float32, at most 32 features and 8 components):
+it sums each output as one chain in sample order, which at the benchmark
+fits' shapes is cuBLAS's order for a batch of restarts, bit for bit (one
+unbatched fit's first moments in chunks), and it skips the restarts that
+have stopped.  Elsewhere (the CPU, the float64 refit, larger shapes) the
+plain products ``_weighted_sums_plain`` and ``_centred_sums_plain`` run.
+While tracing, a fit on the kernel also counts ``em_kernel_runs``.
 """
 
+import collections
 import functools
 from typing import NamedTuple
 
 import torch
 
+from pyimsegm_tpu_torch.models import gmm_cuda
 from pyimsegm_tpu_torch.utils.device import count, tracing
 
 _LOG2PI = 1.8378770664093453
@@ -107,16 +121,46 @@ def gmm_score(params: GMMParams, x, sample_weight):
     return _mean_ll(gmm_log_resp(params, x), sample_weight)
 
 
-def _m_step(x, resp, sample_weight, reg_covar):
-    """Weights, means and full covariances from (..., N, C)
-    responsibilities."""
-    w = resp * sample_weight[:, None]                        # (..., N, C)
-    nk = torch.sum(w, dim=-2) + 1e-10                        # (..., C)
-    means = (w.transpose(-1, -2) @ x) / nk[..., None]        # (..., C, D)
+def _weighted_sums_plain(w, x):
+    """(..., C, D) sums over the N samples of ``w`` (..., N, C) times ``x``
+    (N, D)."""
+    return w.transpose(-1, -2) @ x
+
+
+def _centred_sums_plain(x, w, means):
+    """(..., C, D, D) sums over the samples of ``(x - mu) * w`` times ``x -
+    mu`` per component, ``mu`` the (..., C, D) ``means``."""
     diff = x - means[..., :, None, :]                        # (..., C, N, D)
     wt = w.transpose(-1, -2)[..., None]                      # (..., C, N, 1)
+    return (diff * wt).transpose(-1, -2) @ diff
+
+
+def _weighted_sums(w, x, active=None):
+    """:func:`_weighted_sums_plain`, on the kernel where it fits (0 for a
+    restart whose (R,) ``active`` flag is False)."""
+    if not gmm_cuda.fits(x, w):
+        return _weighted_sums_plain(w, x)
+    return gmm_cuda.weighted_sums(w.contiguous(), x.contiguous(), active)
+
+
+def _centred_sums(x, w, means, active=None):
+    """:func:`_centred_sums_plain`, on the kernel where it fits (0 for a
+    restart whose (R,) ``active`` flag is False)."""
+    if not gmm_cuda.fits(x, w):
+        return _centred_sums_plain(x, w, means)
+    return gmm_cuda.centred_sums(x.contiguous(), w.contiguous(),
+                                 means.contiguous(), active)
+
+
+def _m_step(x, resp, sample_weight, reg_covar, active=None):
+    """Weights, means and full covariances from (..., N, C)
+    responsibilities; with (...) ``active``, the kernel skips the restarts
+    whose flag is False (their new parameters are to be discarded)."""
+    w = resp * sample_weight[:, None]                        # (..., N, C)
+    nk = torch.sum(w, dim=-2) + 1e-10                        # (..., C)
+    means = _weighted_sums(w, x, active) / nk[..., None]     # (..., C, D)
     denom = torch.sum(w + 1e-10, dim=-2)                     # (..., C)
-    covs = (diff * wt).transpose(-1, -2) @ diff / denom[..., None, None]
+    covs = _centred_sums(x, w, means, active) / denom[..., None, None]
     eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
     weights = nk / torch.sum(nk, dim=-1, keepdim=True)
     return GMMParams(weights, means, covs + reg_covar * eye)
@@ -178,7 +222,7 @@ def kmeans_fit(generator, x, sample_weight, n_clusters, n_iter=50,
         onehot = torch.nn.functional.one_hot(labels, n_clusters).to(x.dtype) \
             * sample_weight[:, None]                         # (..., N, C)
         cnt = torch.sum(onehot, dim=-2)                      # (..., C)
-        new = (onehot.transpose(-1, -2) @ x) \
+        new = _weighted_sums(onehot, x) \
             / torch.clamp_min(cnt, 1e-10)[..., None]
         centers = torch.where((cnt > 0)[..., None], new, centers)
     return centers, torch.argmin(_sq_dist(x, centers), dim=-1)
@@ -194,12 +238,48 @@ def quantile_init_centers(x, n_clusters):
 
 # -------------------------------------------------------------------- EM ---
 
+class _AllStopped:
+    """Whether every restart of a fit has stopped.  A restart never
+    restarts (its log-likelihoods freeze), so once an iteration's flags are
+    all False no later iteration changes the fit, and the loop may end
+    there with the same result.  On the CPU the flags are read at once; on
+    the card without waiting for it: each iteration copies
+    ``active.any()`` to page-locked host memory behind an event, and
+    :meth:`poll` reads the copies whose events have completed, so the loop
+    ends a few iterations after the last restart stopped, however many the
+    card has not yet run."""
+
+    def __init__(self):
+        self.pending = collections.deque()
+
+    def poll(self, active):
+        """True once the flags of this or an earlier iteration say no
+        restart was active."""
+        if not active.is_cuda:
+            return not bool(active.any())
+        flag = torch.empty((), dtype=torch.bool, pin_memory=True)
+        flag.copy_(active.any(), non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(active.device))
+        self.pending.append((done, flag))
+        while self.pending and self.pending[0][0].query():
+            if not bool(self.pending.popleft()[1]):
+                return True
+        return False
+
+
 def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
     """EM from (..., N, C) responsibilities ``init_resp``, stopped per
     restart once the weighted mean log-likelihood moves by at most ``tol``.
-    While tracing it counts ``em_runs``, ``em_iters`` and
-    ``em_restart_iters``, and sums each iteration's active restarts on the
-    device (one elementwise add an iteration).
+    While tracing it counts ``em_runs``, ``em_iters``, ``em_restart_iters``
+    and, where its products take the kernel, ``em_kernel_runs``, and sums
+    each iteration's active restarts on the device (one elementwise add an
+    iteration).  ``em_iters`` and ``em_restart_iters`` count ``max_iter``,
+    the iterations the fit may take, not those the loop ran before every
+    restart had stopped, so that ``em_useful_share`` keeps its meaning.  A
+    stopped restart's M-step products are skipped on the kernel, and the
+    loop ends once every restart has stopped (:class:`_AllStopped`; no wait
+    for the card).
 
     :returns: (params with the leading dimensions of ``init_resp``, scores,
         the (...) iterations each restart was active, or None untraced)
@@ -211,12 +291,16 @@ def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
     ll = torch.full(shape, float('inf'), dtype=x.dtype, device=x.device)
     active_iters = torch.zeros(shape, dtype=torch.int32, device=x.device) \
         if tracing() else None
+    stopped = _AllStopped()
     for _ in range(max_iter):
         active = torch.abs(ll - prev_ll) > tol     # NaN stops, as in JAX
+        if stopped.poll(active):
+            break
         if active_iters is not None:
             active_iters += active
         lr = gmm_log_resp(params, x)
-        new = _m_step(x, torch.softmax(lr, dim=-1), sample_weight, reg_covar)
+        new = _m_step(x, torch.softmax(lr, dim=-1), sample_weight, reg_covar,
+                      active)
         new_ll = _mean_ll(lr, sample_weight)
         params = GMMParams(*[
             torch.where(active.reshape(shape + (1,) * (a.ndim - len(shape))),
@@ -225,6 +309,8 @@ def _em_fit(x, sample_weight, max_iter, reg_covar, init_resp, tol=1e-3):
         ll = torch.where(active, new_ll, ll)
     if active_iters is not None:
         count('em_runs')
+        if gmm_cuda.fits(x, init_resp):
+            count('em_kernel_runs')
         count('em_iters', max_iter)
         count('em_restart_iters', max_iter * shape.numel())
     return params, gmm_score(params, x, sample_weight), active_iters

@@ -254,8 +254,9 @@ class _OpCount(TorchDispatchMode):
 @pytest.mark.parametrize('max_iter', [1, 17])
 def test_em_fit_untraced_runs_the_traced_ops_less_the_counters(max_iter):
     """Untraced, EM runs exactly the traced run's aten ops less the
-    counters' (one buffer, one add an iteration): no op and no host copy
-    of its own."""
+    counters' (one buffer, one add an iteration it ran, each iteration's
+    one softmax; the loop ends once every restart has stopped): no op and
+    no host copy of its own."""
     x, w = _blobs()
     labels = gmm.kmeans_fit(torch.Generator().manual_seed(0), x, w, 2,
                             n_iter=15, batch=9)[1]
@@ -268,8 +269,10 @@ def test_em_fit_untraced_runs_the_traced_ops_less_the_counters(max_iter):
             p_on, s_on, active = gmm._em_fit(x, w, max_iter, 1e-6, resp)
     dv.reset_counters()
     assert active.shape == (9,)
+    iters = off.ops['aten._softmax.default']
+    assert 1 <= iters <= max_iter
     assert on.ops - off.ops == collections.Counter(
-        {'aten.zeros.default': 1, 'aten.add_.Tensor': max_iter})
+        {'aten.zeros.default': 1, 'aten.add_.Tensor': iters})
     assert not off.ops - on.ops
     torch.testing.assert_close(s_on, s_off, rtol=0, atol=0)
     for a, b in zip(p_on, p_off):
