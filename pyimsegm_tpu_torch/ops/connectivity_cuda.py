@@ -31,8 +31,7 @@ from pyimsegm_tpu_torch.ops.enforce_cuda import (MAX_SWEEPS,  # noqa: F401
                                                  absorb_rounds)
 from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
-#: max decided tile rows per band, and halo tile rows on each side
-_BAND_R = 16
+#: halo tile rows on each side of a band
 _HALO = 2
 #: live (band_rows, pad_w) 4-byte planes of a band: the two-launch kernels,
 #: the single-launch reach + absorb, and row 12's seed + reach + absorb
@@ -51,20 +50,6 @@ LAUNCHES = {'reach_absorb': 0, 'reach_absorb_fused': 0}
 #: ``flags[MAX_SWEEPS + 1 + i] != 0`` that absorb round i ran (i >= 1);
 #: sweep 0 and round 0 always run (:func:`grid_passes`)
 LAST_FLAGS = None
-
-
-def band_rows_for(gh, step=None, wp=None, planes=PLANES_2LAUNCH,
-                  budget=VMEM_2LAUNCH):
-    """Decided tile rows per band: the smallest band height that still needs
-    ``ceil(gh / cap)`` bands, the cap cut so that ``(r + 2 * _HALO) * step *
-    wp * 4 * planes`` stays under ``budget`` when ``step`` and ``wp`` are
-    given."""
-    cap = _BAND_R
-    if step is not None and wp is not None:
-        rows_fit = budget // (planes * wp * 4)
-        cap = max(1, min(cap, rows_fit // step - 2 * _HALO))
-    n_bands = -(-gh // cap)
-    return -(-gh // n_bands)
 
 
 def band_fits(step, wp, planes=PLANES_2LAUNCH, budget=VMEM_2LAUNCH):

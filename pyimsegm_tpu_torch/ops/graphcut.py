@@ -9,9 +9,11 @@ grid solve of 2D SLIC superpixels
 (:func:`pyimsegm_tpu_torch.ops.grid.solve_mrf_grid`), the 125-neighbour
 one of 3D SLIC supervoxels
 (:func:`pyimsegm_tpu_torch.ops.slic3d.solve_mrf_grid3d`), and for any
-other graph the edge-list :func:`solve_mrf`: damped mean field, ICM with
-best-energy tracking, then stochastic expansion-move chains batched over
-a chain dimension.  Its messages are ``index_add_`` sums over the edge
+other graph the edge-list :func:`solve_mrf`.  All three run damped mean
+field, then ICM with best-energy tracking
+(:func:`pyimsegm_tpu_torch.ops.mrf.mean_field_icm`); :func:`solve_mrf`
+then runs stochastic expansion-move chains batched over a chain
+dimension.  Its messages are ``index_add_`` sums over the edge
 list, whose float atomics on a CUDA device add in a varying order, so its
 result is held by energy, not by bits.
 """
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pyimsegm_tpu_torch.ops.mrf import mean_field_icm
 from pyimsegm_tpu_torch.utils.device import stage_range
 
 #: minimal class probability in the unary term
@@ -206,21 +209,11 @@ def solve_mrf(unary, edges, weights, pairwise, n_mf_iters=30, n_icm_iters=12,
     def message(q):
         return _neighbor_expectation(q, adj, pairwise)
 
-    q = torch.softmax(-unary, dim=-1)
-    for _ in range(n_mf_iters):
-        q_new = torch.softmax(-(unary + message(q)), dim=-1)
-        q = damping * q_new + (1.0 - damping) * q
-    labels = torch.argmin(unary + message(q), dim=-1)
+    def energy(labels):
+        return mrf_energy(labels, unary, edges, weights, pairwise)
 
-    best_labels = labels
-    best_e = mrf_energy(labels, unary, edges, weights, pairwise)
-    for _ in range(n_icm_iters):
-        onehot = F.one_hot(labels, c).to(torch.float32)
-        labels = torch.argmin(unary + message(onehot), dim=-1)
-        e = mrf_energy(labels, unary, edges, weights, pairwise)
-        improved = e < best_e
-        best_labels = torch.where(improved, labels, best_labels)
-        best_e = torch.where(improved, e, best_e)
+    best_labels, best_e = mean_field_icm(unary, message, energy, n_mf_iters,
+                                         n_icm_iters, damping)
     if n_expand_rounds == 0 or n_chains == 0:
         return best_labels.to(torch.int32)
 

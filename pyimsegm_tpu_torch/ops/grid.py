@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from pyimsegm_tpu_torch.ops import grid_cuda
+from pyimsegm_tpu_torch.ops.mrf import mean_field_icm
 from pyimsegm_tpu_torch.ops.slic import SlicConfig
 
 _OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
@@ -287,21 +288,11 @@ def solve_mrf_grid(unary, wgrid, pairwise, cfg: SlicConfig, n_mf_iters=30,
         nb = _neighbor_stack(q @ pairwise.T)                # (gh, gw, 25, C)
         return torch.einsum('yxd,yxdc->yxc', wgrid, nb)
 
-    q = torch.softmax(-ug, dim=-1)
-    for _ in range(n_mf_iters):
-        q_new = torch.softmax(-(ug + message(q)), dim=-1)
-        q = damping * q_new + (1.0 - damping) * q
-    labels = torch.argmin(ug + message(q), dim=-1)
+    def energy(labels):
+        return grid_mrf_energy(labels, ug, wgrid, pairwise)
 
-    best_labels = labels
-    best_e = grid_mrf_energy(labels, ug, wgrid, pairwise)
-    for _ in range(n_icm_iters):
-        onehot = F.one_hot(labels, c).to(torch.float32)
-        labels = torch.argmin(ug + message(onehot), dim=-1)
-        e = grid_mrf_energy(labels, ug, wgrid, pairwise)
-        improved = e < best_e
-        best_labels = torch.where(improved, labels, best_labels)
-        best_e = torch.where(improved, e, best_e)
+    best_labels, _ = mean_field_icm(ug, message, energy, n_mf_iters,
+                                    n_icm_iters, damping)
     return best_labels.reshape(-1).to(torch.int32)
 
 

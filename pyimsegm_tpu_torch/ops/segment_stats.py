@@ -16,6 +16,8 @@ import torch
 
 #: canonical ordering of statistic flags
 NAMES_FEATURE_FLAGS = ('mean', 'std', 'energy', 'median', 'meanGrad')
+#: the statistics of moment sums alone, in their canonical order
+MOMENT_FLAGS = NAMES_FEATURE_FLAGS[:3]
 
 
 def _segment_sum(data, seg_ids, num_segments):
@@ -37,6 +39,13 @@ def moment_blocks(sums, counts):
             'energy': energy}
 
 
+def moment_features(sums, counts, flags):
+    """The :func:`moment_blocks` that ``flags`` selects, concatenated in
+    ``MOMENT_FLAGS`` order: (K, C * n_flags)."""
+    blocks = moment_blocks(sums, counts)
+    return torch.cat([blocks[f] for f in MOMENT_FLAGS if f in flags], dim=-1)
+
+
 def segment_mean_std_energy(values, seg_ids, num_segments,
                             flags=('mean', 'std', 'energy')):
     """Selected moment statistics.
@@ -51,7 +60,7 @@ def segment_mean_std_energy(values, seg_ids, num_segments,
     sums = _segment_sum(torch.cat([values, values * values, ones], dim=-1),
                         seg_ids, num_segments)
     blocks = moment_blocks(sums[:, :-1], sums[:, -1])
-    return {f: blocks[f] for f in ('mean', 'std', 'energy') if f in flags}
+    return {f: blocks[f] for f in MOMENT_FLAGS if f in flags}
 
 
 def segment_median(values, seg_ids, num_segments):

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pyimsegm_tpu_torch.ops.mrf import mean_field_icm
 from pyimsegm_tpu_torch.utils.device import as_tensor
 
 #: the 27 candidate offsets (dz, dy, dx), in the order of the reference
@@ -342,7 +343,7 @@ def solve_mrf_grid3d(unary, wgrid, pairwise, cfg: Slic3DConfig,
     :param pairwise: (C, C)
     :returns: (K,) int32 labels
     """
-    k, c = unary.shape
+    k = unary.shape[0]
     ug = unary.to(torch.float32)
     w125 = wgrid.reshape(k, 125).to(torch.float32)
     pairwise = torch.as_tensor(pairwise, dtype=torch.float32,
@@ -352,19 +353,9 @@ def solve_mrf_grid3d(unary, wgrid, pairwise, cfg: Slic3DConfig,
     def message(q):
         return _neighbor_msg3d(q @ pairwise.T, w125, nidx)
 
-    q = torch.softmax(-ug, dim=-1)
-    for _ in range(n_mf_iters):
-        q_new = torch.softmax(-(ug + message(q)), dim=-1)
-        q = damping * q_new + (1.0 - damping) * q
-    labels = torch.argmin(ug + message(q), dim=-1)
+    def energy(labels):
+        return grid3d_mrf_energy(labels, ug, w125, pairwise, nidx)
 
-    best_labels = labels
-    best_e = grid3d_mrf_energy(labels, ug, w125, pairwise, nidx)
-    for _ in range(n_icm_iters):
-        onehot = F.one_hot(labels, c).to(torch.float32)
-        labels = torch.argmin(ug + message(onehot), dim=-1)
-        e = grid3d_mrf_energy(labels, ug, w125, pairwise, nidx)
-        improved = e < best_e
-        best_labels = torch.where(improved, labels, best_labels)
-        best_e = torch.where(improved, e, best_e)
+    best_labels, _ = mean_field_icm(ug, message, energy, n_mf_iters,
+                                    n_icm_iters, damping)
     return best_labels.to(torch.int32)

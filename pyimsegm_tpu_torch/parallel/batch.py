@@ -23,7 +23,6 @@ import torch.distributed as dist
 
 from pyimsegm_tpu_torch import pipelines
 from pyimsegm_tpu_torch.models import gmm as gmm_mod
-from pyimsegm_tpu_torch.ops import graphcut
 from pyimsegm_tpu_torch.ops import slic as slic_ops
 from pyimsegm_tpu_torch.ops.grid import grid_lookup
 from pyimsegm_tpu_torch.utils.device import host_array
@@ -100,13 +99,10 @@ def _segment_one(image, model, *, cfg, feats_spec, gc_regul, gc_edge_type,
                  compactness):
     """One image: enforced SLIC + features, GMM proba, grid MRF, and one
     lookup that upsamples the hard labels and the soft proba together."""
-    labels, features, _counts, centers = pipelines._slic_features_core(
-        image, cfg, feats_spec, compactness)
-    proba = model.predict_proba(features)
-    graph_labels = graphcut.segment_graph_cut_general(
-        labels, proba, cfg.n_segments, image=image.to(torch.float32),
-        features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
-        grid_ctx=(labels, cfg), centers=centers)
+    labels, _features, proba, graph_labels = pipelines._segment_2d_core(
+        image, lambda features, _counts: model.predict_proba(features),
+        cfg=cfg, feats_spec=feats_spec, gc_regul=gc_regul,
+        gc_edge_type=gc_edge_type, compactness=compactness)
     table = torch.cat([graph_labels[:, None].to(torch.float32), proba],
                       dim=-1)
     up = grid_lookup(table, labels, cfg)

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pyimsegm_tpu_torch.ops.segment_stats import moment_features
 from pyimsegm_tpu_torch.ops.slic import (  # noqa: F401
     SlicConfig,
     _BIG,
@@ -39,11 +40,11 @@ from pyimsegm_tpu_torch.ops.slic import (  # noqa: F401
 )
 from pyimsegm_tpu_torch.parallel.batch import (all_gather_cat, make_mesh,
                                                mesh_device, mesh_rank)
+from pyimsegm_tpu_torch.pipelines import _features_spec, _fusable_color_spec
 from pyimsegm_tpu_torch.utils.device import count, stage_range
 
 _OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
 _CONN4 = ((-1, 0), (1, 0), (0, -1), (0, 1))
-_MOMENT_FLAGS = ('mean', 'std', 'energy')
 #: reach and absorb steps between two reads of the all-reduced "changed"
 #: flag (one host synchronisation each); a step after convergence changes
 #: nothing, so the labels equal those of a check after every step
@@ -598,16 +599,8 @@ def _tiled_pipe_shard(lab_loc, valid_loc, feat_loc, centers0, spatial_w2,
                           px[..., None]], dim=-1) * valid_loc[..., None]
         sums = _local_segment_sum(data, labels_loc, band)
         counts = sums[:, 6]
-        safe = torch.clamp_min(counts[:, None], 1.0)
-        sp_centers = sums[:, 7:9] / safe
-        mean = sums[:, :3] / safe
-        energy = sums[:, 3:6] / safe
-        blocks = {'mean': mean,
-                  'std': torch.sqrt(torch.clamp_min(energy - mean * mean,
-                                                    0.0)),
-                  'energy': energy}
-        features = torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags],
-                             dim=-1)
+        sp_centers = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
+        features = moment_features(sums[:, :6], counts, flags)
 
     with stage_range('fit'):
         mask = (counts > 0).to(torch.float32)
@@ -672,13 +665,12 @@ def pipe_color2d_slic_features_model_graphcut_tiled(
     from pyimsegm_tpu_torch.ops import color as color_ops
     from pyimsegm_tpu_torch.ops.graphcut import compute_pairwise_cost
 
-    if len(dict_features) != 1:
-        raise ValueError('tiled pipeline supports one color feature key')
-    (fkey, flags), = dict_features.items()
-    if not fkey.startswith('color') or any(f not in _MOMENT_FLAGS
-                                           for f in flags):
-        raise ValueError('tiled pipeline supports color moments only, got %r'
+    fkey = _fusable_color_spec(_features_spec(dict_features))
+    if fkey is None:
+        raise ValueError('tiled pipeline supports one color key of moments '
+                         '(mean / std / energy) only, got %r'
                          % (dict_features,))
+    flags = dict_features[fkey]
 
     if mesh is None:
         mesh = make_mesh(axis_name=axis_name)

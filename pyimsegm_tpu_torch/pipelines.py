@@ -44,7 +44,6 @@ from pyimsegm_tpu_torch.ops import slic3d
 from pyimsegm_tpu_torch.ops.grid import grid_lookup
 from pyimsegm_tpu_torch.utils.device import as_tensor, stage_range
 
-_MOMENT_FLAGS = ('mean', 'std', 'energy')
 #: images held out per CV fold of the classifier search
 CROSS_VAL_LEAVE_OUT = 2
 
@@ -62,16 +61,9 @@ def _fusable_color_spec(feats_spec):
     key, flags = feats_spec[0]
     if not key.startswith('color') or not flags:
         return None
-    if any(f not in _MOMENT_FLAGS for f in flags):
+    if any(f not in segment_stats.MOMENT_FLAGS for f in flags):
         return None
     return key
-
-
-def _moment_features(msums, counts, flags):
-    """[mean, std, energy] blocks (in that order, as ``flags`` selects)
-    from (K, 6) colour moment sums [sum v, sum v^2] and (K,) counts."""
-    blocks = segment_stats.moment_blocks(msums, counts)
-    return torch.cat([blocks[f] for f in _MOMENT_FLAGS if f in flags], dim=-1)
 
 
 def _grid_geometry(labels, cfg):
@@ -120,7 +112,7 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
                                                          1.0)
                 msums = sums[:, :6]
         with stage_range('features'):
-            features = _moment_features(msums, counts, flags)
+            features = segment_stats.moment_features(msums, counts, flags)
         return labels, features, counts, centers
     if connectivity or slico:
         with stage_range('slic'):
@@ -143,36 +135,19 @@ def _slic_features_core(image, cfg, feats_spec, compactness, slico=False,
     return labels, features, counts, centers
 
 
-def _segment_with_model_core(image, model: ClassModel, *, cfg, feats_spec,
-                             gc_regul, gc_edge_type, compactness,
-                             connectivity=True):
-    labels, features, _counts, centers = _slic_features_core(
-        image, cfg, feats_spec, compactness, connectivity=connectivity)
-    with stage_range('predict_proba'):
-        proba = model.predict_proba(features)
-    graph_labels = graphcut.segment_graph_cut_general(
-        labels, proba, cfg.n_segments, image=image.to(torch.float32),
-        features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
-        grid_ctx=(labels, cfg), centers=centers)
-    with stage_range('lookup'):
-        segm_soft = grid_lookup(proba, labels, cfg)
-        segm = grid_lookup(graph_labels, labels, cfg)
-    return segm, segm_soft, labels, proba, graph_labels
-
-
-def _segment_with_classif_core(image, classif, *, cfg, feats_spec, gc_regul,
-                               gc_edge_type, compactness, connectivity=True):
-    """SLIC -> features (texture banks included) -> classifier predict ->
-    MRF, all on the image's device; the ``pyimsegm:<stage>`` ranges
-    (``utils.device.stage_range``) split it for a profiler.
+def _segment_2d_core(image, predict, *, cfg, feats_spec, gc_regul,
+                     gc_edge_type, compactness, connectivity=True):
+    """SLIC -> features -> ``predict(features, counts)`` -> grid MRF, all on
+    the image's device; ``predict`` returns the (K, C) class probabilities
+    and opens its own ``pyimsegm:<stage>`` ranges
+    (``utils.device.stage_range``), as the stages before and after it do.
 
     :returns: (labels (H, W) i32, features (K, F), proba (K, C),
-        graph_labels (K,))
+        graph_labels (K,) i32)
     """
-    labels, features, _counts, centers = _slic_features_core(
+    labels, features, counts, centers = _slic_features_core(
         image, cfg, feats_spec, compactness, connectivity=connectivity)
-    with stage_range('predict_proba'):
-        proba = classif.device_predict_proba(torch.nan_to_num(features))
+    proba = predict(features, counts)
     graph_labels = graphcut.segment_graph_cut_general(
         labels, proba, cfg.n_segments, image=image.to(torch.float32),
         features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
@@ -180,28 +155,22 @@ def _segment_with_classif_core(image, classif, *, cfg, feats_spec, gc_regul,
     return labels, features, proba, graph_labels
 
 
-def _pipe_unsup_core(image, *, cfg, feats_spec, nb_classes, estim_model,
-                     pca_coef, use_scaler, gc_regul, gc_edge_type,
-                     compactness, seed=0):
-    """SLIC -> features -> class model fitted on this image -> proba ->
-    MRF -> upsampling, all on the image's device."""
-    labels, features, counts, centers = _slic_features_core(
-        image, cfg, feats_spec, compactness)
-    with stage_range('fit'):
-        mask = (counts > 0).to(torch.float32)
-        model = estim_class_model(features, nb_classes, estim_model,
-                                  pca_coef, use_scaler, sample_weight=mask,
-                                  seed=seed)
-    with stage_range('predict_proba'):
-        proba = model.predict_proba(features)
-    graph_labels = graphcut.segment_graph_cut_general(
-        labels, proba, cfg.n_segments, image=image.to(torch.float32),
-        features=features, gc_regul=gc_regul, edge_type=gc_edge_type,
-        grid_ctx=(labels, cfg), centers=centers)
-    with stage_range('lookup'):
-        segm_soft = grid_lookup(proba, labels, cfg)
-        segm = grid_lookup(graph_labels, labels, cfg)
-    return segm, segm_soft, labels, features, proba, model, graph_labels
+def _predictor(model):
+    """``predict(features, counts)`` of :func:`_segment_2d_core` for a
+    fitted model, in a ``pyimsegm:predict_proba`` range: a
+    :class:`ClassModel`'s or a :class:`Classifier`'s on the device, any
+    other model's numpy ``predict_proba`` on the host."""
+    def predict(features, _counts):
+        with stage_range('predict_proba'):
+            if isinstance(model, ClassModel):
+                return model.predict_proba(features)
+            if isinstance(model, Classifier):
+                return model.device_predict_proba(torch.nan_to_num(features))
+            proba = model.predict_proba(np.nan_to_num(
+                features.cpu().numpy()))
+            return torch.as_tensor(np.asarray(proba, np.float32),
+                                   device=features.device)
+    return predict
 
 
 def _model_device(model):
@@ -210,26 +179,44 @@ def _model_device(model):
     return next(iter(model.buffers())).device
 
 
-def _fetch_reconstruct(labels, proba, graph_labels, cfg, classes=None):
-    """(segm, segm_soft) numpy arrays gathered on the host from the (H, W)
-    labels (int16 when K allows) and the (K,) / (K, C) tables, ``segm``
-    relabelled by ``classes`` where given.  The copies come first; the
-    numpy work after them is the ``pyimsegm:gather`` range, inside the
-    caller's ``pyimsegm:fetch``.
+def _fetch_reconstruct(labels, proba, graph_labels, cfg, classes=None,
+                       enforced=True):
+    """(segm, segm_soft) numpy arrays of the (H, W) labels and the (K,) /
+    (K, C) tables, ``segm`` relabelled by ``classes`` where given: the one
+    fetch of the grid-labelled 2D entries, inside their ``pyimsegm:fetch``.
 
-    Equal to fetching the device ``grid_lookup`` outputs only for enforced
-    (``connectivity=True``) labels, which all lie in their pixel's 3x3 seed
-    window; raw labels must take the device lookup instead."""
-    small = labels.to(torch.int16) if cfg.n_segments <= 0x7fff else labels
-    labels_np = small.cpu().numpy()
-    graph_np = graph_labels.cpu().numpy()
-    proba_np = proba.cpu().numpy()
+    Enforced labels all lie in their pixel's 3x3 seed window, so the host
+    gathers the tables by the copied labels (int16 when K allows).  Raw
+    labels (``enforced=False``) may hold out-of-window pixels: they take
+    the device ``grid_lookup`` (a ``pyimsegm:lookup`` range) instead.  The
+    copies come first; the numpy work after them is the ``pyimsegm:gather``
+    range."""
+    if enforced:
+        small = labels.to(torch.int16) if cfg.n_segments <= 0x7fff \
+            else labels
+        labels_np = small.cpu().numpy()
+        graph_np = graph_labels.cpu().numpy()
+        proba_np = proba.cpu().numpy()
+    else:
+        with stage_range('lookup'):
+            segm = grid_lookup(graph_labels, labels, cfg)
+            segm_soft = grid_lookup(proba, labels, cfg)
+        segm, segm_soft = segm.cpu().numpy(), segm_soft.cpu().numpy()
     with stage_range('gather'):
-        labels_np = labels_np.astype(np.int64)
-        segm = graph_np[labels_np]
+        if enforced:
+            labels_np = labels_np.astype(np.int64)
+            segm, segm_soft = graph_np[labels_np], proba_np[labels_np]
         if classes is not None:
             segm = classes[segm]
-        return segm, proba_np[labels_np]
+        return segm, segm_soft
+
+
+def _debug_copies(debug_visual, labels, features, proba, **extra):
+    """Host copies of the intermediate results into ``debug_visual``."""
+    if debug_visual is not None:
+        debug_visual.update(slic=labels.cpu().numpy(),
+                            features=features.cpu().numpy(),
+                            proba=proba.cpu().numpy(), **extra)
 
 
 def _to_model_device(image, model):
@@ -263,33 +250,27 @@ def segment_color2d_slic_features_model_graphcut(
         return _segment_compat_core(image, model_pipeline, dict_features,
                                     sp_size, sp_regul, gc_regul, gc_edge_type,
                                     device)
-    if not isinstance(model_pipeline, (ClassModel, Classifier)):
-        return _segment_duck_typed(image, model_pipeline, dict_features,
-                                   sp_size, sp_regul, gc_regul, gc_edge_type,
-                                   debug_visual, device)
+    duck = not isinstance(model_pipeline, (ClassModel, Classifier))
+    if duck and not hasattr(model_pipeline, 'predict_proba'):
+        raise AttributeError('%r has no predict_proba'
+                             % type(model_pipeline).__name__)
     with stage_range('upload'):
-        image = _to_model_device(image, model_pipeline)
+        image = as_tensor(image, device) if duck \
+            else _to_model_device(image, model_pipeline)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
-    if isinstance(model_pipeline, Classifier):
-        return _segment_classif(image, model_pipeline, cfg, m, dict_features,
-                                gc_regul, gc_edge_type, connectivity,
-                                debug_visual)
-    segm, segm_soft, labels, proba, graph_labels = _segment_with_model_core(
-        image, model_pipeline, cfg=cfg,
+    # the reference's generic route segments the enforced labels
+    connectivity = connectivity or duck
+    labels, features, proba, graph_labels = _segment_2d_core(
+        image, _predictor(model_pipeline), cfg=cfg,
         feats_spec=_features_spec(dict_features), gc_regul=float(gc_regul),
         gc_edge_type=gc_edge_type, compactness=m, connectivity=connectivity)
+    classes = None if isinstance(model_pipeline, ClassModel) \
+        else np.asarray(model_pipeline.classes_)
     with stage_range('fetch'):
-        if debug_visual is not None:
-            debug_visual['slic'] = labels.cpu().numpy()
-            debug_visual['proba'] = proba.cpu().numpy()
-        if connectivity:
-            return _fetch_reconstruct(labels, proba, graph_labels, cfg)
-        # raw labels may hold out-of-window pixels: the device lookup holds
-        segm, segm_soft = segm.cpu().numpy(), segm_soft.cpu().numpy()
-        # nothing left for the host to do: still one gather a fetch
-        with stage_range('gather'):
-            return segm, segm_soft
+        _debug_copies(debug_visual, labels, features, proba)
+        return _fetch_reconstruct(labels, proba, graph_labels, cfg, classes,
+                                  enforced=connectivity)
 
 
 def _segment_compat_core(image, model, dict_features, sp_size, sp_regul,
@@ -334,57 +315,6 @@ def _segment_compat_core(image, model, dict_features, sp_size, sp_regul,
             return classes[graph_labels][labels_np], proba[labels_np]
 
 
-def _segment_duck_typed(image, model, dict_features, sp_size, sp_regul,
-                        gc_regul, gc_edge_type, debug_visual, device):
-    """The generic route: SLIC and features on the device, the model's
-    numpy ``predict_proba`` on the host, the MRF on the device, and the
-    upsampling on the host."""
-    if not hasattr(model, 'predict_proba'):
-        raise AttributeError('%r has no predict_proba' % type(model).__name__)
-    image = as_tensor(image, device)
-    cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
-    m = slic_ops.compactness_from_regul(sp_size, sp_regul)
-    labels, features, _counts, centers = _slic_features_core(
-        image, cfg, _features_spec(dict_features), m)
-    proba = np.asarray(model.predict_proba(
-        np.nan_to_num(features.cpu().numpy())), np.float32)
-    graph_labels = graphcut.segment_graph_cut_general(
-        labels, torch.as_tensor(proba, device=image.device), cfg.n_segments,
-        image=image.to(torch.float32), features=features,
-        gc_regul=float(gc_regul), edge_type=gc_edge_type,
-        grid_ctx=(labels, cfg), centers=centers).cpu().numpy()
-    labels_np = labels.cpu().numpy()
-    segm = np.asarray(model.classes_)[graph_labels][labels_np]
-    if debug_visual is not None:
-        debug_visual['slic'] = labels_np
-        debug_visual['proba'] = proba
-    return segm, proba[labels_np]
-
-
-def _segment_classif(image, classif, cfg, compactness, dict_features,
-                     gc_regul, gc_edge_type, connectivity, debug_visual):
-    labels, features, proba, graph_labels = _segment_with_classif_core(
-        image, classif, cfg=cfg, feats_spec=_features_spec(dict_features),
-        gc_regul=float(gc_regul), gc_edge_type=gc_edge_type,
-        compactness=compactness, connectivity=connectivity)
-    classes = np.asarray(classif.classes_)
-    with stage_range('fetch'):
-        if debug_visual is not None:
-            debug_visual['slic'] = labels.cpu().numpy()
-            debug_visual['features'] = features.cpu().numpy()
-            debug_visual['proba'] = proba.cpu().numpy()
-        if connectivity:
-            return _fetch_reconstruct(labels, proba, graph_labels, cfg,
-                                      classes)
-        # raw labels may hold out-of-window pixels: one device lookup of
-        # [graph label, proba]
-        up = grid_lookup(torch.cat(
-            [graph_labels[:, None].to(torch.float32), proba], dim=-1),
-            labels, cfg).cpu().numpy()
-        with stage_range('gather'):
-            return classes[up[..., 0].astype(np.int64)], up[..., 1:]
-
-
 def compute_color2d_superpixels_features(image, dict_features, sp_size=30,
                                          sp_regul=0.2, device='cuda'):
     """SLIC + per-superpixel features.
@@ -414,28 +344,47 @@ def wrapper_compute_color2d_slic_features_labels(img_annot, sp_size, sp_regul,
     :param img_annot: (image, annotation) pair
     :returns: (slic ndarray, features ndarray, labels ndarray)
     """
-    from pyimsegm_tpu_torch import labeling
-
     image, annot = img_annot
     image = as_tensor(image, device)
-    annot = np.asarray(annot).astype(int)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     labels_map, features, counts, _centers = _slic_features_core(
         image, cfg, _features_spec(dict_features), m)
     labels_map = labels_map.cpu().numpy()
+    lbs = _superpixel_annot_labels(labels_map, annot, counts.cpu().numpy(),
+                                   label_purity)
+    return labels_map, np.nan_to_num(features.cpu().numpy()), lbs
+
+
+def _superpixel_annot_labels(labels_map, annot, counts, label_purity):
+    """(K,) annotation label of each superpixel: the label it overlaps most,
+    or -1 where that covers less than ``label_purity`` of it, where the
+    annotation is negative or where the superpixel is empty.
+
+    :param labels_map: (H, W) int ndarray of grid labels
+    :param annot: (H, W) int annotation
+    :param counts: (K,) ndarray, the superpixels' pixel counts
+    """
+    from pyimsegm_tpu_torch import labeling
+
+    annot = np.asarray(annot).astype(int)
     neg_label = annot.max() + 1 if (annot < 0).any() else None
     if neg_label is not None:
         annot[annot < 0] = neg_label
     hist = labeling.histogram_regions_labels_norm(
         labels_map, annot, nb_labels=annot.max() + 1)
+    k = counts.shape[0]
+    if hist.shape[0] < k:
+        # the highest grid labels can be empty (merged away by the min-size
+        # pass): pad to the static capacity
+        hist = np.vstack([hist, np.zeros((k - hist.shape[0], hist.shape[1]))])
     lbs = np.argmax(hist, axis=1)
     purity = np.max(hist, axis=1)
     if neg_label is not None:
         lbs[lbs == neg_label] = -1
     lbs[purity < label_purity] = -1
-    lbs[counts.cpu().numpy() == 0] = -1
-    return labels_map, np.nan_to_num(features.cpu().numpy()), lbs
+    lbs[counts == 0] = -1                       # empty slots
+    return lbs
 
 
 def pipe_color2d_slic_features_model_graphcut(
@@ -450,27 +399,28 @@ def pipe_color2d_slic_features_model_graphcut(
     :param seed: seed of the model fit's ``torch.Generator``
     :returns: (segm (H, W) int ndarray, segm_soft (H, W, C) float ndarray)
     """
+    model = None
+
+    def fit_predict(features, counts):
+        nonlocal model
+        with stage_range('fit'):
+            mask = (counts > 0).to(torch.float32)
+            model = estim_class_model(features, nb_classes, estim_model,
+                                      pca_coef, use_scaler,
+                                      sample_weight=mask, seed=seed)
+        with stage_range('predict_proba'):
+            return model.predict_proba(features)
+
     with stage_range('upload'):
         image = as_tensor(image, device)
     cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
     m = slic_ops.compactness_from_regul(sp_size, sp_regul)
-    segm, segm_soft, labels, features, proba, model, graph_labels = \
-        _pipe_unsup_core(
-            image, cfg=cfg, feats_spec=_features_spec(dict_features),
-            nb_classes=nb_classes, estim_model=estim_model, pca_coef=pca_coef,
-            use_scaler=use_scaler, gc_regul=float(gc_regul),
-            gc_edge_type=gc_edge_type, compactness=m, seed=seed)
+    labels, features, proba, graph_labels = _segment_2d_core(
+        image, fit_predict, cfg=cfg, feats_spec=_features_spec(dict_features),
+        gc_regul=float(gc_regul), gc_edge_type=gc_edge_type, compactness=m)
     with stage_range('fetch'):
-        if debug_visual is None:
-            return _fetch_reconstruct(labels, proba, graph_labels, cfg)
-        debug_visual['slic'] = labels.cpu().numpy()
-        debug_visual['features'] = features.cpu().numpy()
-        debug_visual['proba'] = proba.cpu().numpy()
-        debug_visual['model'] = model
-        segm, segm_soft = segm.cpu().numpy(), segm_soft.cpu().numpy()
-        # nothing left for the host to do: still one gather a fetch
-        with stage_range('gather'):
-            return segm, segm_soft
+        _debug_copies(debug_visual, labels, features, proba, model=model)
+        return _fetch_reconstruct(labels, proba, graph_labels, cfg)
 
 
 def estim_model_classes_group(list_images, nb_classes, dict_features,
@@ -591,7 +541,7 @@ def train_classif_color2d_slic_features(list_images, list_annots,
     :returns: (Classifier, list of SLIC label maps, list of (K, F) feature
         arrays, list of (K,) superpixel labels, -1 = dropped)
     """
-    from pyimsegm_tpu_torch import classification, labeling
+    from pyimsegm_tpu_torch import classification
 
     if len(list_images) != len(list_annots):
         raise ValueError('images (%i) vs annotations (%i) mismatch'
@@ -601,35 +551,17 @@ def train_classif_color2d_slic_features(list_images, list_annots,
     list_slic, list_features, list_labels = [], [], []
     for image, annot in zip(list_images, list_annots):
         image = as_tensor(image, device)
-        annot = np.asarray(annot).astype(int)
-        if tuple(image.shape[:2]) != annot.shape[:2]:
+        if tuple(image.shape[:2]) != np.shape(annot)[:2]:
             raise ValueError('image %r and annot %r should match'
-                             % (tuple(image.shape), annot.shape))
+                             % (tuple(image.shape), np.shape(annot)))
         cfg = slic_ops.slic_config(image.shape[0], image.shape[1], sp_size)
         labels_map, features, counts, _centers = _slic_features_core(
             image, cfg, feats_spec, m)
         labels_map = labels_map.cpu().numpy()
-        counts = counts.cpu().numpy()
-        neg_label = annot.max() + 1 if (annot < 0).any() else None
-        if neg_label is not None:
-            annot[annot < 0] = neg_label
-        hist = labeling.histogram_regions_labels_norm(
-            labels_map, annot, nb_labels=annot.max() + 1)
-        k = counts.shape[0]
-        if hist.shape[0] < k:
-            # the highest grid labels can be empty (merged away by the
-            # min-size pass): pad to the static capacity
-            hist = np.vstack([hist,
-                              np.zeros((k - hist.shape[0], hist.shape[1]))])
-        lbs = np.argmax(hist, axis=1)
-        purity = np.max(hist, axis=1)
-        if neg_label is not None:
-            lbs[lbs == neg_label] = -1
-        lbs[purity < label_purity] = -1
-        lbs[counts == 0] = -1                       # empty slots
         list_slic.append(labels_map)
         list_features.append(torch.nan_to_num(features).cpu().numpy())
-        list_labels.append(lbs)
+        list_labels.append(_superpixel_annot_labels(
+            labels_map, annot, counts.cpu().numpy(), label_purity))
 
     features, labels, sizes = \
         classification.convert_set_features_labels_2_dataset(

@@ -56,12 +56,6 @@ def test_route_matches_the_reference_predicates():
         # the port's row 13 also takes the widths of the reference's XLA scans
         assert tgrid._enforce_route(tcfg) == \
             ('two' if want == 'xla' else want), (h, w, sp)
-        for planes, budget in ((tcc.PLANES_2LAUNCH, tcc.VMEM_2LAUNCH),
-                               (tcc.PLANES_FUSED_RA, tcc.VMEM_2LAUNCH),
-                               (tcc.PLANES_FUSED, tcc.VMEM_FUSED)):
-            assert tcc.band_rows_for(tcfg.grid_h, tcfg.step, tcfg.pad_w,
-                                     planes, budget) == jcp.band_rows_for(
-                jcfg.grid_h, jcfg.step, jcfg.pad_w, planes, budget)
     assert routes == {'fused', 'rafused', 'two', 'xla'}
     assert tcc.MAX_SWEEPS == jcp.MAX_SWEEPS
 

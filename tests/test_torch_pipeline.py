@@ -516,6 +516,101 @@ def test_wrapper_slic_features_labels_matches_jax():
     assert (lbs_t == -1).any()
 
 
+def test_wrapper_labels_with_empty_highest_superpixels(monkeypatch):
+    """Superpixel labels of a map whose highest grid labels are empty (as
+    the min-size merge can leave it): the overlap histogram has fewer rows
+    than the K slots, the empty slots take -1, and so does a superpixel
+    below ``label_purity``."""
+    cfg = tslic.slic_config(32, 32, 8)
+    k = cfg.n_segments
+    labels = np.zeros((32, 32), np.int32)
+    labels[:, 16:] = 5
+    annot = np.ones((32, 32), int)
+    annot[:, 12:] = 2
+    counts = torch.as_tensor(np.bincount(labels.ravel(), minlength=k),
+                             dtype=torch.float32)
+    core = (torch.as_tensor(labels), torch.zeros(k, 3), counts,
+            torch.zeros(k, 2))
+    monkeypatch.setattr(tpipe, '_slic_features_core', lambda *a, **kw: core)
+    slic, feats, lbs = tpipe.wrapper_compute_color2d_slic_features_labels(
+        (np.zeros((32, 32, 3), np.float32), annot), 8, REGUL, FEATURES,
+        device='cpu')
+    assert labels.max() < k - 1 and feats.shape == (k, 3)
+    np.testing.assert_array_equal(slic, labels)
+    want = np.full(k, -1)
+    want[5] = 2                   # superpixel 0 is 3/4 label 1: impure
+    np.testing.assert_array_equal(lbs, want)
+    want[0] = 1
+    np.testing.assert_array_equal(tpipe._superpixel_annot_labels(
+        labels, annot, counts.numpy(), label_purity=0.5), want)
+
+
+class _HostModel:
+    """A duck-typed model over the port's class model: a numpy
+    ``predict_proba`` and ``classes_``."""
+
+    def __init__(self, model):
+        self.model = model
+        self.classes_ = np.array([3, 5, 7])
+
+    def predict_proba(self, x):
+        return self.model.predict_proba(torch.as_tensor(x)).numpy()
+
+
+@pytest.fixture(scope='module')
+def entries(models):
+    """{entry: (call(debug_visual, connectivity), segm dtype)} of the 2D
+    entries: a ClassModel, a Classifier (a tree trained on brightness
+    terciles, relabelled to 3 / 5 / 7), the duck-typed model, and the
+    unsupervised pipeline."""
+    from pyimsegm_tpu_torch.classification import Classifier
+    _, tm = models
+    _, feats = tpipe.compute_color2d_superpixels_features(
+        _image(SHAPES[0], 1), FEATURES, sp_size=SP, device='cpu')
+    bright = feats[:, :3].mean(1)
+    y = np.array([3, 5, 7])[np.digitize(
+        bright, np.quantile(bright, [1 / 3, 2 / 3]))]
+    clf = Classifier('DecTree', device='cpu').fit(feats, y)
+    img = _image(SHAPES[1], 7)
+    seg = tpipe.segment_color2d_slic_features_model_graphcut
+
+    def segment(model):
+        return lambda dv, conn: seg(img, model, FEATURES, sp_size=SP,
+                                    sp_regul=REGUL, gc_regul=GC,
+                                    debug_visual=dv, connectivity=conn,
+                                    device='cpu')
+
+    def unsup(dv, _conn):
+        return tpipe.pipe_color2d_slic_features_model_graphcut(
+            img, 3, FEATURES, sp_size=SP, sp_regul=REGUL, gc_regul=GC,
+            debug_visual=dv, device='cpu')
+
+    return {'class_model': (segment(tm), np.int32),
+            'classifier': (segment(clf), clf.classes_.dtype),
+            'duck': (segment(_HostModel(tm)), np.array([3]).dtype),
+            'unsup': (unsup, np.int32)}
+
+
+@pytest.mark.parametrize('entry, connectivity', [
+    ('class_model', True), ('class_model', False), ('classifier', True),
+    ('classifier', False), ('duck', True), ('unsup', True)])
+def test_entries_take_one_route_with_and_without_debug(entries, entry,
+                                                       connectivity):
+    """Every 2D entry returns equal arrays of equal dtypes with and without
+    ``debug_visual``: int32 labels (the class ids relabelled where the
+    model has ``classes_``) and float32 probabilities."""
+    call, segm_dtype = entries[entry]
+    debug = {}
+    plain = call(None, connectivity)
+    traced = call(debug, connectivity)
+    for a, b in zip(plain, traced):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert plain[0].dtype == segm_dtype and plain[1].dtype == np.float32
+    assert plain[0].shape == SHAPES[1] and plain[1].shape == SHAPES[1] + (3,)
+    assert {'slic', 'features', 'proba'} <= set(debug)
+
+
 _IMPORT_CHECK = """
 import importlib
 import os
@@ -536,7 +631,7 @@ from pyimsegm_tpu_torch.models import (adaboost, bgm, class_model,
 from pyimsegm_tpu_torch.ops import (color, connectivity_cuda,
                                     connectivity_host, enforce_cuda, filters,
                                     filters_cuda, graph, graphcut, grid,
-                                    grid_cuda, histogram, morphology,
+                                    grid_cuda, histogram, morphology, mrf,
                                     prep_cuda, ray, segment_stats,
                                     shape_prior, slic, slic3d, slic3d_cuda,
                                     slic_cuda, snakes)

@@ -79,24 +79,24 @@ CASES = ('classifier', 'classifier_raw', 'classifier_debug', 'class_model',
          'class_model_raw', 'compat', 'pipe_color2d', 'pipe_color2d_debug',
          'pipe_gray3d')
 #: the stage ranges each entry opens once a call (the compat route keeps
-#: its own SLIC, features and classify stages)
+#: its own SLIC, features and classify stages; only raw labels take the
+#: device ``lookup``)
 STAGES = {
     'classifier': {'upload', 'slic', 'enforce', 'features', 'predict_proba',
                    'edges', 'mrf', 'fetch', 'gather'},
     'class_model': {'upload', 'slic', 'enforce', 'features', 'predict_proba',
-                    'edges', 'mrf', 'lookup', 'fetch', 'gather'},
+                    'edges', 'mrf', 'fetch', 'gather'},
     'compat': {'upload', 'slic', 'features', 'classify', 'edges', 'mrf',
                'fetch', 'gather'},
     'pipe_color2d': {'upload', 'slic', 'enforce', 'features', 'fit',
-                     'predict_proba', 'edges', 'mrf', 'lookup', 'fetch',
-                     'gather'},
+                     'predict_proba', 'edges', 'mrf', 'fetch', 'gather'},
     'pipe_gray3d': {'upload', 'slic', 'counts', 'features', 'fit',
                     'predict_proba', 'edges', 'mrf', 'lookup', 'fetch',
                     'gather'},
 }
 STAGES['classifier_debug'] = STAGES['classifier']
-STAGES['classifier_raw'] = STAGES['classifier'] - {'enforce'}
-STAGES['class_model_raw'] = STAGES['class_model'] - {'enforce'}
+STAGES['classifier_raw'] = STAGES['classifier'] - {'enforce'} | {'lookup'}
+STAGES['class_model_raw'] = STAGES['class_model'] - {'enforce'} | {'lookup'}
 STAGES['pipe_color2d_debug'] = STAGES['pipe_color2d']
 
 

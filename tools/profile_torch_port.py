@@ -120,8 +120,7 @@ OVARY = (647, 1024)
 
 def _stages(torch, image, model):
     """One image through the bench path, stage by stage; {stage: ms}."""
-    from pyimsegm_tpu_torch import pipelines
-    from pyimsegm_tpu_torch.ops import graphcut
+    from pyimsegm_tpu_torch.ops import graphcut, segment_stats
     from pyimsegm_tpu_torch.ops import grid as grid_ops
     from pyimsegm_tpu_torch.ops import grid_cuda
     from pyimsegm_tpu_torch.ops import slic as slic_ops
@@ -156,7 +155,8 @@ def _stages(torch, image, model):
     def features():
         counts = sums[:, 6]
         cen = sums[:, 7:9] / torch.clamp_min(counts[:, None], 1.0)
-        return pipelines._moment_features(sums[:, :6], counts, flags), cen
+        return segment_stats.moment_features(sums[:, :6], counts,
+                                             flags), cen
     feats, centers = stage('features', features)
     proba = stage('predict_proba', lambda: model.predict_proba(feats))
     graph = stage('mrf', lambda: graphcut.segment_graph_cut_general(
